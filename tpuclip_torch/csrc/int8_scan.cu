@@ -1,0 +1,314 @@
+// int8 scan kernels for the PyTorch port (NVIDIA Hopper, sm_90a).
+//
+// Built by tpuclip_torch/ops/_build.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+// into a plain-C shared library bound with ctypes; every pointer argument
+// and the stream are void*, every entry point returns cudaGetLastError().
+// No fast-math flags: the epilogue's float(int32) * scale must round exactly
+// as the plain PyTorch versions in tpuclip_torch/ops/topk_int8.py do.
+//
+// Replaces (TPU Pallas kernels):
+//   tpuclip/ops/topk_int8.py:_int8_scores_kernel  -> int8_scores_kernel
+//   tpuclip/ops/topk_int8.py:_int8_packed_kernel  -> int8_packed_kernel
+//
+// What bounds them on the H100: the scan reads the whole int8 matrix once
+// per call, N x D bytes (about 1.18 GB at 1M x 1152, ~0.35 ms at 3.35 TB/s);
+// queries and scales are small. The dot products are 2 * Q * N * D integer
+// operations (37 GOP at Q = 16), far below the int8 tensor-core rate, so
+// done on tensor cores the scan stays memory-bound up to Q = 64.
+//
+// Design for that bound: the matrix is row-major (N, D) int8, K-major, as
+// the tensor cores take it. A warp computes a 16-row x 8-query tile with
+// mma.sync m16n8k32 (int8 in, exact int32 accumulation): per 128-byte slice
+// of K each lane loads 16 + 16 contiguous bytes of two rows straight from
+// global memory (every 32-byte sector used whole) and the same byte
+// positions of its query from shared memory. A dot product is a sum over
+// K, so the mma's logical K positions may come from any fixed permutation
+// of the physical bytes, as long as rows and queries use the same one; the
+// one used keeps every load 16 bytes wide. Queries sit in shared memory
+// for the whole block. Kernel 2 never writes the (Q, N) score matrix: one
+// tile's packed keys live in shared memory and a warp per query extracts
+// its top-k_tile. Blocks that share rows are adjacent in launch order, so
+// a second query group finds the rows in L2. Later work: TMA loads, wgmma
+// and a multi-stage pipeline.
+
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cstdint>
+
+namespace {
+
+constexpr int kWarp = 32;
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarp * kWarps;
+constexpr int kRowsPerWarp = 16;     // mma M
+constexpr int kQueriesPerMma = 8;    // mma N
+constexpr int kKSlice = 128;         // bytes of K per load step (4 mma K-steps)
+constexpr int kScoreGroups = 4;      // kernel 1: 4 x 8 = 32 queries per block
+constexpr int kMaxQueriesPerTile = 8;  // kernel 2: queries sharing one tile
+constexpr unsigned kIdxMask = (1u << 13) - 1u;
+
+// Shared-memory row stride of a query: D rounded up to the K slice, plus
+// 64 bytes so the query rows of one mma start in different bank halves.
+__host__ __device__ __forceinline__ int query_stride(int dim) {
+  return (dim + kKSlice - 1) / kKSlice * kKSlice + 64;
+}
+
+__device__ __forceinline__ int warp_max(int v) {
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Copies queries [q0, q0 + nq) into `rows` shared-memory rows of
+// query_stride(dim) bytes, zero-filling each row's tail and rows past nq.
+__device__ __forceinline__ void load_queries(const int8_t* __restrict__ q, int q0, int nq,
+                                             int rows, int dim, int8_t* __restrict__ qs) {
+  const int stride_words = query_stride(dim) / 4;
+  const int dim_words = dim / 4;
+  const int* src = reinterpret_cast<const int*>(q + static_cast<size_t>(q0) * dim);
+  int* dst = reinterpret_cast<int*>(qs);
+  for (int i = threadIdx.x; i < rows * stride_words; i += kThreads) {
+    const int r = i / stride_words;
+    const int w = i % stride_words;
+    dst[i] = (r < nq && w < dim_words) ? src[static_cast<size_t>(r) * dim_words + w] : 0;
+  }
+}
+
+__device__ __forceinline__ int4 load16(const int8_t* __restrict__ row, int off, int dim,
+                                       bool row_ok) {
+  if (row_ok && off < dim) return __ldg(reinterpret_cast<const int4*>(row + off));
+  return make_int4(0, 0, 0, 0);
+}
+
+// c += a (16x32, rows g / g+8) * b (32x8, column g), int8 in, int32 exact.
+__device__ __forceinline__ void mma_s8(int (&c)[4], int a0, int a1, int a2, int a3, int b0,
+                                       int b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// int32 dots of rows [row0, row0 + 16) with `groups` groups of 8 queries in
+// shared memory. Lane (g = lane / 4, t = lane % 4) ends with, for group j,
+// acc[j] = {dot(row0+g, 8j+2t), dot(row0+g, 8j+2t+1),
+//           dot(row0+g+8, 8j+2t), dot(row0+g+8, 8j+2t+1)}
+// (the mma's accumulator layout). Rows at or past n_rows read as zero.
+template <int kGroups>
+__device__ __forceinline__ void mma_rows(const int8_t* __restrict__ m, int n_rows, int dim,
+                                         int row0, const int8_t* __restrict__ qs, int groups,
+                                         int lane, int (&acc)[kGroups][4]) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kGroups; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
+  const bool ok_lo = row0 + g < n_rows;
+  const bool ok_hi = row0 + g + 8 < n_rows;
+  const int8_t* r_lo = m + static_cast<size_t>(ok_lo ? row0 + g : 0) * dim;
+  const int8_t* r_hi = m + static_cast<size_t>(ok_hi ? row0 + g + 8 : 0) * dim;
+  const int stride = query_stride(dim);
+  for (int kb = 0; kb < dim; kb += kKSlice) {
+    // Bytes [kb + 16t, +16) and [kb + 64 + 16t, +16) of each row: word i of
+    // the first half is mma step i's low-K operand, word i of the second
+    // half its high-K operand; the query words come from the same bytes.
+    const int4 lo_a = load16(r_lo, kb + 16 * t, dim, ok_lo);
+    const int4 lo_b = load16(r_lo, kb + 64 + 16 * t, dim, ok_lo);
+    const int4 hi_a = load16(r_hi, kb + 16 * t, dim, ok_hi);
+    const int4 hi_b = load16(r_hi, kb + 64 + 16 * t, dim, ok_hi);
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j) {
+      if (j < groups) {
+        const int8_t* qrow = qs + (j * kQueriesPerMma + g) * stride + kb + 16 * t;
+        const int4 qa = *reinterpret_cast<const int4*>(qrow);
+        const int4 qb = *reinterpret_cast<const int4*>(qrow + 64);
+        mma_s8(acc[j], lo_a.x, hi_a.x, lo_b.x, hi_b.x, qa.x, qb.x);
+        mma_s8(acc[j], lo_a.y, hi_a.y, lo_b.y, hi_b.y, qa.y, qb.y);
+        mma_s8(acc[j], lo_a.z, hi_a.z, lo_b.z, hi_b.z, qa.z, qb.z);
+        mma_s8(acc[j], lo_a.w, hi_a.w, lo_b.w, hi_b.w, qa.w, qb.w);
+      }
+    }
+  }
+}
+
+// The f32 score exactly as the TPU kernel and the plain version form it:
+// float(int32 dot) * scale, -inf past n_valid.
+__device__ __forceinline__ float score_of(int dot, float scale, bool valid) {
+  return valid ? __fmul_rn(__int2float_rn(dot), scale) : __uint_as_float(0xff800000u);
+}
+
+// tpuclip/ops/topk_int8.py:_pack_keys, bit for bit: the monotonic unsigned
+// float order, low 13 bits replaced by 8191 - lane (ties to the lowest
+// lane), biased back to signed.
+__device__ __forceinline__ int pack_key(float s, int lane_in_tile) {
+  unsigned u = __float_as_uint(s);
+  u ^= (u >> 31) ? 0xFFFFFFFFu : 0x80000000u;
+  u = (u & ~kIdxMask) | (kIdxMask - (static_cast<unsigned>(lane_in_tile) & kIdxMask));
+  return static_cast<int>(u ^ 0x80000000u);
+}
+
+// Kernel 1. Grid: one block per (128-row block, group of 32 queries), query
+// group fastest. out (n_q, n_rows) f32.
+__global__ void __launch_bounds__(kThreads)
+    int8_scores_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ m,
+                       const float* __restrict__ scales, float* __restrict__ out, int n_q,
+                       int n_rows, int dim, int n_valid, int n_qgroups) {
+  extern __shared__ int4 smem_scores[];
+  int8_t* qs = reinterpret_cast<int8_t*>(smem_scores);
+  constexpr int kGroupQueries = kScoreGroups * kQueriesPerMma;
+  const int q0 = (blockIdx.x % n_qgroups) * kGroupQueries;
+  const int nq = min(kGroupQueries, n_q - q0);
+  load_queries(q, q0, nq, kGroupQueries, dim, qs);
+  __syncthreads();
+
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int row0 = ((blockIdx.x / n_qgroups) * kWarps + warp) * kRowsPerWarp;
+  if (row0 >= n_rows) return;
+  int acc[kScoreGroups][4];
+  const int groups = (nq + kQueriesPerMma - 1) / kQueriesPerMma;
+  mma_rows<kScoreGroups>(m, min(n_rows, n_valid), dim, row0, qs, groups, lane, acc);
+
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kScoreGroups; ++j) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = row0 + g + (r >> 1) * 8;
+      const int qi = j * kQueriesPerMma + 2 * t + (r & 1);
+      if (qi < nq && row < n_rows) {
+        const bool valid = row < n_valid;
+        out[static_cast<size_t>(q0 + qi) * n_rows + row] =
+            score_of(acc[j][r], valid ? scales[row] : 0.0f, valid);
+      }
+    }
+  }
+}
+
+// Kernel 2. Grid: one block per (tile, chunk of qb <= 8 queries), query
+// chunk fastest. Shared memory: qb x tile int32 keys, then 8 query rows.
+// out (n_q, tiles * k_pad) int32: per tile, the top k_tile keys
+// descending, then INT32_MIN padding up to k_pad.
+__global__ void __launch_bounds__(kThreads)
+    int8_packed_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ m,
+                       const float* __restrict__ scales, int* __restrict__ out, int n_q,
+                       int n_rows, int dim, int n_valid, int tile, int k_tile, int k_pad,
+                       int qb, int n_qchunks) {
+  extern __shared__ int4 smem_packed[];
+  int* keys = reinterpret_cast<int*>(smem_packed);
+  int8_t* qs = reinterpret_cast<int8_t*>(keys + qb * tile);
+  const int tile_idx = blockIdx.x / n_qchunks;
+  const int q0 = (blockIdx.x % n_qchunks) * qb;
+  const int nq = min(qb, n_q - q0);
+  load_queries(q, q0, nq, kMaxQueriesPerTile, dim, qs);
+  __syncthreads();
+
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int base = tile_idx * tile;
+  const int dot_limit = min(n_rows, n_valid);
+  for (int s = warp * kRowsPerWarp; s < tile; s += kWarps * kRowsPerWarp) {
+    int acc[1][4];
+    mma_rows<1>(m, dot_limit, dim, base + s, qs, 1, lane, acc);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int local = s + g + (r >> 1) * 8;
+      const int qi = 2 * t + (r & 1);
+      if (qi < nq) {
+        const bool valid = base + local < n_valid;
+        const float score = score_of(acc[0][r], valid ? scales[base + local] : 0.0f, valid);
+        keys[qi * tile + local] = pack_key(score, local);
+      }
+    }
+  }
+  __syncthreads();
+
+  // One warp per query: k_tile rounds of warp-wide max over the tile's keys.
+  // Keys are unique within a tile, so exactly one lane owns each maximum and
+  // only that lane touches the positions it scans (i = lane mod 32).
+  const int tiles = n_rows / tile;
+  for (int qi = warp; qi < nq; qi += kWarps) {
+    int* kq = keys + qi * tile;
+    int* o = out + static_cast<size_t>(q0 + qi) * tiles * k_pad +
+             static_cast<size_t>(tile_idx) * k_pad;
+    for (int r = 0; r < k_tile; ++r) {
+      int best = INT_MIN;
+      int pos = -1;
+      for (int i = lane; i < tile; i += kWarp) {
+        const int v = kq[i];
+        if (v > best) {
+          best = v;
+          pos = i;
+        }
+      }
+      const int top = warp_max(best);
+      if (pos >= 0 && best == top) kq[pos] = INT_MIN;
+      if (lane == 0) o[r] = top;
+    }
+    for (int r = k_tile + lane; r < k_pad; r += kWarp) o[r] = INT_MIN;
+  }
+}
+
+size_t smem_optin() {
+  int device = 0;
+  int bytes = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return static_cast<size_t>(bytes);
+}
+
+}  // namespace
+
+extern "C" {
+
+// scores (n_q, n_rows) f32 of q (n_q, dim) int8 against m (n_rows, dim)
+// int8; dim % 16 == 0, both 16-byte aligned.
+int tpuclip_int8_scores(const void* q, const void* m, const void* scales, void* out, int n_q,
+                        int n_rows, int dim, int n_valid, void* stream) {
+  constexpr int kGroupQueries = kScoreGroups * kQueriesPerMma;
+  const int n_qgroups = (n_q + kGroupQueries - 1) / kGroupQueries;
+  const int rows_per_block = kWarps * kRowsPerWarp;
+  const int n_row_blocks = (n_rows + rows_per_block - 1) / rows_per_block;
+  const size_t smem = static_cast<size_t>(kGroupQueries) * query_stride(dim);
+  if (smem > smem_optin()) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      int8_scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int8_scores_kernel<<<n_row_blocks * n_qgroups, kThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(q), static_cast<const int8_t*>(m),
+      static_cast<const float*>(scales), static_cast<float*>(out), n_q, n_rows, dim, n_valid,
+      n_qgroups);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Per-tile packed top-k_tile keys (n_q, (n_rows / tile) * k_pad) int32;
+// dim % 16 == 0, tile % 16 == 0.
+int tpuclip_int8_candidates_packed(const void* q, const void* m, const void* scales, void* out,
+                                   int n_q, int n_rows, int dim, int n_valid, int tile,
+                                   int k_tile, int k_pad, void* stream) {
+  const size_t query_bytes = static_cast<size_t>(kMaxQueriesPerTile) * query_stride(dim);
+  const size_t per_query_keys = static_cast<size_t>(tile) * sizeof(int);
+  const size_t optin = smem_optin();
+  const size_t fit = optin > query_bytes ? (optin - query_bytes) / per_query_keys : 0;
+  const int qb = fit < kMaxQueriesPerTile ? static_cast<int>(fit) : kMaxQueriesPerTile;
+  if (qb < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = per_query_keys * qb + query_bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      int8_packed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_qchunks = (n_q + qb - 1) / qb;
+  const int tiles = n_rows / tile;
+  int8_packed_kernel<<<tiles * n_qchunks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(q), static_cast<const int8_t*>(m),
+      static_cast<const float*>(scales), static_cast<int*>(out), n_q, n_rows, dim, n_valid,
+      tile, k_tile, k_pad, qb, n_qchunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

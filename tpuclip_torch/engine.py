@@ -1,0 +1,215 @@
+"""The resident engine: model + database + device index (PyTorch port).
+
+Port of ``tpuclip/engine.py``'s ``ImageDatabase``: the SigLIP towers live
+on the device (bf16 on CUDA, fp32 on the CPU), batches are padded to fixed
+shapes (one image or ``inference_batch_size`` images; texts on the
+{1, 4, 16, 64} ladder), and the SQLite store, matrix cache, tokenizer and
+thumbnailer are tpuclip's own. ``search_texts`` is embed + ``search_batch``
+(tpuclip's non-fused branch); the fused tower + scan programs are not
+ported yet (ROADMAP Queue 1 item 1).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from tpuclip.config import default_paths
+from tpuclip.index.store import MetadataStore
+from tpuclip.io.preprocess import preprocess_batch
+from tpuclip.io.thumbnails import Thumbnailer
+from tpuclip.text.tokenizer import build_prompt, load_tokenizer
+from tpuclip.utils.bucketing import batch_bucket
+from tpuclip.utils.logging import banner, log, safe_print_path
+from tpuclip_torch.device import DeviceLike, default_dtype, resolve_device
+from tpuclip_torch.index.search import DeviceIndex
+from tpuclip_torch.models.configs import DEFAULT_MODEL
+from tpuclip_torch.models.loader import find_local_checkpoint, load_model
+
+
+class ImageDatabase:
+    """Searchable image database: SigLIP embeddings + on-device retrieval."""
+
+    def __init__(
+        self,
+        db_path: Optional[str] = None,
+        model_cache_dir: Optional[str] = None,
+        model_name: str = DEFAULT_MODEL,
+        inference_batch_size: int = 16,
+        compute_dtype: Optional[torch.dtype] = None,
+        device: DeviceLike = None,
+    ):
+        banner("Initializing Image Database")
+        paths = default_paths()
+        self.db_path = db_path or paths.db_path
+        self.model_cache_dir = model_cache_dir if model_cache_dir is not None else paths.model_cache_dir
+        self.thumbnails_dir = paths.thumbnails_dir
+        self.results_dir = paths.results_dir
+        log(f"Database path: {self.db_path}")
+        log(f"Model cache directory: {self.model_cache_dir}")
+
+        self.device = resolve_device(device)
+        self.compute_dtype = compute_dtype or default_dtype(self.device)
+        log(f"\nCompute device: {self.device}")
+        log(f"  [OK] Data type: {self.compute_dtype}")
+
+        log(f"\nLoading SigLIP 2 model...\n  Model: {model_name}")
+        self.model_name = model_name
+        self.config, self.model = load_model(
+            model_name, self.model_cache_dir, device=self.device, dtype=self.compute_dtype
+        )
+        self.embedding_dim = self.config.embedding_dim
+        self.image_size = self.config.vision.image_size
+        self.inference_batch_size = int(inference_batch_size)
+        log(f"  Embedding dimension: {self.embedding_dim}")
+
+        ckpt_dir = find_local_checkpoint(model_name, self.model_cache_dir)
+        self.tokenizer = load_tokenizer(
+            model_name,
+            str(ckpt_dir) if ckpt_dir else None,
+            vocab_size=self.config.text.vocab_size,
+        )
+        self._text_cache: dict = {}
+
+        log("\nInitializing database...")
+        self.store = MetadataStore(self.db_path, embedding_dim=self.embedding_dim)
+        self.store.init_schema()
+        stored_dim = self.store.stored_embedding_dim()
+        if stored_dim and stored_dim != self.embedding_dim:
+            log(
+                f"  [WARNING] Database was built with {stored_dim}-d embeddings "
+                f"but model '{model_name}' produces {self.embedding_dim}-d — "
+                "searches will return no results. Use the model the database "
+                "was scanned with (or a new --db)."
+            )
+        self.index = DeviceIndex(self.store, device=self.device)
+        self.thumbnailer = Thumbnailer(self.thumbnails_dir)
+        banner("Initialization complete!")
+
+    @property
+    def is_naflex(self) -> bool:
+        return self.config.vision.naflex
+
+    # ------------------------------------------------------------- embeddings
+
+    def embed_images_uint8(self, batch_uint8: np.ndarray) -> np.ndarray:
+        """uint8 (B, S, S, 3) → L2-normalized fp32 (B, D). A single image runs
+        at batch 1; anything else pads (or chunks) to the inference batch."""
+        b = batch_uint8.shape[0]
+        if b > self.inference_batch_size:
+            step = self.inference_batch_size
+            return np.concatenate(
+                [self.embed_images_uint8(batch_uint8[i : i + step]) for i in range(0, b, step)]
+            )
+        target = 1 if b == 1 else self.inference_batch_size
+        if target > b:
+            batch_uint8 = np.concatenate(
+                [batch_uint8, np.zeros((target - b,) + batch_uint8.shape[1:], np.uint8)]
+            )
+        pixels = torch.from_numpy(np.ascontiguousarray(batch_uint8)).to(self.device)
+        return self.model.get_image_features(pixels)[:b].cpu().numpy()
+
+    def _tokenize_bucketed(self, texts: List[str]):
+        """Prompt + tokenize, padded to the ladder batch size; pad rows are
+        all-zero (masked out) and sliced off by the caller."""
+        b = len(texts)
+        ids, mask = self.tokenizer.encode_batch_with_mask([build_prompt(t) for t in texts])
+        bucket = batch_bucket(b)
+        if bucket > b:
+            pad = bucket - b
+            ids = np.concatenate([ids, np.zeros((pad, ids.shape[1]), ids.dtype)])
+            mask = np.concatenate([mask, np.zeros((pad, mask.shape[1]), mask.dtype)])
+        return ids, mask
+
+    def embed_texts(self, texts: List[str]) -> np.ndarray:
+        """Prompted, tokenized, L2-normalized text embeddings (fp32)."""
+        b = len(texts)
+        if b == 0:
+            return np.zeros((0, self.embedding_dim), np.float32)
+        ids, mask = self._tokenize_bucketed(texts)
+        out = self.model.get_text_features(
+            torch.from_numpy(ids).to(self.device), torch.from_numpy(mask).to(self.device)
+        )
+        return out[:b].cpu().numpy()
+
+    def embed_texts_cached(self, texts: List[str]) -> np.ndarray:
+        """Batch text embedding through the session LRU (256 entries):
+        hits skip the tower, misses embed in one pass."""
+        out = np.empty((len(texts), self.embedding_dim), np.float32)
+        misses = []
+        for i, t in enumerate(texts):
+            cached = self._text_cache.get(t)
+            if cached is not None:
+                out[i] = cached
+                self._text_cache[t] = self._text_cache.pop(t)  # refresh recency
+            else:
+                misses.append(i)
+        if misses:
+            fresh = self.embed_texts([texts[i] for i in misses])
+            for j, i in enumerate(misses):
+                out[i] = fresh[j]
+                if len(self._text_cache) >= 256:
+                    self._text_cache.pop(next(iter(self._text_cache)))
+                self._text_cache[texts[i]] = fresh[j].copy()
+        return out
+
+    def search_texts(self, texts: List[str], k: int, filter_folders=None) -> List[List[tuple]]:
+        """Batch text search: embed (cached) + one ``search_batch`` pass."""
+        if not texts:
+            return []
+        vecs = self.embed_texts_cached(texts)
+        return self.index.search_batch(vecs, k, filter_folders=filter_folders)
+
+    def _embed_pil(self, img) -> np.ndarray:
+        if self.is_naflex:
+            raise NotImplementedError("NaFlex models are not ported yet (ROADMAP Queue 1 item 7)")
+        from tpuclip.io.preprocess import resize_to_uint8
+
+        pixels = resize_to_uint8(img, self.image_size)
+        return self.embed_images_uint8(pixels[None])[0].flatten()
+
+    def _get_image_embedding(self, image_path: str) -> Optional[np.ndarray]:
+        try:
+            from tpuclip.io.decode import load_image
+
+            img = load_image(image_path)
+            if img is None:
+                return None
+            return self._embed_pil(img)
+        except Exception as e:  # noqa: BLE001 - containment, as in tpuclip
+            safe_print_path("Error processing ", image_path, e)
+            return None
+
+    def embed_pils(self, images) -> np.ndarray:
+        """L2-normalized embeddings for decoded PIL images, one batched pass."""
+        if self.is_naflex:
+            raise NotImplementedError("NaFlex models are not ported yet (ROADMAP Queue 1 item 7)")
+        return self.embed_images_uint8(preprocess_batch(images, self.image_size))
+
+    def _get_text_embedding(self, text: str) -> np.ndarray:
+        """Lowercase + template + 64-token pad contract, through the LRU."""
+        return self.embed_texts_cached([text])[0]
+
+    # ------------------------------------------------------------- pipelines
+
+    def scan_directory(self, root_dir: str, **kwargs):
+        from tpuclip_torch.pipelines.scan import scan_directory
+
+        return scan_directory(self, root_dir, **kwargs)
+
+    def search(self, query: str, **kwargs):
+        from tpuclip_torch.pipelines.search import search
+
+        return search(self, query, **kwargs)
+
+    def search_by_embedding(self, embedding: np.ndarray, k: int = 10, **kwargs):
+        from tpuclip_torch.pipelines.search import search_by_embedding
+
+        return search_by_embedding(self, embedding, k, **kwargs)
+
+    def generate_html_gallery(self, results, output_file="results.html", query=None):
+        from tpuclip.gallery.html import generate_html_gallery
+
+        generate_html_gallery(results, output_file, query=query, thumbnailer=self.thumbnailer)

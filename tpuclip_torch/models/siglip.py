@@ -1,0 +1,317 @@
+"""SigLIP vision + text towers in PyTorch.
+
+Port of ``tpuclip/models/siglip.py`` with the same numerics contract:
+
+- matmuls run in the compute dtype (bf16 on CUDA, fp32 on the CPU) with
+  fp32 accumulation; bias adds, LayerNorm statistics and affine, gelu-tanh,
+  attention logits and softmax are computed in fp32 and rounded once.
+  PyTorch's own ops keep that contract fused for bf16 inputs (``F.linear``
+  adds the bias to the fp32 accumulator, ``F.layer_norm`` and ``F.gelu``
+  compute in fp32 internally), so each is one pass over the activations;
+- attention is explicit matmuls, as the JAX tower's einsum is: at SigLIP's
+  fixed 256-patch / 64-token sequences attention is a few percent of the
+  tower's FLOPs and was never a kernel;
+- the patch embedding is a reshape into (B, patches, P*P*C) patch rows in
+  (ph, pw, c) order followed by one GEMM, on uint8 NHWC input normalised
+  as x/127.5 - 1 inside the tower.
+
+Layers are an ``nn.ModuleList`` looped in Python (the JAX tower scans a
+stacked layer axis). Linear weights use PyTorch's (out, in) layout;
+``tpuclip_torch.models.convert.load_jax_params`` transposes the JAX
+package's (in, out) kernels on load.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tpuclip_torch.models.configs import SiglipConfig, TextConfig, VisionConfig
+
+# =============================================================================
+# Primitive blocks
+# =============================================================================
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """LayerNorm with fp32 statistics regardless of compute dtype."""
+    return F.layer_norm(x, x.shape[-1:], weight.to(x.dtype), bias.to(x.dtype), eps)
+
+
+def dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """``x @ W.T + b`` in the input dtype, accumulated in fp32."""
+    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """HF ``gelu_pytorch_tanh``, computed in fp32 for bf16 inputs."""
+    return F.gelu(x, approximate="tanh")
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, dim: int, eps: float):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+class Attention(nn.Module):
+    """Multi-head attention, HF SiglipAttention eager semantics: scale
+    1/sqrt(head_dim), fp32 logits and softmax. ``q_in`` (B, Sq, D),
+    ``kv_in`` (B, Sk, D); ``mask`` additive, broadcastable to (B, H, Sq, Sk)."""
+
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.q = nn.Linear(dim, dim)
+        self.k = nn.Linear(dim, dim)
+        self.v = nn.Linear(dim, dim)
+        self.o = nn.Linear(dim, dim)
+
+    def forward(
+        self, q_in: torch.Tensor, kv_in: torch.Tensor, mask: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        b, sq, d = q_in.shape
+        sk = kv_in.shape[1]
+        h = self.num_heads
+        q = dense(q_in, self.q).view(b, sq, h, d // h).transpose(1, 2)
+        k = dense(kv_in, self.k).view(b, sk, h, d // h).transpose(1, 2)
+        v = dense(kv_in, self.v).view(b, sk, h, d // h).transpose(1, 2)
+        scale = 1.0 / math.sqrt(d // h)
+        # fp32 logits: products of bf16 values are exact in fp32, so this is
+        # the JAX tower's bf16 x bf16 -> f32 contraction (TF32 must be off).
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+        if mask is not None:
+            logits = logits + mask.float()
+        weights = torch.softmax(logits, dim=-1).to(q.dtype)
+        out = torch.matmul(weights, v).transpose(1, 2)  # (B, Sq, H, hd)
+        return dense(out.reshape(b, sq, d), self.o)
+
+
+class MLP(nn.Module):
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(gelu_tanh(dense(x, self.fc1)), self.fc2)
+
+
+class EncoderLayer(nn.Module):
+    """Pre-LN block (SiglipEncoderLayer): x += attn(LN1(x)); x += mlp(LN2(x))."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        d = cfg.hidden_size
+        self.ln1 = LayerNorm(d, cfg.layer_norm_eps)
+        self.attn = Attention(d, cfg.num_heads)
+        self.ln2 = LayerNorm(d, cfg.layer_norm_eps)
+        self.mlp = MLP(d, cfg.intermediate_size)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        y = self.ln1(x)
+        x = x + self.attn(y, y, mask)
+        return x + self.mlp(self.ln2(x))
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.num_layers))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x, mask)
+        return x
+
+
+# =============================================================================
+# Vision tower
+# =============================================================================
+
+
+def normalize_pixels(pixel_values: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """uint8 [0,255] NHWC → x/127.5 - 1 in ``dtype``; float inputs pass
+    through. The constants are rounded to ``dtype`` first, as the JAX
+    tower's are."""
+    if pixel_values.dtype == torch.uint8:
+        x = pixel_values.to(dtype)
+        one = torch.ones((), dtype=dtype, device=x.device)
+        return x * torch.tensor(1.0 / 127.5, dtype=dtype, device=x.device) - one
+    return pixel_values.to(dtype)
+
+
+class MAPHead(nn.Module):
+    """Multihead attention pooling (SiglipMultiheadAttentionPoolingHead): a
+    learned probe cross-attends over the patch tokens, then LN + residual
+    MLP; returns the probe token."""
+
+    def __init__(self, cfg: VisionConfig):
+        super().__init__()
+        d = cfg.hidden_size
+        self.probe = nn.Parameter(torch.zeros(1, d))
+        self.attn = Attention(d, cfg.num_heads)
+        self.ln = LayerNorm(d, cfg.layer_norm_eps)
+        self.mlp = MLP(d, cfg.intermediate_size)
+
+    def forward(self, hidden: torch.Tensor) -> torch.Tensor:
+        b, _, d = hidden.shape
+        probe = self.probe.to(hidden.dtype).expand(b, 1, d)
+        attn_out = self.attn(probe, hidden)
+        y = attn_out + self.mlp(self.ln(attn_out))
+        return y[:, 0]
+
+
+class VisionTower(nn.Module):
+    def __init__(self, cfg: VisionConfig):
+        super().__init__()
+        if cfg.naflex:
+            raise NotImplementedError(
+                "NaFlex vision towers are not ported yet (ROADMAP Queue 1 item 7)"
+            )
+        self.cfg = cfg
+        patch_in = cfg.patch_size * cfg.patch_size * cfg.num_channels
+        self.patch = nn.Linear(patch_in, cfg.hidden_size)
+        self.pos_embed = nn.Parameter(torch.zeros(cfg.num_patches, cfg.hidden_size))
+        self.encoder = Encoder(cfg)
+        self.post_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+        self.head = MAPHead(cfg)
+
+    def patch_embed(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC (B, H, W, C) → (B, patches, D): patch rows flattened in
+        (ph, pw, c) order, patches in row-major grid order, one GEMM."""
+        b, h, w, c = x.shape
+        ps = self.cfg.patch_size
+        hp, wp = h // ps, w // ps
+        x = x.reshape(b, hp, ps, wp, ps, c).permute(0, 1, 3, 2, 4, 5)
+        x = x.reshape(b, hp * wp, ps * ps * c)
+        return dense(x, self.patch)
+
+    def forward(self, pixel_values: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """(B, H, W, C) uint8 or pre-normalised float → pooled (B, D)."""
+        x = self.patch_embed(normalize_pixels(pixel_values, dtype))
+        x = x + self.pos_embed.to(x.dtype)
+        hidden = self.post_ln(self.encoder(x))
+        return self.head(hidden)
+
+
+# =============================================================================
+# Text tower
+# =============================================================================
+
+
+class TextTower(nn.Module):
+    def __init__(self, cfg: TextConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.pos_embed = nn.Parameter(torch.zeros(cfg.max_length, cfg.hidden_size))
+        self.encoder = Encoder(cfg)
+        self.final_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+        self.head = nn.Linear(cfg.hidden_size, cfg.projection_size)
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        dtype: torch.dtype,
+        attention_mask: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """(B, S) ids (+ (B, S) 1/0 keep-mask) → projected (B, proj).
+
+        Pooling takes the LAST position's hidden state (SigLIP pads to
+        exactly ``max_length``). The additive key mask is built in fp32:
+        ``finfo(f32).min`` overflows bf16."""
+        ids = input_ids.long()
+        x = self.token_embedding.weight[ids].to(dtype)
+        x = x + self.pos_embed[: ids.shape[-1]].to(dtype)[None]
+        mask4d = None
+        if attention_mask is not None:
+            keep = attention_mask.float()
+            mask4d = ((1.0 - keep) * torch.finfo(torch.float32).min)[:, None, None, :]
+        hidden = self.final_ln(self.encoder(x, mask4d))
+        return dense(hidden[:, -1, :], self.head)
+
+
+# =============================================================================
+# Model
+# =============================================================================
+
+
+class SiglipModel(nn.Module):
+    """Both towers plus the (training-only) logit scale and bias."""
+
+    def __init__(self, cfg: SiglipConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.vision = VisionTower(cfg.vision)
+        self.text = TextTower(cfg.text)
+        self.logit_scale = nn.Parameter(torch.tensor(math.log(10.0)))
+        self.logit_bias = nn.Parameter(torch.tensor(-10.0))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.vision.pos_embed.dtype
+
+    @torch.inference_mode()
+    def get_image_features(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        """L2-normalised fp32 image embeddings (B, D); divides by
+        max(norm, 1e-12) like F.normalize."""
+        pooled = self.vision(pixel_values, self.dtype).float()
+        norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
+        return pooled / norm.clamp_min(1e-12)
+
+    @torch.inference_mode()
+    def get_text_features(
+        self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """L2-normalised fp32 text embeddings (B, proj); divides by
+        norm + 1e-12."""
+        pooled = self.text(input_ids, self.dtype, attention_mask).float()
+        norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
+        return pooled / (norm + 1e-12)
+
+
+@torch.no_grad()
+def init_params_(model: SiglipModel, generator: torch.Generator) -> SiglipModel:
+    """Random init with the distributions of tpuclip's ``init_params``:
+    linear weights N(0, 1/fan_in), zero biases, unit LayerNorm scales,
+    N(0, 0.02²) token/position embeddings, N(0, 1) pooling probe, logit
+    scale log(10) and bias -10. Draws come from ``generator`` on the
+    generator's device, in fp32, then land in each parameter's dtype."""
+    device = generator.device
+
+    def normal_(p: torch.Tensor, std: float) -> None:
+        draw = torch.randn(p.shape, generator=generator, device=device, dtype=torch.float32)
+        p.copy_(draw.mul_(std))
+
+    for module in model.modules():
+        if isinstance(module, nn.Linear):
+            normal_(module.weight, 1.0 / math.sqrt(module.in_features))
+            module.bias.zero_()
+        elif isinstance(module, LayerNorm):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+    normal_(model.vision.pos_embed, 0.02)
+    normal_(model.vision.head.probe, 1.0)
+    normal_(model.text.token_embedding.weight, 0.02)
+    normal_(model.text.pos_embed, 0.02)
+    model.logit_scale.fill_(math.log(10.0))
+    model.logit_bias.fill_(-10.0)
+    return model
+
+
+def build_model(cfg: SiglipConfig, device: torch.device, dtype: torch.dtype) -> SiglipModel:
+    """Uninitialised model allocated directly on ``device`` in ``dtype``
+    (built on the meta device, so no throwaway default init runs)."""
+    with torch.device("meta"):
+        model = SiglipModel(cfg)
+    return model.to(dtype=dtype).to_empty(device=device).eval().requires_grad_(False)

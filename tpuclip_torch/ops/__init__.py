@@ -1,0 +1,6 @@
+from tpuclip_torch.ops.topk_int8 import (  # noqa: F401
+    int8_candidates_packed,
+    int8_scores,
+    topk_int8_rerank_fused,
+    topk_int8_rerank_fused_auto,
+)

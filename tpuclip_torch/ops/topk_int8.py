@@ -1,0 +1,373 @@
+"""int8 quantized search with an exact rescore (PyTorch port).
+
+Port of the main-path pieces of ``tpuclip/ops/topk_int8.py``. The database
+rows are quantized to symmetric per-row int8 (unit-norm rows, so scales
+are near-uniform); a query's int8 dots against the int8 matrix build a
+shortlist, and the shortlisted rows are rescored exactly against the
+resident full-precision (bf16 on CUDA) rows. Results are ordered
+(score desc, row asc).
+
+Two kernels sit behind this module, in ``tpuclip_torch/csrc/int8_scan.cu``:
+
+- :func:`int8_scores` — kernel 1, the full (Q, N) f32 score matrix
+  (replaces ``_int8_scores_kernel``); the single-query ``exact`` shortlist;
+- :func:`int8_candidates_packed` — kernel 2, per-tile top-``k_tile`` packed
+  keys (replaces ``_int8_packed_kernel``); the batch ``extract`` shortlist.
+
+Each wrapper dispatches on its tensors' device: CPU tensors go to the plain
+PyTorch version beside it (same signature, same bits); CUDA tensors go to
+the kernel, which runs or raises. Each wrapper counts its kernel launches
+in a plain integer attribute (``int8_scores.launches``).
+
+Layout: the int8 matrix is row-major (N_pad, D) — the JAX package keeps it
+feature-major (D, N_pad) for the TPU's MXU. Results do not depend on it.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional, Tuple
+
+import torch
+
+_NEG_INF = float("-inf")
+_INT32_MIN = -(2**31)
+_INT32_MAX = 2**31 - 1
+
+# Row padding unit of the int8 matrix (as tpuclip's INT8_TILE_N).
+INT8_TILE_N = 6144
+# Tile width of the batch (extract) shortlist: per-tile top-k_tile keys.
+# Divides INT8_TILE_N; the kernel holds 8 queries x 2048 keys in 64 KB of
+# shared memory.
+PACKED_TILE_N = 2048
+
+# Packed keys carry the tile-local lane in their low 13 bits (tiles <= 8192).
+_IDX_BITS = 13
+_IDX_MASK = (1 << _IDX_BITS) - 1
+# Largest key a masked (-inf) lane can produce (tpuclip's _NEGINF_KEY_MAX):
+# "key <= this" marks an invalid candidate.
+_NEGINF_KEY_MAX = -2139095041  # int32(0x807FFFFF)
+
+# Scales are max|x| * float32(1/127): XLA rewrites tpuclip's jitted
+# ``max / 127.0`` into this multiply, and the port matches it bit for bit.
+_INV_127 = 1.0 / 127.0
+
+_CHUNK_ROWS = 65536  # bounds the transient memory of the chunked plain passes
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """float32/int32 tensor → its 32 bits as non-negative int64."""
+    return x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def _i32_from_u32(u: torch.Tensor) -> torch.Tensor:
+    """Non-negative int64 < 2**32 → the int32 with those bits."""
+    return torch.where(u >= 2**31, u - 2**32, u).to(torch.int32)
+
+
+def round_f32_to_bf16_bits(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to the nearest bfloat16 (half to even) with integer bit
+    ops, returned AS float32 (tpuclip's ``round_f32_to_bf16_bits``).
+    Finite inputs only."""
+    u = _u32(x.float())
+    lsb = (u >> 16) & 1
+    u = (u + 0x7FFF + lsb) & 0xFFFF0000
+    return _i32_from_u32(u).view(torch.float32)
+
+
+def quantize_queries(q_f32: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8: (Q, D) f32 → ((Q, D) int8, (Q, 1) f32 scales).
+    The scale is rank-invariant, so shortlist-only callers may drop it."""
+    q = q_f32.float()
+    qs = q.abs().amax(dim=1, keepdim=True) * _INV_127
+    qs = torch.where(qs == 0, torch.ones_like(qs), qs)
+    qi = torch.clamp(torch.round(q / qs), -127, 127).to(torch.int8)
+    return qi, qs
+
+
+def derive_int8_matrix(rows: torch.Tensor, n_pad: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N, D) bf16/f32 rows → ((n_pad, D) int8, (n_pad,) f32 scales) on the
+    rows' device: per-row symmetric quantization of the storage-dtype rows,
+    zero rows / unit scales past N (tpuclip's ``derive_int8_matrix_device``,
+    row-major)."""
+    n, d = rows.shape
+    m = torch.zeros((n_pad, d), dtype=torch.int8, device=rows.device)
+    scales = torch.ones((n_pad,), dtype=torch.float32, device=rows.device)
+    for s in range(0, n, _CHUNK_ROWS):
+        mf = rows[s : s + _CHUNK_ROWS].float()
+        sc = mf.abs().amax(dim=1) * _INV_127
+        sc = torch.where(sc == 0, torch.ones_like(sc), sc)
+        m[s : s + len(mf)] = torch.clamp(torch.round(mf / sc[:, None]), -127, 127).to(torch.int8)
+        scales[s : s + len(mf)] = sc
+    return m, scales
+
+
+# =============================================================================
+# Kernel 1: int8 scores
+# =============================================================================
+
+
+def _check_scan_args(q_int8, m_int8, scales, n_valid) -> None:
+    if q_int8.dtype != torch.int8 or m_int8.dtype != torch.int8:
+        raise TypeError(f"int8 queries and matrix required, got {q_int8.dtype}, {m_int8.dtype}")
+    if scales.dtype != torch.float32:
+        raise TypeError(f"float32 scales required, got {scales.dtype}")
+    if q_int8.dim() != 2 or m_int8.dim() != 2 or q_int8.shape[1] != m_int8.shape[1]:
+        raise ValueError(f"shapes (Q, D) and (N, D) required, got {tuple(q_int8.shape)}, {tuple(m_int8.shape)}")
+    if scales.shape != (m_int8.shape[0],):
+        raise ValueError(f"scales must be ({m_int8.shape[0]},), got {tuple(scales.shape)}")
+    if not 0 <= int(n_valid) <= m_int8.shape[0]:
+        raise ValueError(f"n_valid {n_valid} outside [0, {m_int8.shape[0]}]")
+    if not (q_int8.device == m_int8.device == scales.device):
+        raise ValueError("queries, matrix and scales must share one device")
+
+
+def _check_cuda_args(*tensors: torch.Tensor, dim: int) -> None:
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError("the CUDA kernels take contiguous tensors")
+        if t.data_ptr() % 16:
+            raise ValueError("the CUDA kernels take 16-byte aligned tensors")
+    if dim % 16:
+        raise ValueError(f"the CUDA kernels take D % 16 == 0, got {dim}")
+
+
+def _int8_scores_plain(q_int8, m_int8, scales, n_valid) -> torch.Tensor:
+    """Plain version of :func:`int8_scores`: the int32 dot through float64
+    (exact: |dot| < 2**25), rounded to f32 and scaled as the kernel does."""
+    n = m_int8.shape[0]
+    out = torch.empty((q_int8.shape[0], n), dtype=torch.float32, device=q_int8.device)
+    qd = q_int8.to(torch.float64)
+    for s in range(0, n, _CHUNK_ROWS):
+        acc = qd @ m_int8[s : s + _CHUNK_ROWS].to(torch.float64).T
+        out[:, s : s + acc.shape[1]] = acc.to(torch.float32) * scales[s : s + acc.shape[1]]
+    out[:, int(n_valid):] = _NEG_INF
+    return out
+
+
+def int8_scores(
+    q_int8: torch.Tensor, m_int8: torch.Tensor, scales: torch.Tensor, n_valid: int
+) -> torch.Tensor:
+    """(Q, D) int8 queries x (N_pad, D) int8 rows → (Q, N_pad) f32 scores
+    ``float(int32 dot) * scales[n]``, -inf for ``n >= n_valid``."""
+    _check_scan_args(q_int8, m_int8, scales, n_valid)
+    if q_int8.device.type == "cpu":
+        return _int8_scores_plain(q_int8, m_int8, scales, n_valid)
+    if q_int8.device.type != "cuda":
+        raise ValueError(f"unsupported device {q_int8.device}")
+    from tpuclip_torch.ops._build import library
+
+    q_count, d = q_int8.shape
+    n = m_int8.shape[0]
+    _check_cuda_args(q_int8, m_int8, scales, dim=d)
+    out = torch.empty((q_count, n), dtype=torch.float32, device=q_int8.device)
+    if q_count == 0 or n == 0:
+        return out
+    with torch.cuda.device(q_int8.device):
+        rc = library().tpuclip_int8_scores(
+            q_int8.data_ptr(), m_int8.data_ptr(), scales.data_ptr(), out.data_ptr(),
+            q_count, n, d, int(n_valid), torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"int8_scores kernel launch failed: cudaError {rc}")
+    int8_scores.launches += 1
+    return out
+
+
+int8_scores.launches = 0
+
+
+# =============================================================================
+# Kernel 2: per-tile packed-key candidates
+# =============================================================================
+
+
+def _pack_keys(scores: torch.Tensor, tile: int) -> torch.Tensor:
+    """(Q, N) f32 scores → monotonic int32 keys (as int64 values) carrying
+    the tile-local lane, bit for bit tpuclip's ``_pack_keys``."""
+    u = _u32(scores)
+    u = u ^ torch.where((u >> 31) == 1, 0xFFFFFFFF, 0x80000000)
+    lane = torch.arange(scores.shape[1], device=scores.device) % tile & _IDX_MASK
+    key = (u & (0xFFFFFFFF & ~_IDX_MASK)) | (_IDX_MASK - lane)
+    key = key ^ 0x80000000
+    return torch.where(key >= 2**31, key - 2**32, key)
+
+
+def _int8_candidates_packed_plain(q_int8, m_int8, scales, k_tile, n_valid, tile) -> torch.Tensor:
+    """Plain version of :func:`int8_candidates_packed`: int64 key
+    arithmetic, then ``torch.topk`` per tile (keys are unique in a tile)."""
+    q_count, n = q_int8.shape[0], m_int8.shape[0]
+    tiles = n // tile
+    k_pad = -(-k_tile // 128) * 128
+    keys = _pack_keys(_int8_scores_plain(q_int8, m_int8, scales, n_valid), tile)
+    top = torch.topk(keys.view(q_count, tiles, tile), k_tile, dim=-1).values
+    out = torch.full((q_count, tiles, k_pad), _INT32_MIN, dtype=torch.int32, device=q_int8.device)
+    out[:, :, :k_tile] = top.to(torch.int32)
+    return out.view(q_count, tiles * k_pad)
+
+
+def int8_candidates_packed(
+    q_int8: torch.Tensor,
+    m_int8: torch.Tensor,
+    scales: torch.Tensor,
+    k_tile: int,
+    n_valid: int,
+    tile: int,
+) -> torch.Tensor:
+    """Per-tile top-``k_tile`` packed keys, (Q, tiles * k_pad) int32 with
+    k_pad = k_tile rounded up to 128 and INT32_MIN padding. The scores are
+    :func:`int8_scores`'; a key is the score's order-preserving bits with
+    the low 13 bits replaced by ``8191 - lane`` (ties to the lowest lane).
+    Callers recover rows as ``pos // k_pad * tile + 8191 - (key & 8191)``."""
+    _check_scan_args(q_int8, m_int8, scales, n_valid)
+    n = m_int8.shape[0]
+    if not (0 < tile <= _IDX_MASK + 1 and tile % 32 == 0 and n % tile == 0):
+        raise ValueError(f"tile must divide N={n}, be a multiple of 32 and <= 8192, got {tile}")
+    if not 1 <= k_tile <= tile:
+        raise ValueError(f"k_tile must be in [1, {tile}], got {k_tile}")
+    if q_int8.device.type == "cpu":
+        return _int8_candidates_packed_plain(q_int8, m_int8, scales, k_tile, n_valid, tile)
+    if q_int8.device.type != "cuda":
+        raise ValueError(f"unsupported device {q_int8.device}")
+    from tpuclip_torch.ops._build import library
+
+    q_count, d = q_int8.shape
+    _check_cuda_args(q_int8, m_int8, scales, dim=d)
+    k_pad = -(-k_tile // 128) * 128
+    out = torch.empty((q_count, (n // tile) * k_pad), dtype=torch.int32, device=q_int8.device)
+    if q_count == 0:
+        return out
+    with torch.cuda.device(q_int8.device):
+        rc = library().tpuclip_int8_candidates_packed(
+            q_int8.data_ptr(), m_int8.data_ptr(), scales.data_ptr(), out.data_ptr(),
+            q_count, n, d, int(n_valid), tile, k_tile, k_pad,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"int8_candidates_packed kernel launch failed: cudaError {rc}")
+    int8_candidates_packed.launches += 1
+    return out
+
+
+int8_candidates_packed.launches = 0
+
+
+# =============================================================================
+# Shortlist → exact rescore → top-k
+# =============================================================================
+
+
+def _rescore_select(cand, cand_invalid, q_f32, rows_full, k_eff):
+    """Exact rescore of a candidate shortlist + final (score desc, row asc)
+    top-``k_eff`` (tpuclip's ``_rescore_select``).
+
+    With bf16 rows the query is rounded to bf16 first, so every product is
+    exact in f32 and the scores equal a bf16 scan's up to summation order.
+    The dot is an elementwise product + row sum: identical rows get
+    identical scores, so their order is decided by row id alone."""
+    n_rows = rows_full.shape[0]
+    cand = cand.long()
+    q = q_f32.float()
+    qr = round_f32_to_bf16_bits(q) if rows_full.dtype == torch.bfloat16 else q
+    gathered = rows_full[cand.clamp(0, n_rows - 1)].float()  # (Q, M, D)
+    exact = (gathered * qr[:, None, :]).sum(dim=-1)
+    invalid = (cand < 0) | (cand >= n_rows) | cand_invalid
+    exact = exact.masked_fill(invalid, _NEG_INF)
+    sort_rows = cand.masked_fill(invalid, _INT32_MAX)
+    # Sort by row, then stable-sort by score descending: (score desc, row asc).
+    by_row = torch.argsort(sort_rows, dim=1, stable=True)
+    exact, sort_rows = exact.gather(1, by_row), sort_rows.gather(1, by_row)
+    order = torch.argsort(-exact, dim=1, stable=True)[:, :k_eff]
+    return exact.gather(1, order), sort_rows.gather(1, order)
+
+
+def topk_exact_from_scores(scores, q_f32, rows_full, k: int, m: int):
+    """Exact top-``k`` from a materialized (Q, N) int8 score matrix: the
+    exact top-``m`` shortlist (the strongest int8 shortlist), then the
+    rescore."""
+    k_eff = min(k, scores.shape[1])
+    top_s, cand = torch.topk(scores, m, dim=1)
+    return _rescore_select(cand, torch.isneginf(top_s), q_f32, rows_full, k_eff)
+
+
+def resolve_shortlist_method(q_count: int) -> str:
+    """Shortlist policy, overridable with TPUCLIP_SHORTLIST=exact|extract:
+    a single query takes ``exact`` (kernel 1 + torch.topk), a batch takes
+    ``extract`` (kernel 2). tpuclip's ``approx``/``verified`` methods rest on
+    the TPU's ``lax.approx_max_k`` and are not ported."""
+    env = os.environ.get("TPUCLIP_SHORTLIST", "auto")
+    if env == "auto":
+        return "exact" if q_count == 1 else "extract"
+    if env in ("exact", "extract"):
+        return env
+    if env in ("approx", "verified"):
+        raise NotImplementedError(
+            f"TPUCLIP_SHORTLIST={env} needs an approximate top-k that torch lacks; "
+            "it waits for an H100 measurement (ROADMAP Queue 1 item 6). Use exact or extract."
+        )
+    raise ValueError(f"TPUCLIP_SHORTLIST must be auto, exact or extract, got {env!r}")
+
+
+def topk_int8_rerank_fused(
+    q_f32: torch.Tensor,
+    m_int8: torch.Tensor,
+    scales: torch.Tensor,
+    rows_full: torch.Tensor,
+    k: int,
+    shortlist: int = 512,
+    n_valid: Optional[int] = None,
+    shortlist_method: str = "extract",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 scan → top-``shortlist`` → gather from ``rows_full`` → exact
+    rescore → (score desc, row asc) top-k. Returns ((Q, k) f32 scores,
+    (Q, k) int64 rows); invalid slots are (-inf, INT32_MAX).
+
+    ``exact``: kernel 1's full score matrix + ``torch.topk``. ``extract``:
+    kernel 2's per-tile top-``k_tile`` keys, k_tile = min(128, max(4k,
+    2*ceil(m/tiles))) as in tpuclip; above k = 128 the per-tile depth could
+    not cover k, so ``exact`` serves instead."""
+    q_count = q_f32.shape[0]
+    n = m_int8.shape[0]
+    n_valid = n if n_valid is None else int(n_valid)
+    k_eff = min(k, n)
+    if k_eff <= 0:
+        empty = torch.zeros((q_count, 0), device=q_f32.device)
+        return empty, empty.long()
+    qi, _ = quantize_queries(q_f32)
+    m = min(max(shortlist, 4 * k_eff), n)
+    method = "exact" if shortlist_method == "extract" and k_eff > 128 else shortlist_method
+    if method == "exact":
+        return topk_exact_from_scores(
+            int8_scores(qi, m_int8, scales, n_valid), q_f32, rows_full, k_eff, m
+        )
+    if method != "extract":
+        raise ValueError(f"unknown shortlist method {shortlist_method!r}")
+    tile = min(PACKED_TILE_N, n)
+    k_tile = min(128, max(4 * k_eff, 2 * (-(-m // (n // tile)))))
+    keys = int8_candidates_packed(qi, m_int8, scales, k_tile, n_valid, tile)
+    k_pad = -(-k_tile // 128) * 128
+    top_keys, pos = torch.topk(keys, min(m, keys.shape[1]), dim=1)
+    u = _u32(top_keys) ^ 0x80000000
+    cand = (pos // k_pad) * tile + (_IDX_MASK - (u & _IDX_MASK))
+    return _rescore_select(cand, top_keys <= _NEGINF_KEY_MAX, q_f32, rows_full, k_eff)
+
+
+def topk_int8_rerank_fused_auto(
+    q_f32: torch.Tensor,
+    m_int8: torch.Tensor,
+    scales: torch.Tensor,
+    rows_full: torch.Tensor,
+    k: int,
+    shortlist: int = 512,
+    n_valid: Optional[int] = None,
+    stats: Optional[Dict[str, int]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`topk_int8_rerank_fused` under :func:`resolve_shortlist_method`;
+    ``stats`` counts searches per method (``exact_searches``, ...)."""
+    method = resolve_shortlist_method(int(q_f32.shape[0]))
+    if stats is not None:
+        stats[f"{method}_searches"] = stats.get(f"{method}_searches", 0) + 1
+    return topk_int8_rerank_fused(
+        q_f32, m_int8, scales, rows_full, k, shortlist=shortlist, n_valid=n_valid,
+        shortlist_method=method,
+    )
