@@ -6,20 +6,38 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. environment: torch / CUDA versions, the card's name and power limit
    (nvidia-smi), TF32 off;
-2. build: the CUDA kernels from tpuclip_torch/csrc, timed;
+2. build: the CUDA kernels from tpuclip_torch/csrc (one nvcc per source, in
+   parallel), timed;
 3. kernels against their plain PyTorch versions at the main path's size,
    1,000,000 unit-norm rows x 1152 (numpy seed 0, bf16 rows + int8 matrix
    on the card): int8_scores at Q = 1, 16 and int8_candidates_packed at
    Q = 16, 64 bit-equal; the fused int8 search at Q = 1, 16, k = 20 with
    the same ids and scores within 1e-6 as the route through the plain
-   versions; CUDA-event p50 times of each kernel and its plain version;
+   versions; topk_tiles (kernel 4) on the bf16 rows at Q = 1, 16 and
+   k = 20, 128 with scores within 1e-5 of the plain version, every row
+   within 1e-5 of the plain k-th score, ordered (score desc, row asc), and
+   at k = 128 with one selection lane's slots all among the top rows; the
+   bf16 route above k = 128 (topk_plain, a chunked fp32 matmul) at k = 200
+   within 1e-5 of the float64 reference, timed; then 10,000,000 packed binary rows x 36 words (a seeded torch.Generator on the
+   card): binary_scores bit-equal, binary_topk_q1 at k = 20, 640, 4096 and
+   binary_topk_batched at Q = 4, 16, k = 20, 640 identical to the plain
+   version; CUDA-event p50 times of each kernel and its plain version;
 4. end to end through the entry points: 512 seeded JPEGs, ``scan`` and
    ``search "a red car" -k 20 --no-session`` through tpuclip_torch.cli, and
    ``ImageDatabase.search_texts`` on 4 texts, with SigLIP2 SO400M-patch14-224
-   at full width and random weights (TPUCLIP_INIT=random), bf16. Both kernel
-   launch counters must rise in this phase; the CLI's results must match a
-   brute-force rescore of the database, the batch's the plain route's, and
-   embeddings must be unit-norm. jax must never have been imported.
+   at full width and random weights (TPUCLIP_INIT=random), bf16. Both int8
+   kernel launch counters must rise in this phase; the CLI's results must
+   match a brute-force rescore of the database, the batch's the plain
+   route's, and embeddings must be unit-norm;
+5. the other search paths end to end on phase 4's database: ``search
+   --precision bf16`` against a brute-force bf16 scan; ``search --mode
+   cascade`` and a 4-text ``search_texts`` in cascade mode against an fp32
+   brute force over the stored vectors (the default depth of 640 covers
+   all 512 rows); ``scan --binary-only`` into a second database, then
+   ``search`` against a brute-force popcount over the stored sign bits and
+   both ``search`` and a 4-text ``search_texts`` against the route through
+   the plain versions. The references read the SQLite files directly. Kernels 4-7's launch counters must rise in this phase.
+   jax must never have been imported.
 
 The last two lines are the kernels' JSON record and then
 ``{"ok": true, "device": {...}}``.
@@ -27,6 +45,7 @@ The last two lines are the kernels' JSON record and then
 
 import json
 import os
+import sqlite3
 import statistics
 import subprocess
 import sys
@@ -42,6 +61,9 @@ N_ROWS = 1_000_000
 DIM = 1152
 K = 20
 N_IMAGES = 512
+N_BINARY = 10_000_000  # the cascade's documented scale (tpuclip/index/search.py:92-97)
+WORDS = DIM // 32
+TEXTS = ["a red car", "blue sky", "a dog on a beach", "city lights at night"]
 
 
 def check(cond, msg):
@@ -74,20 +96,38 @@ def p50_ms(fn, reps):
 
 
 @contextmanager
-def plain_kernels(ops):
-    """Route the fused search through the plain versions (on the same CUDA
+def plain_kernels(mods):
+    """Route every search through the plain versions (on the same CUDA
     tensors) for the comparison; the kernels' counters do not move."""
-    saved = ops.int8_scores, ops.int8_candidates_packed
-    ops.int8_scores = ops._int8_scores_plain
-    ops.int8_candidates_packed = ops._int8_candidates_packed_plain
+    ops, tops, hops = mods
+    swaps = [
+        (ops, "int8_scores", ops._int8_scores_plain),
+        (ops, "int8_candidates_packed", ops._int8_candidates_packed_plain),
+        (tops, "topk_tiles", tops._topk_tiles_plain),
+        (hops, "binary_scores", hops._binary_scores_plain),
+        (hops, "binary_topk_q1", hops._binary_topk_plain),
+        (hops, "binary_topk_batched", hops._binary_topk_plain),
+    ]
+    saved = [(module, name, getattr(module, name)) for module, name, _ in swaps]
+    for module, name, plain in swaps:
+        setattr(module, name, plain)
     try:
         yield
     finally:
-        ops.int8_scores, ops.int8_candidates_packed = saved
+        for module, name, kernel in saved:
+            setattr(module, name, kernel)
 
 
-def phase_kernels(ops, gpu):
-    """Phase 3: returns {kernel name: (max_abs_err, ms, plain_ms)}."""
+def ordered(scores, rows):
+    """Each row of (Q, k) results is ordered (score desc, row asc)."""
+    a, b = scores[:, :-1], scores[:, 1:]
+    return bool(((a > b) | ((a == b) & (rows[:, :-1] < rows[:, 1:]))).all())
+
+
+def phase_kernels(mods, gpu):
+    """Phase 3, the dense kernels: returns {kernel name: (max_abs_err, ms,
+    plain_ms)}."""
+    ops, tops, _ = mods
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     rows = torch.empty((N_ROWS, DIM), dtype=torch.bfloat16, device=dev)
@@ -138,7 +178,7 @@ def phase_kernels(ops, gpu):
             return ops.topk_int8_rerank_fused_auto(q, m, scales, rows, K, n_valid=N_ROWS)
 
         s, i = fused()
-        with plain_kernels(ops):
+        with plain_kernels(mods):
             s_plain, i_plain = fused()
         check(torch.equal(i, i_plain), f"fused search Q={q_count}: ids differ from the plain route")
         err = (s - s_plain).abs().max().item()
@@ -146,6 +186,114 @@ def phase_kernels(ops, gpu):
         ms = p50_ms(fused, 20)
         print(f"[kernels] fused int8 search Q={q_count} k={K}: ids identical to the plain route, "
               f"max score diff {err:.2e}, p50 {ms:.4f} ms  ({gpu})", flush=True)
+
+    # Kernel 4 on the same bf16 rows: scores accumulate in fp32 in another
+    # order than the plain float64 sum, so near-tie rows may swap.
+    for q_count in (1, 16):
+        q = queries[:q_count]
+        for k in (K, 128):
+            s, i = tops.topk_tiles(q, rows, k, N_ROWS)
+            s_p, i_p = tops._topk_tiles_plain(q, rows, k, N_ROWS)
+            err = (s - s_p).abs().max().item()
+            check(err <= 1e-5, f"topk_tiles Q={q_count} k={k}: scores off the plain version by {err}")
+            plain_of = tops._scores_plain(q, rows, N_ROWS).gather(1, i)
+            check(bool((plain_of >= s_p[:, -1:] - 1e-5).all()),
+                  f"topk_tiles Q={q_count} k={k}: a row below the plain k-th score")
+            check(ordered(s, i), f"topk_tiles Q={q_count} k={k}: not ordered (score desc, row asc)")
+            diff = (i != i_p).nonzero().tolist()
+            ms = p50_ms(lambda: tops.topk_tiles(q, rows, k, N_ROWS), 20)
+            plain = p50_ms(lambda: tops._topk_tiles_plain(q, rows, k, N_ROWS), 3)
+            ids = "ids identical" if not diff else (
+                f"{len(diff)} id positions differ (near ties), first {[(p, int(i[p[0], p[1]]), int(i_p[p[0], p[1]])) for p in diff[:5]]}"
+            )
+            print(f"[kernels] topk_tiles Q={q_count} k={k}: {ids}, max score diff {err:.2e}, "
+                  f"p50 {ms:.4f} ms vs plain {plain:.4f} ms  ({gpu})", flush=True)
+            if q_count == 1 and k == K:  # the single-query bf16 search
+                record["topk_tiles"] = (err, ms, plain)
+
+    # k = 128 with the top 128 rows at local positions 0 and 1 mod 32 of
+    # one tile, the best 64 at 0: the selection warp's lane 0 runs out of
+    # untaken slots halfway, and must still join every shuffle.
+    small = 0.1 * torch.nn.functional.normalize(torch.randn(
+        (2 * tops.DEFAULT_TILE_N, DIM), generator=torch.Generator().manual_seed(5)), dim=1)
+    q = queries[:1].cpu()
+    planted = [tops.DEFAULT_TILE_N + 32 * j + r for r in (0, 1) for j in range(tops.DEFAULT_TILE_N // 32)]
+    for rank, row in enumerate(planted):
+        small[row] = (1.0 - rank / 200.0) * q[0]
+    small = small.to(torch.bfloat16).to(dev)
+    s, i = tops.topk_tiles(q.to(dev), small, 128, len(small))
+    s_p, _ = tops._topk_tiles_plain(q.to(dev), small, 128, len(small))
+    err = (s - s_p).abs().max().item()
+    check(sorted(i[0].tolist()) == sorted(planted) and err <= 1e-5 and ordered(s, i),
+          f"topk_tiles with lanes out of slots: wrong rows or scores off by {err}")
+    print(f"[kernels] topk_tiles k=128, 64 of the top rows in each of two lanes' slots: the planted "
+          f"rows, ordered, max score diff {err:.2e}", flush=True)
+
+    # The bf16 route above k = 128 (no kernel in tpuclip either): a chunked
+    # fp32 matmul and the exact selection, against kernel 4's float64 reference.
+    for q_count in (1, 16):
+        q = queries[:q_count]
+        s, i = tops.topk_plain(q, rows, 200, N_ROWS)
+        s_p, _ = tops._topk_tiles_plain(q, rows, 200, N_ROWS)
+        err = (s - s_p).abs().max().item()
+        check(err <= 1e-5 and ordered(s, i), f"topk_plain Q={q_count} k=200: scores off by {err}")
+        ms = p50_ms(lambda: tops.topk_plain(q, rows, 200, N_ROWS), 10)
+        print(f"[kernels] topk_plain (bf16 route, k > 128) Q={q_count} k=200: max score diff {err:.2e} "
+              f"from the float64 reference, p50 {ms:.4f} ms  ({gpu})", flush=True)
+    return record
+
+
+def phase_binary_kernels(hops, gpu):
+    """Phase 3, the binary kernels on 10M packed rows of random bits (dense
+    ties): returns {kernel name: (max_abs_err, ms, plain_ms)}."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def random_words(n):
+        return torch.randint(-(2**31), 2**31, (n, WORDS), generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    words, n_valid = hops.pad_words(random_words(N_BINARY))
+    queries = random_words(16)
+    torch.cuda.synchronize()
+    print(f"[kernels] {N_BINARY:,} x {WORDS} packed words resident: "
+          f"{words.numel() * 4 / 1e9:.2f} GB (n_pad {words.shape[0]:,})", flush=True)
+    record = {}
+    q1 = queries[:1]
+    got = hops.binary_scores(q1, words, n_valid)
+    want = hops._binary_scores_plain(q1, words, n_valid)
+    check(torch.equal(got, want), "binary_scores differs from its plain version")
+    err = (got - want).nan_to_num(0.0).abs().max().item()  # -inf padding on both sides
+    ms = p50_ms(lambda: hops.binary_scores(q1, words, n_valid), 10)
+    plain = p50_ms(lambda: hops._binary_scores_plain(q1, words, n_valid), 3)
+    print(f"[kernels] binary_scores Q=1: bit-equal, p50 {ms:.4f} ms vs plain {plain:.4f} ms  ({gpu})",
+          flush=True)
+    record["binary_scores"] = (err, ms, plain)
+    m = 2 * 640  # the cascade's single-query shortlist at k = 20 (depth 640)
+    ms = p50_ms(lambda: hops.binary_shortlist_q1(q1, words, m, n_valid), 10)
+    print(f"[kernels] binary_shortlist_q1 m={m}: p50 {ms:.4f} ms (kernel 5 + exact top-m over "
+          f"{words.shape[0]:,} keys)  ({gpu})", flush=True)
+    for name, q_counts, ks, keep in (
+        ("binary_topk_q1", (1,), (K, 640, 4096), (1, K)),
+        ("binary_topk_batched", (4, 16), (K, 640), (4, 640)),
+    ):
+        kernel = getattr(hops, name)
+        for q_count in q_counts:
+            q = queries[:q_count]
+            for k in ks:
+                m, r = kernel(q, words, k, n_valid)
+                m_p, r_p = hops._binary_topk_plain(q, words, k, n_valid)
+                check(torch.equal(m, m_p) and torch.equal(r, r_p),
+                      f"{name} Q={q_count} k={k}: matches or rows differ from the plain version")
+                err = (m.long() - m_p.long()).abs().max().item()
+                ms = p50_ms(lambda: kernel(q, words, k, n_valid), 10)
+                plain = p50_ms(lambda: hops._binary_topk_plain(q, words, k, n_valid), 3)
+                ties = int((m[:, :-1] == m[:, 1:]).sum())
+                print(f"[kernels] {name} Q={q_count} k={k}: matches and rows identical "
+                      f"({ties} tied neighbours), p50 {ms:.4f} ms vs plain {plain:.4f} ms  ({gpu})",
+                      flush=True)
+                if (q_count, k) == keep:
+                    record[name] = (err, ms, plain)
     return record
 
 
@@ -171,7 +319,9 @@ def brute_force(rows_bf16, q, k):
     return order, scores[order]
 
 
-def phase_end_to_end(ops, gpu, work):
+def phase_end_to_end(mods, gpu, work):
+    """Phase 4: returns (launches of kernels 1 and 2, database, model cache)."""
+    ops = mods[0]
     from tpuclip_torch import cli
     from tpuclip_torch.engine import ImageDatabase
 
@@ -210,7 +360,7 @@ def phase_end_to_end(ops, gpu, work):
         cli.main(["search", "a red car", "-k", str(K), "--db", db, "--model-cache", cache,
                   "--no-session"])
         engine = ImageDatabase(db, cache, inference_batch_size=64)
-        texts = ["a red car", "blue sky", "a dog on a beach", "city lights at night"]
+        texts = TEXTS
         batch = engine.search_texts(texts, K)
         torch.cuda.synchronize()
         launches = {
@@ -261,7 +411,7 @@ def phase_end_to_end(ops, gpu, work):
 
     q_vecs = engine.embed_texts(texts)
     check(np.abs(np.linalg.norm(q_vecs, axis=1) - 1).max() <= 1e-3, "text embeddings off unit norm")
-    with plain_kernels(ops):
+    with plain_kernels(mods):
         batch_plain = engine.search_texts(texts, K)
     for qi, (results, plain) in enumerate(zip(batch, batch_plain)):
         check(len(results) == K, f"search_texts query {qi}: {len(results)} results")
@@ -277,6 +427,133 @@ def phase_end_to_end(ops, gpu, work):
     print(f"[e2e] CLI search: {len(captured[0])} results, equal to a brute-force rescore of all "
           f"{N_IMAGES} rows; search_texts x{len(texts)}: ordered, equal to the plain route; "
           f"embeddings unit-norm", flush=True)
+    return launches, db, cache
+
+
+def read_rows(db, table, column, dtype):
+    """(paths, (n, DIM) array) of one embedding table, read straight from
+    the SQLite file in image_id order, the order of the index's rows:
+    ``embeddings`` holds fp32 vectors, ``binary_embeddings`` one 0/1 byte
+    per sign bit."""
+    conn = sqlite3.connect(db)
+    try:
+        rows = conn.execute(
+            f"SELECT i.file_path, t.{column} FROM {table} t JOIN images i ON i.id = t.image_id "
+            "ORDER BY t.image_id"
+        ).fetchall()
+    finally:
+        conn.close()
+    width = DIM * np.dtype(dtype).itemsize
+    check(rows and all(len(blob) == width for _, blob in rows),
+          f"{db}: {table} is empty or holds blobs other than {width} bytes")
+    data = np.frombuffer(b"".join(blob for _, blob in rows), dtype).reshape(len(rows), DIM)
+    return [path for path, _ in rows], data.copy()
+
+
+def check_against_reference(results, row_of, ref, k, tol, what):
+    """Results (duplicates may be filtered out) against a reference score per
+    row: every score within ``tol`` of the reference, every row within 1e-6
+    of the reference's k-th score, ordered by the reference up to 1e-6 ties.
+    Returns (max score error, positions where the ids differ from the
+    reference's (score desc, row asc) order)."""
+    rows = [row_of[p] for p, _ in results]
+    check(len(rows) > 0, f"{what}: no results")
+    top = np.lexsort((np.arange(len(ref)), -ref))[:k]
+    kth = ref[top[-1]]
+    check(all(ref[r] >= kth - 1e-6 for r in rows), f"{what}: a row outside the reference top {k}")
+    check(all(ref[a] >= ref[b] - 1e-6 for a, b in zip(rows, rows[1:])), f"{what}: not in reference order")
+    err = max(abs(s - ref[r]) for r, (_, s) in zip(rows, results))
+    check(err <= tol, f"{what}: scores off the reference by {err}")
+    want = [r for r in top if r in set(rows)]
+    return err, [i for i, (a, b) in enumerate(zip(rows, want)) if a != b]
+
+
+def phase_search_modes(mods, gpu, work, db, cache):
+    """Phase 5: bf16, cascade and binary-only search through the CLI and the
+    engine on phase 4's database; returns the launches of kernels 4-7."""
+    _, tops, hops = mods
+    from tpuclip_torch import cli
+    from tpuclip_torch.engine import ImageDatabase
+
+    captured = []
+    original_gallery = ImageDatabase.generate_html_gallery
+
+    def capture_gallery(self, results, *args, **kwargs):
+        captured.append(list(results))
+        return original_gallery(self, results, *args, **kwargs)
+
+    counters = [tops.topk_tiles, hops.binary_scores, hops.binary_topk_q1, hops.binary_topk_batched]
+    bin_db = str(work / "binary.db")
+    common = ["--model-cache", cache, "--no-session"]
+    ImageDatabase.generate_html_gallery = capture_gallery
+    try:
+        for kernel in counters:
+            kernel.launches = 0
+        cli.main(["search", "a red car", "-k", str(K), "--db", db, *common, "--precision", "bf16"])
+        os.environ["TPUCLIP_SEARCH_PRECISION"] = "int8"
+        cli.main(["search", "a red car", "-k", str(K), "--db", db, *common, "--mode", "cascade"])
+        cascade_batch = ImageDatabase(db, cache, inference_batch_size=64).search_texts(TEXTS, K)
+        os.environ["TPUCLIP_SEARCH_MODE"] = "exact"
+        cli.main(["scan", str(work / "images"), "--db", bin_db, "--model-cache", cache,
+                  "--inference-batch-size", "64", "--binary-only"])
+        cli.main(["search", "a red car", "-k", str(K), "--db", bin_db, *common])
+        bin_engine = ImageDatabase(bin_db, cache, inference_batch_size=64)
+        binary_batch = bin_engine.search_texts(TEXTS, K)
+        torch.cuda.synchronize()
+        launches = {kernel.__name__: kernel.launches for kernel in counters}
+    finally:
+        ImageDatabase.generate_html_gallery = original_gallery
+    print(f"[modes] kernel launches in this phase: {launches}", flush=True)
+    check(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
+    check(len(captured) == 3, f"{len(captured)} CLI searches reached the gallery, expected 3")
+
+    paths, vectors = read_rows(db, "embeddings", "vector", np.float32)
+    row_of = {p: r for r, p in enumerate(paths)}
+    q_cli = bin_engine.embed_texts(["a red car"])[0]
+
+    # bf16: the bf16-rounded query's dots with the bf16 rows, exact in float64.
+    rows_bf16 = torch.from_numpy(vectors).to(torch.bfloat16).double()
+    ref = (rows_bf16 @ torch.from_numpy(q_cli).to(torch.bfloat16).double()).float().numpy()
+    err, swaps = check_against_reference(captured[0], row_of, ref, K, 1e-5, "bf16 CLI search")
+    print(f"[modes] search --precision bf16: {len(captured[0])} results, "
+          f"{'ids identical to' if not swaps else f'near-tie swaps at {swaps} against'} a brute-force "
+          f"bf16 scan of {N_IMAGES} rows, max score diff {err:.2e}", flush=True)
+
+    # Cascade at depth 640 >= 512 rows: the fp32 brute force over the stored vectors.
+    err, swaps = check_against_reference(captured[1], row_of, vectors @ q_cli, K, 1e-6,
+                                         "cascade CLI search")
+    errs = [err]
+    for qi, (results, q) in enumerate(zip(cascade_batch, bin_engine.embed_texts(TEXTS))):
+        check(len(results) == K, f"cascade search_texts query {qi}: {len(results)} results")
+        err, more = check_against_reference(results, row_of, vectors @ q, K, 1e-6,
+                                            f"cascade search_texts query {qi}")
+        errs.append(err)
+        swaps += more
+    print(f"[modes] search --mode cascade and search_texts x{len(TEXTS)}: "
+          f"{'ids identical to' if not swaps else f'near-tie swaps at {swaps} against'} an fp32 "
+          f"brute force over the stored vectors, max score diff {max(errs):.2e}", flush=True)
+
+    # Binary-only: the brute-force popcount order, and the plain route.
+    bpaths, bits = read_rows(bin_db, "binary_embeddings", "embedding", np.uint8)
+    matches = (bits & (q_cli >= 0).astype(np.uint8)).sum(1, dtype=np.int64)
+    brow_of = {p: r for r, p in enumerate(bpaths)}
+    cli_rows = [brow_of[p] for p, _ in captured[2]]
+    order = np.lexsort((np.arange(len(matches)), -matches))[:K]
+    check(cli_rows == [r for r in order if r in set(cli_rows)],
+          "binary CLI search is not the brute-force popcount order")
+    check([s for _, s in captured[2]] == [matches[r] / DIM for r in cli_rows],
+          "binary CLI similarities are not matches / 1152")
+    with plain_kernels(mods):
+        # The CLI embedded its query alone; search_texts cached it from a
+        # batch of 4, whose bf16 rounding (and so sign bits) may differ.
+        single_plain = bin_engine.search_by_embedding(q_cli, K)
+        batch_plain = bin_engine.search_texts(TEXTS, K)
+    check(captured[2] == single_plain, "binary CLI search differs from the plain route")
+    check(binary_batch == batch_plain, "binary search_texts differs from the plain route")
+    check(all(len(r) == K for r in binary_batch), "binary search_texts returned too few results")
+    print(f"[modes] scan --binary-only + search: {len(cli_rows)} results in the brute-force popcount "
+          f"order, similarity = matches/{DIM}; search and search_texts x{len(TEXTS)} identical to "
+          f"the plain route", flush=True)
     return launches
 
 
@@ -287,8 +564,11 @@ def main():
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from tpuclip_torch.ops import _build
+    from tpuclip_torch.ops import hamming as hops
+    from tpuclip_torch.ops import topk as tops
     from tpuclip_torch.ops import topk_int8 as ops
 
+    mods = (ops, tops, hops)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gpu = gpu_line()
@@ -298,25 +578,32 @@ def main():
 
     t0 = time.perf_counter()
     _build.build(force=True)
-    print(f"[build] {_build.LIBRARY.relative_to(Path(__file__).resolve().parent)} from "
-          f"tpuclip_torch/csrc/int8_scan.cu in {time.perf_counter() - t0:.2f} s (nvcc "
+    print(f"[build] {', '.join(s.name for s in _build.SOURCES)} -> build/tpuclip_torch/ in "
+          f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in parallel: "
           f"{_build.last_build_seconds:.2f} s)", flush=True)
     _build.library()
 
-    record = phase_kernels(ops, gpu)
+    record = phase_kernels(mods, gpu)
+    torch.cuda.empty_cache()
+    record.update(phase_binary_kernels(hops, gpu))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        launches = phase_end_to_end(ops, gpu, Path(tmp))
+        launches, db, cache = phase_end_to_end(mods, gpu, Path(tmp))
+        launches.update(phase_search_modes(mods, gpu, Path(tmp), db, cache))
 
-    replaces = {
-        "int8_scores": "tpuclip/ops/topk_int8.py:340",
-        "int8_candidates_packed": "tpuclip/ops/topk_int8.py:189",
+    sources = {
+        "int8_scores": ("tpuclip_torch/csrc/int8_scan.cu", "tpuclip/ops/topk_int8.py:340"),
+        "int8_candidates_packed": ("tpuclip_torch/csrc/int8_scan.cu", "tpuclip/ops/topk_int8.py:189"),
+        "topk_tiles": ("tpuclip_torch/csrc/topk_bf16.cu", "tpuclip/ops/topk.py:41"),
+        "binary_scores": ("tpuclip_torch/csrc/binary_scan.cu", "tpuclip/ops/hamming.py:354"),
+        "binary_topk_q1": ("tpuclip_torch/csrc/binary_scan.cu", "tpuclip/ops/hamming.py:259"),
+        "binary_topk_batched": ("tpuclip_torch/csrc/binary_scan.cu", "tpuclip/ops/hamming.py:132"),
     }
     kernels = [
-        {"name": name, "route": "cuda", "source": "tpuclip_torch/csrc/int8_scan.cu",
-         "replaces": replaces[name], "launches": launches[name], "max_abs_err": err,
-         "ms": ms, "plain_ms": plain}
-        for name, (err, ms, plain) in record.items()
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": launches[name], "max_abs_err": record[name][0], "ms": record[name][1],
+         "plain_ms": record[name][2]}
+        for name, (source, replaces) in sources.items()
     ]
     check("jax" not in sys.modules, "the port loaded jax")
     print(gpu, flush=True)

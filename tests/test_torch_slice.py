@@ -118,8 +118,9 @@ def test_cli_refuses_what_is_not_ported(world, monkeypatch):
         torch_cli.main(["search", "a red car", *common])
     with pytest.raises(NotImplementedError, match="folder filters"):
         torch_cli.main(["search", "a red car", "--no-session", "--folder", str(root), *common])
-    with pytest.raises(NotImplementedError, match="precision"):
-        torch_cli.main(["search", "a red car", "--no-session", "--precision", "bf16", *common])
+    monkeypatch.setenv("TPUCLIP_SEARCH_MODE", "exact")  # the CLI sets it; restored afterwards
+    with pytest.raises(NotImplementedError, match="ivf"):
+        torch_cli.main(["search", "a red car", "--no-session", "--mode", "ivf", *common])
 
 
 class _StubEngine:

@@ -217,6 +217,6 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda_device, index, monkeypatch)
     qi = torch.zeros((1, D), dtype=torch.int8, device=cuda_device)
     monkeypatch.setattr(_build, "_lib", None)
     monkeypatch.setattr(_build, "_nvcc", lambda: (_ for _ in ()).throw(RuntimeError("no nvcc")))
-    monkeypatch.setattr(_build, "LIBRARY", _build.BUILD_DIR / "missing" / "lib.so")
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR / "missing")
     with pytest.raises(RuntimeError, match="no nvcc"):
         pt.int8_scores(qi, m, scales, N_VALID)

@@ -81,8 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
     search_parser.add_argument("--profile", action="store_true", help="Show performance profiling information for search")
     search_parser.add_argument("--show-duplicates", action="store_true", help="Show duplicate images in results (default: filtered)")
     search_parser.add_argument("--model", default=None, help="Model preset name (default: google/siglip2-so400m-patch14-224)")
-    search_parser.add_argument("--precision", choices=["bf16", "int8"], default=None, help="Search precision: int8 quantized scan with exact re-rank (the default; bf16 is not ported yet)")
-    search_parser.add_argument("--mode", dest="search_mode", choices=["exact", "ivf", "cascade"], default=None, help="Search mode: exact scan (default); ivf and cascade are not ported yet")
+    search_parser.add_argument("--precision", choices=["bf16", "int8"], default=None, help="Search precision: int8 quantized scan with exact re-rank (the default) or the plain bf16 scan")
+    search_parser.add_argument("--mode", dest="search_mode", choices=["exact", "ivf", "cascade"], default=None, help="Search mode: exact scan (default), or cascade (packed-binary prefilter + exact fp32 rescore from the host; no flat matrix on the device); ivf is not ported yet")
 
     for sub in (scan_parser, search_parser):
         sub.add_argument("--device", choices=["cuda", "cpu"], default="cuda", help="Device for the towers and the index (default: cuda)")
