@@ -21,7 +21,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    within 1e-5 of the float64 reference, timed; then 10,000,000 packed binary rows x 36 words (a seeded torch.Generator on the
    card): binary_scores bit-equal, binary_topk_q1 at k = 20, 640, 4096 and
    binary_topk_batched at Q = 4, 16, k = 20, 640 identical to the plain
-   version; CUDA-event p50 times of each kernel and its plain version;
+   version; CUDA-event p50 times of each kernel and its plain version.
+   Also on the 1M int8 matrix: int8_candidates (kernel 3) at Q = 1, k_tile
+   = 20, 80, 128 and Q = 16, k_tile = 80 bit-equal, ties planted (copies
+   of one row in one tile; the top 128 of another tile in two selection
+   lanes' slots), and topk_int8 (kernel 3 + merge) against the plain route;
+   quantize_matrix on 65,536 fp32 rows bit-equal to numpy; and
+   patch_embed_fused (kernel 8) on 64 seeded 224 x 224 uint8 images (R =
+   16,384 patch rows x 588 -> 1152, seeded bf16 weights) within 1e-5 of the
+   plain version in f32 out and one bf16 step in bf16 out, timed beside the
+   tower's own cuBLAS patch GEMM;
 4. end to end through the entry points: 512 seeded JPEGs, ``scan`` and
    ``search "a red car" -k 20 --no-session`` through tpuclip_torch.cli, and
    ``ImageDatabase.search_texts`` on 4 texts, with SigLIP2 SO400M-patch14-224
@@ -36,7 +45,22 @@ Phases, each printing its own lines; any failure exits non-zero:
    all 512 rows); ``scan --binary-only`` into a second database, then
    ``search`` against a brute-force popcount over the stored sign bits and
    both ``search`` and a 4-text ``search_texts`` against the route through
-   the plain versions. The references read the SQLite files directly. Kernels 4-7's launch counters must rise in this phase.
+   the plain versions. The references read the SQLite files directly. Kernels 4-7's launch counters must rise in this phase;
+6. folder filters and the int8 search without the resident rows, on the
+   same two databases: ``search --folder <images>/set_1`` in the default
+   int8 mode (the masked route, rescored in fp32 from the host), with
+   ``--precision bf16``, with ``--mode cascade`` and on the binary-only
+   database, each against a brute force over set_1's stored rows; then
+   with TPUCLIP_DEVICE_RERANK=0 a CLI search (kernel 3, then the host
+   rescore) and a 4-text ``search_texts`` (kernel 1, then the host
+   rescore), identical to the plain route with every score within 1e-6 of
+   its row's fp32 dot, and with TPUCLIP_SEARCH_RERANK=0 a CLI search
+   (kernel 3's int8 scores themselves) identical to the plain route; the
+   bytes the host route keeps on the card. Kernels 1, 3 and 5's launch
+   counters must rise in this phase;
+7. the library entry point ``tpuclip_torch.ops.patch_embed_fused`` on 64 of
+   the JPEGs with the vision tower's own patch weights, loosely equal to
+   the tower's patch embedding; kernel 8's launch counter must rise.
    jax must never have been imported.
 
 The last two lines are the kernels' JSON record and then
@@ -103,6 +127,7 @@ def plain_kernels(mods):
     swaps = [
         (ops, "int8_scores", ops._int8_scores_plain),
         (ops, "int8_candidates_packed", ops._int8_candidates_packed_plain),
+        (ops, "int8_candidates", ops._int8_candidates_plain),
         (tops, "topk_tiles", tops._topk_tiles_plain),
         (hops, "binary_scores", hops._binary_scores_plain),
         (hops, "binary_topk_q1", hops._binary_topk_plain),
@@ -171,6 +196,7 @@ def phase_kernels(mods, gpu):
               f"p50 {ms:.4f} ms vs plain {plain:.4f} ms  ({gpu})", flush=True)
         if q_count == 16:
             record["int8_candidates_packed"] = (err, ms, plain)
+    record["int8_candidates"] = phase_int8_candidates(mods, gpu, m, scales, queries)
     for q_count in (1, 16):
         q = queries[:q_count]
 
@@ -241,6 +267,133 @@ def phase_kernels(mods, gpu):
         print(f"[kernels] topk_plain (bf16 route, k > 128) Q={q_count} k=200: max score diff {err:.2e} "
               f"from the float64 reference, p50 {ms:.4f} ms  ({gpu})", flush=True)
     return record
+
+
+def phase_int8_candidates(mods, gpu, m, scales, queries):
+    """Phase 3, kernel 3 on the 1M int8 matrix, then ``quantize_matrix``:
+    returns kernel 3's (max_abs_err, ms, plain_ms) at Q = 1, k_tile = 80,
+    the single-query shortlist of a top-20 search without the rerank copy."""
+    ops = mods[0]
+    dev = m.device
+    tile = ops.PACKED_TILE_N
+
+    def same(got, want):
+        return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+    record = None
+    for q_count, k_tile in ((1, 20), (1, 80), (1, 128), (16, 80)):
+        qi, _ = ops.quantize_queries(queries[:q_count])
+        args = (qi, m, scales, k_tile, N_ROWS, tile)
+        got = ops.int8_candidates(*args)
+        want = ops._int8_candidates_plain(*args)
+        check(same(got, want), f"int8_candidates Q={q_count} k_tile={k_tile} differs from its plain version")
+        err = (got[0] - want[0]).nan_to_num(0.0).abs().max().item()  # -inf padding on both sides
+        ms = p50_ms(lambda: ops.int8_candidates(*args), 20)
+        plain = p50_ms(lambda: ops._int8_candidates_plain(*args), 3)
+        print(f"[kernels] int8_candidates Q={q_count} k_tile={k_tile}: scores and rows bit-equal, "
+              f"p50 {ms:.4f} ms vs plain {plain:.4f} ms  ({gpu})", flush=True)
+        if (q_count, k_tile) == (1, 80):
+            record = (err, ms, plain)
+
+    # Ties, on a copy: tile 3's top 128 rows are the query's own int8 row at
+    # local positions 0 and 1 mod 32, in pairs of equal scales, so the
+    # selection lanes 0 and 1 run out of untaken slots halfway through
+    # k_tile = 128 rounds; tile 7 holds three copies of that row.
+    qi, _ = ops.quantize_queries(queries[:1])
+    mp, sp = m.clone(), scales.clone()
+    lanes = [3 * tile + 32 * j + r for j in range(64) for r in (0, 1)]
+    copies = [7 * tile + 5, 7 * tile + 700, 7 * tile + 1500]
+    mp[lanes + copies] = qi[0]
+    sp[lanes] = torch.tensor([1.0 - 1e-3 * (i // 2) for i in range(128)], device=dev)
+    sp[copies] = 0.5
+    got = ops.int8_candidates(qi, mp, sp, 128, N_ROWS, tile)
+    want = ops._int8_candidates_plain(qi, mp, sp, 128, N_ROWS, tile)
+    check(same(got, want), "int8_candidates with planted ties differs from its plain version")
+    s, i = got[0].view(-1, 128), got[1].view(-1, 128)
+    check(i[3].tolist() == lanes and torch.equal(s[3, 0::2], s[3, 1::2]),
+          "int8_candidates: tile 3's planted rows are not its top 128, ordered (score desc, row asc)")
+    check(i[7, :3].tolist() == copies and bool((s[7, :3] == s[7, 0]).all()),
+          "int8_candidates: tile 7's three copies are not its top 3 in row order")
+    del mp, sp
+    print("[kernels] int8_candidates k_tile=128 with planted ties (64 pairs of equal scores in two "
+          "lanes' slots, three copies of one row): bit-equal, the planted rows in (score desc, row asc) "
+          "order", flush=True)
+
+    # topk_int8 (kernel 3 + merge + x q_scale) against the route through the
+    # plain version, at the host route's shortlist for k = 20.
+    qi, qs = ops.quantize_query(queries[0].cpu().numpy())
+    qi = qi.to(dev)
+
+    def route():
+        return ops.topk_int8(qi, m, scales, qs, 4 * K, N_ROWS)
+
+    s, i = route()
+    ms = p50_ms(route, 20)
+    with plain_kernels(mods):
+        s_p, i_p = route()
+        plain = p50_ms(route, 3)
+    check(torch.equal(i, i_p) and torch.equal(s, s_p), "topk_int8 differs from the plain route")
+    print(f"[kernels] topk_int8 Q=1 k={4 * K}: ids identical and scores bit-equal to the plain route, "
+          f"p50 {ms:.4f} ms vs plain route {plain:.4f} ms  ({gpu})", flush=True)
+
+    # quantize_matrix: fp32 rows -> int8 by true divisions, as numpy does.
+    chunk = np.random.default_rng(7).standard_normal((65536, DIM), dtype=np.float32)
+    qm, qsc = ops.quantize_matrix(chunk, len(chunk), dev)
+    want_sc = np.abs(chunk).max(1) / np.float32(127)
+    want_q = np.clip(np.rint(chunk / want_sc[:, None]), -127, 127).astype(np.int8)
+    check(np.array_equal(qsc.cpu().numpy(), want_sc) and np.array_equal(qm.cpu().numpy(), want_q),
+          "quantize_matrix differs from numpy's true-division quantization")
+    print(f"[kernels] quantize_matrix {len(chunk):,} x {DIM} fp32 rows: int8 values and scales "
+          f"bit-equal to numpy", flush=True)
+    return record
+
+
+def phase_patch_embed(pops, gpu):
+    """Phase 3, kernel 8 at SO400M's patch shape: returns (max_abs_err, ms,
+    plain_ms) in bf16 out, the library function's default."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    pix = torch.from_numpy(rng.integers(0, 256, (64, 224, 224, 3), dtype=np.uint8)).to(dev)
+    x = pops.patches_from_images_u8(pix, 14).contiguous()
+    w = torch.from_numpy((rng.standard_normal((588, DIM)) * 0.02).astype(np.float32)).to(dev)
+    w = w.to(torch.bfloat16)
+    b = torch.from_numpy((rng.standard_normal(DIM) * 0.02).astype(np.float32)).to(dev).to(torch.bfloat16)
+    check(x.shape == (64 * 256, 588), f"patch rows {tuple(x.shape)}")
+    # f32 out: every product of bf16 values is exact in f32, so the kernel
+    # and the float64 plain version differ only by the order of 588 f32
+    # additions of values below 2.
+    got = pops.patch_embed_fused(x, w, b, torch.float32)
+    want = pops._patch_embed_plain(x, w, b, torch.float32)
+    err32 = (got - want).abs().max().item()
+    check(err32 <= 1e-5, f"patch_embed_fused f32 out off the plain version by {err32}")
+    # bf16 out: the f32 value above, rounded to nearest even; so at most one
+    # bf16 step (2**-7 of the power of two below) plus the f32 tolerance from
+    # the plain version's bf16 out (near zero the step is below the f32 error).
+    got_f32 = got
+    got = pops.patch_embed_fused(x, w, b)
+    check(torch.equal(got, got_f32.to(torch.bfloat16)), "patch_embed_fused bf16 out is not its f32 out rounded")
+    got, want = got.float(), pops._patch_embed_plain(x, w, b).float()
+    _, exp = torch.frexp(want)
+    step = torch.ldexp(torch.ones_like(want), exp - 8)
+    err = (got - want).abs()
+    check(bool((err <= step + 1e-5).all()), "patch_embed_fused bf16 out more than one bf16 step off the plain version")
+    err = err.max().item()
+    ms = p50_ms(lambda: pops.patch_embed_fused(x, w, b), 20)
+    plain = p50_ms(lambda: pops._patch_embed_plain(x, w, b), 3)
+    # The tower's own route: normalise to bf16, then cuBLAS's bf16 GEMM.
+    from tpuclip_torch.models.siglip import normalize_pixels
+
+    wt = w.t().contiguous()
+    xn = pops.patches_from_images_u8(normalize_pixels(pix, torch.bfloat16), 14).contiguous()
+    gemm = p50_ms(lambda: torch.nn.functional.linear(xn, wt, b), 20)
+    both = p50_ms(lambda: torch.nn.functional.linear(
+        pops.patches_from_images_u8(normalize_pixels(pix, torch.bfloat16), 14), wt, b), 20)
+    gflop = 2 * x.shape[0] * 588 * DIM / 1e9
+    print(f"[kernels] patch_embed_fused R={x.shape[0]:,} x 588 -> {DIM}: f32 out max diff {err32:.2e}, "
+          f"bf16 out within one bf16 step (max diff {err:.2e}); p50 {ms:.4f} ms ({gflop / ms:.1f} "
+          f"TFLOP/s) vs plain {plain:.4f} ms; the tower's cuBLAS F.linear on normalised bf16 rows "
+          f"{gemm:.4f} ms, with the normalisation {both:.4f} ms  ({gpu})", flush=True)
+    return err, ms, plain
 
 
 def phase_binary_kernels(hops, gpu):
@@ -320,7 +473,8 @@ def brute_force(rows_bf16, q, k):
 
 
 def phase_end_to_end(mods, gpu, work):
-    """Phase 4: returns (launches of kernels 1 and 2, database, model cache)."""
+    """Phase 4: returns (launches of kernels 1 and 2, database, model cache,
+    engine)."""
     ops = mods[0]
     from tpuclip_torch import cli
     from tpuclip_torch.engine import ImageDatabase
@@ -427,7 +581,7 @@ def phase_end_to_end(mods, gpu, work):
     print(f"[e2e] CLI search: {len(captured[0])} results, equal to a brute-force rescore of all "
           f"{N_IMAGES} rows; search_texts x{len(texts)}: ordered, equal to the plain route; "
           f"embeddings unit-norm", flush=True)
-    return launches, db, cache
+    return launches, db, cache, engine
 
 
 def read_rows(db, table, column, dtype):
@@ -557,6 +711,165 @@ def phase_search_modes(mods, gpu, work, db, cache):
     return launches
 
 
+def masked(ref, rows_in):
+    """``ref`` with -inf outside the rows ``rows_in``."""
+    out = np.full(len(ref), -np.inf, ref.dtype)
+    out[rows_in] = ref[rows_in]
+    return out
+
+
+def phase_filters(mods, gpu, work, db, cache):
+    """Phase 6: folder-filtered search in every mode, and the int8 search
+    without the rerank copy and without a rescore; returns kernel 3's
+    launches in this phase."""
+    ops, _, hops = mods
+    from tpuclip_torch import cli
+    from tpuclip_torch.engine import ImageDatabase
+
+    folder = str(work / "images" / "set_1")
+    bin_db = str(work / "binary.db")
+    captured = []
+    original_gallery = ImageDatabase.generate_html_gallery
+
+    def capture_gallery(self, results, *args, **kwargs):
+        captured.append(list(results))
+        return original_gallery(self, results, *args, **kwargs)
+
+    def search(database, *flags):
+        cli.main(["search", "a red car", "-k", str(K), "--db", database, "--model-cache", cache,
+                  "--no-session", *flags])
+
+    counters = [ops.int8_scores, ops.int8_candidates, hops.binary_scores]
+    ImageDatabase.generate_html_gallery = capture_gallery
+    try:
+        for kernel in counters:
+            kernel.launches = 0
+        search(db, "--folder", folder)
+        search(db, "--folder", folder, "--precision", "bf16")
+        os.environ["TPUCLIP_SEARCH_PRECISION"] = "int8"
+        search(db, "--folder", folder, "--mode", "cascade")
+        os.environ["TPUCLIP_SEARCH_MODE"] = "exact"
+        search(bin_db, "--folder", folder)
+        os.environ["TPUCLIP_DEVICE_RERANK"] = "0"
+        search(db)
+        host = ImageDatabase(db, cache, inference_batch_size=64)
+        host_batch = host.search_texts(TEXTS, K)
+        os.environ["TPUCLIP_SEARCH_RERANK"] = "0"
+        search(db)
+        torch.cuda.synchronize()
+        launches = {kernel.__name__: kernel.launches for kernel in counters}
+        with plain_kernels(mods):
+            host_plain = host.search_texts(TEXTS, K)
+            search(db)
+            os.environ["TPUCLIP_SEARCH_RERANK"] = "1"
+            search(db)
+    finally:
+        ImageDatabase.generate_html_gallery = original_gallery
+        os.environ.pop("TPUCLIP_DEVICE_RERANK", None)
+        os.environ.pop("TPUCLIP_SEARCH_RERANK", None)
+    print(f"[filters] kernel launches in this phase: {launches}", flush=True)
+    check(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
+    check(len(captured) == 8, f"{len(captured)} CLI searches reached the gallery, expected 8")
+    int8_f, bf16_f, cascade_f, binary_f, host_cli, raw_cli, raw_plain, host_cli_plain = captured
+
+    paths, vectors = read_rows(db, "embeddings", "vector", np.float32)
+    row_of = {p: r for r, p in enumerate(paths)}
+    in_set = [r for r, p in enumerate(paths) if p.startswith(folder + os.sep)]
+    check(len(in_set) == N_IMAGES // 4, f"{len(in_set)} stored rows under set_1")
+    q = host.embed_texts(["a red car"])[0]
+    for results, what in ((int8_f, "int8"), (bf16_f, "bf16"), (cascade_f, "cascade"), (binary_f, "binary")):
+        check(len(results) > 0 and all(p.startswith(folder + os.sep) for p, _ in results),
+              f"--folder {what}: a result outside set_1, or none")
+
+    # int8 (rows resident, so the masked route with the fp32 host rescore)
+    # and the cascade (depth 640 >= 512 rows): the fp32 brute force.
+    fp32 = masked(vectors @ q, in_set)
+    report = []
+    for results, what in ((int8_f, "int8"), (cascade_f, "cascade")):
+        err, swaps = check_against_reference(results, row_of, fp32, K, 1e-6, f"--folder {what}")
+        report.append(f"{what} {'ids identical' if not swaps else f'near-tie swaps at {swaps}'}, "
+                      f"max diff {err:.2e}")
+    bf16 = (torch.from_numpy(vectors).to(torch.bfloat16).double()
+            @ torch.from_numpy(q).to(torch.bfloat16).double()).float().numpy()
+    err, swaps = check_against_reference(bf16_f, row_of, masked(bf16, in_set), K, 1e-5, "--folder bf16")
+    report.append(f"bf16 {'ids identical' if not swaps else f'near-tie swaps at {swaps}'}, max diff {err:.2e}")
+    bpaths, bits = read_rows(bin_db, "binary_embeddings", "embedding", np.uint8)
+    brow_of = {p: r for r, p in enumerate(bpaths)}
+    matches = (bits & (q >= 0).astype(np.uint8)).sum(1, dtype=np.int64)
+    matches[[r for r, p in enumerate(bpaths) if not p.startswith(folder + os.sep)]] = -1
+    order = np.lexsort((np.arange(len(matches)), -matches))[:K]
+    rows = [brow_of[p] for p, _ in binary_f]
+    check(rows == [r for r in order if r in set(rows)], "--folder binary: not the brute-force popcount order")
+    check([s for _, s in binary_f] == [matches[r] / DIM for r in rows], "--folder binary: similarities")
+    report.append("binary in the brute-force popcount order")
+    print(f"[filters] search --folder set_1 ({len(in_set)} of {N_IMAGES} rows), every result under "
+          f"set_1, against brute forces over set_1: {'; '.join(report)}", flush=True)
+
+    # The host route: kernel 3 (one query) or kernel 1 (the batch), then the
+    # fp32 rescore from the host memmap; no rescore: the int8 scores.
+    check(host_cli == host_cli_plain, "TPUCLIP_DEVICE_RERANK=0 CLI search differs from the plain route")
+    check(host_batch == host_plain, "TPUCLIP_DEVICE_RERANK=0 search_texts differs from the plain route")
+    check(raw_cli == raw_plain, "TPUCLIP_SEARCH_RERANK=0 CLI search differs from the plain route")
+    check(len(host_cli) > 0 and len(raw_cli) > 0 and all(len(r) == K for r in host_batch),
+          "the host route returned too few results")
+    err = 0.0
+    for results, qv in zip([host_cli, *host_batch], [q, *host.embed_texts_cached(TEXTS)]):
+        err = max(err, max(abs(s - float(vectors[row_of[p]] @ qv)) for p, s in results))
+    check(err <= 1e-6, f"the host route's scores are off the rows' fp32 dots by {err}")
+    index = host.index
+    check(index._rows_device is None, "the host route kept rows on the card")
+    parts = {"int8": index._matrix.numel(), "scales": index._scales.numel() * 4,
+             "binary words": index._bin_matrix.numel() * 4}
+    check(index.resident_bytes() == sum(parts.values()), "resident bytes do not add up")
+    print(f"[filters] TPUCLIP_DEVICE_RERANK=0: CLI search (kernel 3 at k_short {4 * K}) and "
+          f"search_texts x{len(TEXTS)} (kernel 1) identical to the plain route, scores within "
+          f"{err:.2e} of the rows' fp32 dots; TPUCLIP_SEARCH_RERANK=0: CLI search (kernel 3 at "
+          f"k_short {K}) identical to the plain route; resident on the card: "
+          f"{index.resident_bytes():,} bytes ({parts}, {len(paths)} rows padded to "
+          f"{index._matrix.shape[0]:,}; no rerank rows)", flush=True)
+    return launches["int8_candidates"]
+
+
+def phase_patch_embed_library(pops, gpu, work, engine):
+    """Phase 7: ``patch_embed_fused`` on 64 of the JPEGs with the vision
+    tower's patch weights; returns kernel 8's launches in this phase."""
+    from PIL import Image
+
+    from tpuclip_torch.models.siglip import normalize_pixels
+    from tpuclip_torch.ops.patch_embed import patch_embed_fused, patches_from_images_u8
+
+    size = engine.image_size
+    files = sorted((work / "images").rglob("*.jpg"))[:64]
+    pixels = []
+    for f in files:
+        with Image.open(f) as img:
+            pixels.append(np.asarray(img.convert("RGB").resize((size, size), Image.BICUBIC), np.uint8))
+    pixels = np.stack(pixels)
+    pixels = torch.from_numpy(pixels).cuda()
+    tower = engine.model.vision
+    weight, bias = tower.patch.weight.detach(), tower.patch.bias.detach()
+    patch_embed_fused.launches = 0
+    out = patch_embed_fused(patches_from_images_u8(pixels, tower.cfg.patch_size),
+                            weight.t().to(torch.bfloat16), bias)
+    torch.cuda.synchronize()
+    launches = patch_embed_fused.launches
+    print(f"[library] patch_embed_fused launches in this phase: {launches}", flush=True)
+    check(launches > 0, "patch_embed_fused was not launched")
+    # The tower normalises in bf16 (x differs by up to one bf16 step) and
+    # rounds its output to bf16 by another path: loosely equal.
+    with torch.no_grad():
+        ref = tower.patch_embed(normalize_pixels(pixels, torch.bfloat16)).reshape(out.shape).float()
+    err = (out.float() - ref).abs().max().item()
+    top = ref.abs().max().item()
+    check(out.shape == (64 * (size // tower.cfg.patch_size) ** 2, DIM) and bool(out.isfinite().all()),
+          f"patch_embed_fused out {tuple(out.shape)} or non-finite")
+    check(err <= 0.03 * top, f"patch_embed_fused off the tower's patch embedding by {err} (max {top})")
+    print(f"[library] patch_embed_fused on {len(files)} JPEGs ({out.shape[0]:,} patch rows) with the "
+          f"tower's own weights: max diff {err:.2e} from the tower's patch embedding (max |x| {top:.2f})",
+          flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
@@ -565,6 +878,7 @@ def main():
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from tpuclip_torch.ops import _build
     from tpuclip_torch.ops import hamming as hops
+    from tpuclip_torch.ops import patch_embed as pops
     from tpuclip_torch.ops import topk as tops
     from tpuclip_torch.ops import topk_int8 as ops
 
@@ -586,18 +900,23 @@ def main():
     record = phase_kernels(mods, gpu)
     torch.cuda.empty_cache()
     record.update(phase_binary_kernels(hops, gpu))
+    record["patch_embed_fused"] = phase_patch_embed(pops, gpu)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        launches, db, cache = phase_end_to_end(mods, gpu, Path(tmp))
+        launches, db, cache, engine = phase_end_to_end(mods, gpu, Path(tmp))
         launches.update(phase_search_modes(mods, gpu, Path(tmp), db, cache))
+        launches["int8_candidates"] = phase_filters(mods, gpu, Path(tmp), db, cache)
+        launches["patch_embed_fused"] = phase_patch_embed_library(pops, gpu, Path(tmp), engine)
 
     sources = {
         "int8_scores": ("tpuclip_torch/csrc/int8_scan.cu", "tpuclip/ops/topk_int8.py:340"),
         "int8_candidates_packed": ("tpuclip_torch/csrc/int8_scan.cu", "tpuclip/ops/topk_int8.py:189"),
+        "int8_candidates": ("tpuclip_torch/csrc/int8_scan.cu", "tpuclip/ops/topk_int8.py:103"),
         "topk_tiles": ("tpuclip_torch/csrc/topk_bf16.cu", "tpuclip/ops/topk.py:41"),
         "binary_scores": ("tpuclip_torch/csrc/binary_scan.cu", "tpuclip/ops/hamming.py:354"),
         "binary_topk_q1": ("tpuclip_torch/csrc/binary_scan.cu", "tpuclip/ops/hamming.py:259"),
         "binary_topk_batched": ("tpuclip_torch/csrc/binary_scan.cu", "tpuclip/ops/hamming.py:132"),
+        "patch_embed_fused": ("tpuclip_torch/csrc/patch_embed.cu", "tpuclip/ops/patch_embed.py:24"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -2,7 +2,8 @@
 binary-only databases, the binary cascade, the capacity gate, and the int8
 route above k = 128, first through both ``DeviceIndex`` classes over one
 SQLite database, then end to end through both CLIs and engines on the tiny
-preset (the same checkpoint, written by tpuclip's ``save_checkpoint``).
+preset (the same checkpoint, written by tpuclip's ``save_checkpoint``),
+folder filters included.
 Where tpuclip's cascade takes its single-query scores prefilter, its binary
 rows are put in the TPU's grouped layout and its Pallas kernel runs in
 interpret mode."""
@@ -319,14 +320,17 @@ def _both_clis(world, kind, flags, monkeypatch):
     _assert_same([got], [want], atol=1e-5)
 
 
-def _both_engines(world, kind):
+def _both_engines(world, kind, folders=None):
     tmp, cache, dbs = world
     texts = ["a red car", "blue sky", "two dogs on a beach"]
     kw = dict(model_name=MODEL, inference_batch_size=4)
-    want = jax_engine.ImageDatabase(dbs["jax", kind], str(cache), **kw).search_texts(texts, 5)
-    got = torch_engine.ImageDatabase(dbs["torch", kind], str(cache), device="cpu", **kw).search_texts(texts, 5)
+    want = jax_engine.ImageDatabase(dbs["jax", kind], str(cache), **kw).search_texts(texts, 5, folders)
+    got = torch_engine.ImageDatabase(dbs["torch", kind], str(cache), device="cpu", **kw).search_texts(
+        texts, 5, folders
+    )
     assert [len(r) for r in got] == [5, 5, 5]
     _assert_same(got, want, atol=1e-5)
+    return got
 
 
 def test_cli_bf16_precision_matches_tpuclip(world, monkeypatch):
@@ -346,3 +350,19 @@ def test_cli_cascade_matches_tpuclip(world, monkeypatch, prefilter):
 def test_cli_binary_only_matches_tpuclip(world, monkeypatch):
     _both_clis(world, "binary", [], monkeypatch)
     _both_engines(world, "binary")
+
+
+@pytest.mark.parametrize("setting", ["int8", "int8-host", "bf16", "cascade", "binary"])
+def test_cli_folder_filter_matches_tpuclip(world, monkeypatch, setting):
+    """``search --folder <root>/b`` and a filtered ``search_texts`` in each
+    mode; ``int8-host`` is the int8 search without the rerank copy
+    (TPUCLIP_DEVICE_RERANK=0)."""
+    tmp, _, _ = world
+    folder = str(tmp / "imgs" / "b")
+    flags = {"bf16": ["--precision", "bf16"], "cascade": ["--mode", "cascade"]}.get(setting, [])
+    if setting == "int8-host":
+        monkeypatch.setenv("TPUCLIP_DEVICE_RERANK", "0")
+    kind = "binary" if setting == "binary" else "full"
+    _both_clis(world, kind, [*flags, "--folder", folder], monkeypatch)
+    got = _both_engines(world, kind, [folder])
+    assert all(p.startswith(folder + "/") for results in got for p, _ in results)

@@ -41,7 +41,7 @@ def world(tmp_path, monkeypatch):
     return tmp_path, cache, root
 
 
-def _scan_and_search(cli, tmp_path, cache, root, name, extra, monkeypatch):
+def _scan_and_search(cli, tmp_path, cache, root, name, extra, monkeypatch, search_flags=()):
     """Runs ``scan`` + ``search`` through ``cli``; returns (db path, the
     results the search handed to its gallery)."""
     import tpuclip.gallery.html as gallery
@@ -56,7 +56,7 @@ def _scan_and_search(cli, tmp_path, cache, root, name, extra, monkeypatch):
     )
     cli.main([
         "search", "a red car", "-k", "5", "--no-session",
-        "--output", str(tmp_path / f"{name}.html"), *common,
+        "--output", str(tmp_path / f"{name}.html"), *search_flags, *common,
     ])
     assert len(captured) == 1
     return db, captured[0]
@@ -116,11 +116,26 @@ def test_cli_refuses_what_is_not_ported(world, monkeypatch):
     torch_cli.main(["scan", str(root / "a"), *common])
     with pytest.raises(SystemExit):  # the interactive session
         torch_cli.main(["search", "a red car", *common])
-    with pytest.raises(NotImplementedError, match="folder filters"):
-        torch_cli.main(["search", "a red car", "--no-session", "--folder", str(root), *common])
     monkeypatch.setenv("TPUCLIP_SEARCH_MODE", "exact")  # the CLI sets it; restored afterwards
     with pytest.raises(NotImplementedError, match="ivf"):
         torch_cli.main(["search", "a red car", "--no-session", "--mode", "ivf", *common])
+
+
+def test_cli_folder_filter_matches_tpuclip(world, monkeypatch):
+    """``search --folder <root>/a`` through both CLIs: the same gallery
+    results, all under ``a``. The int8 search keeps its rows resident, so
+    the filtered query takes the masked route and its fp32 host rescore."""
+    tmp_path, cache, root = world
+    flags = ["--folder", str(root / "a")]
+    _, res_j = _scan_and_search(jax_cli, tmp_path, cache, root, "jax", [], monkeypatch, flags)
+    _, res_t = _scan_and_search(
+        torch_cli, tmp_path, cache, root, "torch", ["--device", "cpu"], monkeypatch, flags
+    )
+    assert len(res_t) == 5
+    assert all(p.startswith(str(root / "a") + "/") for p, _ in res_t)
+    assert [p for p, _ in res_t] == [p for p, _ in res_j]
+    # Each CLI scanned its own database with its own towers: 1e-5, as above.
+    np.testing.assert_allclose([s for _, s in res_t], [s for _, s in res_j], rtol=0, atol=1e-5)
 
 
 class _StubEngine:

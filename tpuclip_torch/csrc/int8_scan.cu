@@ -10,6 +10,14 @@
 // Replaces (TPU Pallas kernels):
 //   tpuclip/ops/topk_int8.py:_int8_scores_kernel  -> int8_scores_kernel
 //   tpuclip/ops/topk_int8.py:_int8_packed_kernel  -> int8_packed_kernel
+//   tpuclip/ops/topk_int8.py:_int8_topk_kernel    -> int8_topk_kernel
+//
+// Kernel 3 keeps kernel 1's exact f32 scores of one tile in shared memory
+// (8 queries x 2048 rows x 4 bytes) and selects each tile's top k_tile by a
+// warp-wide max over unique 64-bit keys (score bits above the inverted
+// row), as topk_bf16.cu does, instead of the TPU's k rounds of max-and-mask
+// over a whole VMEM block: ties go to the lowest row and the scores stay
+// exact. At Q = 1 one warp of the block's eight selects.
 //
 // What bounds them on the H100: the scan reads the whole int8 matrix once
 // per call, N x D bytes (about 1.18 GB at 1M x 1152, ~0.35 ms at 3.35 TB/s);
@@ -254,12 +262,125 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// A unique key per (score, row), larger for a higher score and, among equal
+// scores, for a lower row: the float's monotonic bits above the inverted
+// row (topk_bf16.cu's order_key). A taken slot is below every real key;
+// -inf scores (rows past n_valid) are real keys.
+constexpr unsigned kTaken = 0x7fffffffu;  // a NaN no int8 score produces
+
+__device__ __forceinline__ long long order_key(unsigned bits, int row) {
+  if (bits == kTaken) return LLONG_MIN;
+  if (bits == 0x80000000u) bits = 0u;
+  const unsigned mono = bits ^ ((bits >> 31) ? 0xFFFFFFFFu : 0x80000000u);
+  const unsigned long long u = (static_cast<unsigned long long>(mono ^ 0x80000000u) << 32) |
+                               (0xFFFFFFFFu - static_cast<unsigned>(row));
+  return static_cast<long long>(u);
+}
+
+__device__ __forceinline__ long long warp_max_key(long long v) {
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1) {
+    const long long other = __shfl_xor_sync(0xffffffffu, v, o);
+    v = other > v ? other : v;
+  }
+  return v;
+}
+
+// Kernel 3. Grid: one block per (tile, chunk of qb <= 8 queries), query
+// chunk fastest. Shared memory: qb x tile f32 scores, then 8 query rows.
+// out_s / out_i (n_q, tiles * k_pad): per tile, its top k_tile (score, row)
+// pairs ordered (score desc, row asc), then (-inf, INT_MAX) up to k_pad.
+// The scores are kernel 1's, exact; only the selection differs from kernel
+// 2, which ranks truncated packed keys.
+__global__ void __launch_bounds__(kThreads)
+    int8_topk_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ m,
+                     const float* __restrict__ scales, float* __restrict__ out_s,
+                     int* __restrict__ out_i, int n_q, int n_rows, int dim, int n_valid, int tile,
+                     int k_tile, int k_pad, int qb, int n_qchunks) {
+  extern __shared__ int4 smem_topk[];
+  float* sc = reinterpret_cast<float*>(smem_topk);
+  int8_t* qs = reinterpret_cast<int8_t*>(sc + qb * tile);
+  const int tile_idx = blockIdx.x / n_qchunks;
+  const int q0 = (blockIdx.x % n_qchunks) * qb;
+  const int nq = min(qb, n_q - q0);
+  load_queries(q, q0, nq, kMaxQueriesPerTile, dim, qs);
+  __syncthreads();
+
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int base = tile_idx * tile;
+  const int dot_limit = min(n_rows, n_valid);
+  for (int s = warp * kRowsPerWarp; s < tile; s += kWarps * kRowsPerWarp) {
+    int acc[1][4];
+    mma_rows<1>(m, dot_limit, dim, base + s, qs, 1, lane, acc);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int local = s + g + (r >> 1) * 8;
+      const int qi = 2 * t + (r & 1);
+      if (qi < nq) {
+        const bool valid = base + local < n_valid;
+        sc[qi * tile + local] = score_of(acc[0][r], valid ? scales[base + local] : 0.0f, valid);
+      }
+    }
+  }
+  __syncthreads();
+
+  // One warp per query: k_tile rounds of a warp-wide max over the tile's
+  // keys. Keys are unique, so exactly one lane owns each maximum; it writes
+  // the pair out and marks its slot taken (it alone reads slots i = lane mod
+  // 32). Every lane joins the full-mask shuffle, including a lane whose
+  // slots are all taken (pos = -1, possible once k_tile > tile / 32).
+  const int tiles = n_rows / tile;
+  for (int qi = warp; qi < nq; qi += kWarps) {
+    float* sq = sc + qi * tile;
+    const size_t o = static_cast<size_t>(q0 + qi) * tiles * k_pad +
+                     static_cast<size_t>(tile_idx) * k_pad;
+    for (int r = 0; r < k_tile; ++r) {
+      long long best = LLONG_MIN;
+      int pos = -1;
+      for (int i = lane; i < tile; i += kWarp) {
+        const long long key = order_key(__float_as_uint(sq[i]), base + i);
+        if (key > best) {
+          best = key;
+          pos = i;
+        }
+      }
+      const long long top = warp_max_key(best);
+      if (pos >= 0 && best == top) {
+        out_s[o + r] = sq[pos];
+        out_i[o + r] = base + pos;
+        sq[pos] = __uint_as_float(kTaken);
+      }
+      __syncwarp();
+    }
+    for (int r = k_tile + lane; r < k_pad; r += kWarp) {
+      out_s[o + r] = __uint_as_float(0xff800000u);
+      out_i[o + r] = INT_MAX;
+    }
+  }
+}
+
 size_t smem_optin() {
   int device = 0;
   int bytes = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   return static_cast<size_t>(bytes);
+}
+
+// Queries per block of kernels 2 and 3: as many of 8 as have `tile` 4-byte
+// entries each in the shared memory left beside the 8 query rows (0: none
+// fit). `smem` receives the block's bytes.
+int queries_per_tile(int tile, int dim, size_t* smem) {
+  const size_t query_bytes = static_cast<size_t>(kMaxQueriesPerTile) * query_stride(dim);
+  const size_t per_query = static_cast<size_t>(tile) * 4;
+  const size_t optin = smem_optin();
+  const size_t fit = optin > query_bytes ? (optin - query_bytes) / per_query : 0;
+  const int qb = fit < kMaxQueriesPerTile ? static_cast<int>(fit) : kMaxQueriesPerTile;
+  *smem = per_query * qb + query_bytes;
+  return qb;
 }
 
 }  // namespace
@@ -292,13 +413,9 @@ int tpuclip_int8_scores(const void* q, const void* m, const void* scales, void* 
 int tpuclip_int8_candidates_packed(const void* q, const void* m, const void* scales, void* out,
                                    int n_q, int n_rows, int dim, int n_valid, int tile,
                                    int k_tile, int k_pad, void* stream) {
-  const size_t query_bytes = static_cast<size_t>(kMaxQueriesPerTile) * query_stride(dim);
-  const size_t per_query_keys = static_cast<size_t>(tile) * sizeof(int);
-  const size_t optin = smem_optin();
-  const size_t fit = optin > query_bytes ? (optin - query_bytes) / per_query_keys : 0;
-  const int qb = fit < kMaxQueriesPerTile ? static_cast<int>(fit) : kMaxQueriesPerTile;
+  size_t smem = 0;
+  const int qb = queries_per_tile(tile, dim, &smem);
   if (qb < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = per_query_keys * qb + query_bytes;
   cudaError_t err = cudaFuncSetAttribute(
       int8_packed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -308,6 +425,30 @@ int tpuclip_int8_candidates_packed(const void* q, const void* m, const void* sca
       static_cast<const int8_t*>(q), static_cast<const int8_t*>(m),
       static_cast<const float*>(scales), static_cast<int*>(out), n_q, n_rows, dim, n_valid,
       tile, k_tile, k_pad, qb, n_qchunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Per-tile top-k_tile exact (score, row) candidates: out_s (n_q, (n_rows /
+// tile) * k_pad) f32, out_i the same shape int32; dim % 16 == 0,
+// tile % 16 == 0, 1 <= k_tile <= min(tile, k_pad).
+int tpuclip_int8_candidates(const void* q, const void* m, const void* scales, void* out_s,
+                            void* out_i, int n_q, int n_rows, int dim, int n_valid, int tile,
+                            int k_tile, int k_pad, void* stream) {
+  if (tile % kRowsPerWarp != 0 || k_tile < 1 || k_tile > tile || k_tile > k_pad) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  size_t smem = 0;
+  const int qb = queries_per_tile(tile, dim, &smem);
+  if (qb < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      int8_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_qchunks = (n_q + qb - 1) / qb;
+  const int tiles = n_rows / tile;
+  int8_topk_kernel<<<tiles * n_qchunks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(q), static_cast<const int8_t*>(m),
+      static_cast<const float*>(scales), static_cast<float*>(out_s), static_cast<int*>(out_i),
+      n_q, n_rows, dim, n_valid, tile, k_tile, k_pad, qb, n_qchunks);
   return static_cast<int>(cudaGetLastError());
 }
 

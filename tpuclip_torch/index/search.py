@@ -4,34 +4,47 @@
 reused) once per change of the database and uploads what the search mode
 needs; every search then runs on the device. What is ported:
 
-- **int8 precision** (the default): the rows are uploaded once in the
-  storage dtype (bf16 on CUDA, fp32 on the CPU) and the int8 matrix + per-row
-  scales are derived from them on the device. k <= 128 runs
-  :func:`~tpuclip_torch.ops.topk_int8.topk_int8_rerank_fused_auto` (int8
-  shortlist, CUDA kernels 1 and 2, exact rescore against the resident rows);
-  larger k takes a ``max(4k, 64)`` int8 shortlist (kernel 1) rescored in
-  fp32 from the host memmap, as tpuclip does.
+- **int8 precision** (the default). The resident rerank copy is kept under
+  tpuclip's gate: ``TPUCLIP_DEVICE_RERANK=1`` or ``0`` forces it; ``auto``
+  keeps it on CUDA while the int8 matrix plus the storage-dtype rows,
+  ``(1 + itemsize) * N * D`` bytes, fit ``TPUCLIP_DEVICE_RERANK_MAX_GB``
+  (default 8), and never on the CPU. With it the rows are uploaded once
+  and the int8 matrix + scales derived from them on the device, and an
+  unmasked search with k <= 128 is
+  :func:`~tpuclip_torch.ops.topk_int8.topk_int8_rerank_fused_auto` (CUDA
+  kernels 1 and 2, exact rescore against the resident rows). Without it
+  only the int8 matrix and its scales, quantized from the fp32 originals,
+  are on the device. Every other int8 search takes a shortlist of depth
+  ``max(4k, 64)`` rescored in fp32 from the host memmap: one unmasked query
+  with a shortlist <= 128 from kernel 3
+  (:func:`~tpuclip_torch.ops.topk_int8.topk_int8`), the rest from kernel 1's
+  scores (:func:`~tpuclip_torch.ops.topk_int8.topk_int8_scores`).
+  ``TPUCLIP_SEARCH_RERANK=0`` returns the int8 scores themselves, at depth k.
 - **bf16 precision** (``TPUCLIP_SEARCH_PRECISION=bf16``): the padded
   matrix is resident in ``matrix_dtype`` and every search is
-  :func:`~tpuclip_torch.ops.topk.cosine_topk` (kernel 4 for k <= 128).
+  :func:`~tpuclip_torch.ops.topk.cosine_topk` (kernel 4 for unmasked k <= 128).
 - **binary-only databases**: the packed sign bits are resident (1 bit per
   dimension) and searched with :func:`~tpuclip_torch.ops.hamming.binary_topk`
   (kernels 6 and 7); similarity is matches / D.
 - **cascade** (``TPUCLIP_SEARCH_MODE=cascade``): no flat matrix is uploaded;
   a packed-binary prefilter (kernel 5, 6 or 7) picks a shortlist that is
   rescored in fp32 from the host memmap.
+- **folder filters** (``filter_folders``) in every mode: an additive 0/-inf
+  mask over the padded rows from the store's LIKE-prefix folder query,
+  cached until the next refresh. Masked searches take tpuclip's routes:
+  kernel 1's scores for int8, the chunked matmul for bf16, kernel 5's
+  popcounts for binary rows and the cascade (an exact prefilter at depth).
 - ``TPUCLIP_INDEX_HBM_GB`` caps the flat matrix, as tpuclip does off the TPU.
 
 Not ported yet, each raising ``NotImplementedError`` instead of running a
-slower path: folder filters and the int8 search without the resident rows
-(``TPUCLIP_DEVICE_RERANK=0``; ROADMAP Queue 1 item 4), the ``ivf`` mode
-(item 8) and mesh sharding (item 10).
+slower path: the ``ivf`` mode (ROADMAP Queue 1 item 8) and mesh sharding
+(item 10).
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,21 +58,26 @@ from tpuclip_torch.ops.hamming import (
     BINARY_TILE_N,
     binary_shortlist_q1,
     binary_topk,
+    binary_topk_masked,
     pack_bits_to_words,
     pad_words,
 )
-from tpuclip_torch.ops.topk import DEFAULT_TILE_N, _final_merge, cosine_topk
+from tpuclip_torch.ops.topk import DEFAULT_TILE_N, cosine_topk
 from tpuclip_torch.ops.topk_int8 import (
     INT8_TILE_N,
     derive_int8_matrix,
-    int8_scores,
+    quantize_matrix,
     quantize_queries,
+    quantize_query,
+    topk_int8,
     topk_int8_rerank_fused_auto,
+    topk_int8_scores,
 )
 
 _UPLOAD_ROWS = 65536  # host rows converted + copied per upload step
 _INT32_MIN = -(2**31)
-# Largest k the fused int8 search serves; above it the host rescore does.
+# Largest k the fused int8 search serves, and largest shortlist kernel 3
+# serves; above them the scores route does.
 _FUSED_MAX_K = 128
 
 
@@ -85,11 +103,10 @@ class DeviceIndex:
             raise ValueError(f"TPUCLIP_SEARCH_PRECISION must be int8 or bf16, got {self.precision!r}")
         if self.precision == "bf16" and self.device.type == "cuda" and self.matrix_dtype != torch.bfloat16:
             raise ValueError(f"the CUDA bf16 scan takes bf16 rows, got matrix_dtype {self.matrix_dtype}")
-        if self.precision == "int8" and (
-            os.environ.get("TPUCLIP_SEARCH_RERANK", "1") == "0"
-            or os.environ.get("TPUCLIP_DEVICE_RERANK", "auto") == "0"
-        ):
-            raise _not_ported("int8 search without the device rerank copy", "ROADMAP Queue 1 item 4")
+        # The int8 searches rescore their shortlist exactly unless this is 0.
+        self.rerank = os.environ.get("TPUCLIP_SEARCH_RERANK", "1") != "0"
+        # Resident rerank copy: 1 / 0 force it, auto decides in refresh().
+        self.device_rerank = os.environ.get("TPUCLIP_DEVICE_RERANK", "auto")
         self.search_mode = os.environ.get("TPUCLIP_SEARCH_MODE", "exact")
         if self.search_mode == "ivf":
             raise _not_ported("search mode 'ivf'", "ROADMAP Queue 1 item 8")
@@ -107,6 +124,8 @@ class DeviceIndex:
         self._bin_ids: Optional[np.ndarray] = None  # binary row -> image_id
         self._bin_matrix: Optional[torch.Tensor] = None  # (N_pad, W) int32 packed words
         self._fingerprint: Optional[Tuple[int, ...]] = None
+        # Folder masks by (sorted folders, rows, padded rows); cleared by refresh().
+        self._mask_cache: Dict[tuple, torch.Tensor] = {}
         # Searches per shortlist method (exact_searches / extract_searches).
         self.shortlist_stats: dict = {}
 
@@ -163,8 +182,12 @@ class DeviceIndex:
                 )
             elif self.precision == "int8":
                 n_pad = -(-len(ids) // INT8_TILE_N) * INT8_TILE_N
-                self._rows_device = self._upload(vectors, len(ids))
-                self._matrix, self._scales = derive_int8_matrix(self._rows_device, n_pad)
+                if self.rerank and self._want_device_rerank(len(ids)):
+                    self._rows_device = self._upload(vectors, len(ids))
+                    self._matrix, self._scales = derive_int8_matrix(self._rows_device, n_pad)
+                else:
+                    # The host route: the int8 matrix from the fp32 originals.
+                    self._matrix, self._scales = quantize_matrix(vectors, n_pad, self.device)
                 self._n_valid = len(ids)
             else:
                 n_pad = -(-len(ids) // DEFAULT_TILE_N) * DEFAULT_TILE_N
@@ -180,6 +203,7 @@ class DeviceIndex:
             padded, _ = pad_words(torch.from_numpy(words.view(np.int32)), BINARY_TILE_N)
             self._bin_matrix = padded.to(self.device)
         self._fingerprint = fp
+        self._mask_cache.clear()
         if len(ids) or len(bin_ids):
             log(
                 f"  Index resident on {self.device}: {len(ids):,} full vectors, "
@@ -202,6 +226,22 @@ class DeviceIndex:
         itemsize = 1 if self.precision == "int8" else torch.finfo(self.matrix_dtype).bits // 8
         return n_rows * self.store.embedding_dim * itemsize / 1e9 <= cap
 
+    def _want_device_rerank(self, n_rows: int) -> bool:
+        """tpuclip's device-rerank gate: TPUCLIP_DEVICE_RERANK=1 / 0 force
+        it; under auto, CUDA (tpuclip's TPU) and the int8 matrix plus the
+        storage-dtype rows under TPUCLIP_DEVICE_RERANK_MAX_GB (default 8, as
+        tpuclip's; a default sized to the card waits for a measurement)."""
+        if self.device_rerank == "0":
+            return False
+        if self.device_rerank == "1":
+            return True
+        if self.device.type != "cuda":
+            return False
+        itemsize = torch.finfo(self.matrix_dtype).bits // 8
+        total_bytes = n_rows * self.store.embedding_dim * (1 + itemsize)
+        budget = float(os.environ.get("TPUCLIP_DEVICE_RERANK_MAX_GB", "8"))
+        return total_bytes / 1e9 <= budget
+
     @property
     def num_full(self) -> int:
         return 0 if self._ids is None else len(self._ids)
@@ -210,11 +250,32 @@ class DeviceIndex:
     def num_binary(self) -> int:
         return 0 if self._bin_ids is None else len(self._bin_ids)
 
-    # ---------------------------------------------------------------- search
+    def resident_bytes(self) -> int:
+        """Bytes of the index's tensors on the device (masks aside)."""
+        tensors = (self._rows_device, self._matrix, self._scales, self._bin_matrix)
+        return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
-    def _refuse_filters(self, filter_folders) -> None:
-        if filter_folders:
-            raise _not_ported("folder filters", "ROADMAP Queue 1 item 4")
+    # ----------------------------------------------------------------- masks
+
+    def _folder_mask(
+        self, filter_folders: Sequence[str], row_ids: np.ndarray, padded_n: int
+    ) -> torch.Tensor:
+        """(padded_n,) f32 additive mask on the device: 0 for the rows whose
+        image lies under one of ``filter_folders``, -inf for every other
+        row and the padding."""
+        key = tuple(sorted(filter_folders)) + (len(row_ids), padded_n)
+        cached = self._mask_cache.get(key)
+        if cached is not None:
+            return cached
+        allowed = self.store.folder_filter_ids(filter_folders)
+        allowed_arr = np.fromiter(allowed, dtype=np.int64, count=len(allowed))
+        keep = np.zeros((padded_n,), bool)
+        keep[: len(row_ids)] = np.isin(row_ids, allowed_arr)
+        mask = torch.from_numpy(np.where(keep, 0.0, -np.inf).astype(np.float32)).to(self.device)
+        self._mask_cache[key] = mask
+        return mask
+
+    # ---------------------------------------------------------------- search
 
     def search(
         self,
@@ -226,14 +287,13 @@ class DeviceIndex:
         vectors when resident, else the binary rows (the reference's
         preference order, image_database.py:1532-1556)."""
         self.refresh()
-        self._refuse_filters(filter_folders)
         q2d = np.asarray(query, np.float32).reshape(1, -1)
         if self._cascade_ready():
-            return self._search_cascade(q2d, k)[0]
+            return self._search_cascade(q2d, k, filter_folders)[0]
         if self._matrix is not None:
-            return self._search_dense(q2d, k)[0]
+            return self._map_batch_results(*self._search_dense(q2d, k, filter_folders, single=True), 1)[0]
         if self._bin_matrix is not None:
-            return self._search_binary(q2d, k)[0]
+            return self._search_binary(q2d, k, filter_folders)[0]
         return []
 
     def search_batch(
@@ -248,50 +308,64 @@ class DeviceIndex:
         self.refresh()
         if len(queries) == 0:
             return []
-        self._refuse_filters(filter_folders)
         q_real = len(queries)
         q_host = np.asarray(queries, np.float32).reshape(q_real, -1)
         if self._cascade_ready():
-            return self._search_cascade(q_host, k)
+            return self._search_cascade(q_host, k, filter_folders)
         if self._matrix is None:
             if self._bin_matrix is not None:
-                return self._search_binary(q_host, k)
+                return self._search_binary(q_host, k, filter_folders)
             return [[] for _ in range(q_real)]
         bucket = batch_bucket(q_real)
         if bucket > q_real:
             q_host = np.concatenate(
                 [q_host, np.zeros((bucket - q_real, q_host.shape[1]), np.float32)]
             )
-        return self._search_dense(q_host, k)[:q_real]
+        scores, rows = self._search_dense(q_host, k, filter_folders)
+        return self._map_batch_results(scores[:q_real], rows[:q_real], q_real)
 
-    def _search_dense(self, q_host: np.ndarray, k: int) -> List[List[Tuple[str, float]]]:
-        """(Q, D) queries over the flat matrix: the int8 fused search (k <=
-        128), the int8 shortlist with the host rescore (larger k), or the
-        bf16 scan."""
+    def _search_dense(self, q_host: np.ndarray, k: int, filter_folders, single: bool = False):
+        """(Q, D) queries over the flat matrix → host ((Q, k) scores, (Q, k)
+        rows), by tpuclip's branches (``_search_full`` for one query,
+        ``search_batch`` for a batch):
+
+        - bf16: :func:`cosine_topk` with the mask;
+        - int8 with the resident rows, no mask, k <= 128: the fused search;
+        - otherwise an int8 shortlist of ``k_short`` = max(4k, 64) rows (k
+          without the rescore): for one unmasked query with k_short <= 128
+          kernel 3, host-quantized; else kernel 1's scores with the mask;
+          then the fp32 rescore from the host memmap, even with the rows
+          resident."""
+        mask = (
+            self._folder_mask(filter_folders, self._ids, self._matrix.shape[0])
+            if filter_folders
+            else None
+        )
         q = torch.from_numpy(q_host).to(self.device)
         if self.precision == "bf16":
-            scores, rows = cosine_topk(q, self._matrix, k, n_valid=self._n_valid)
-        elif k <= _FUSED_MAX_K:
-            scores, rows = topk_int8_rerank_fused_auto(
+            s, r = cosine_topk(q, self._matrix, k, n_valid=self._n_valid, mask=mask)
+            return s.cpu().numpy(), r.cpu().numpy()
+        if mask is None and self._rows_device is not None and k <= _FUSED_MAX_K:
+            s, r = topk_int8_rerank_fused_auto(
                 q, self._matrix, self._scales, self._rows_device, k,
                 n_valid=self._n_valid, stats=self.shortlist_stats,
             )
+            return s.cpu().numpy(), r.cpu().numpy()
+        k_short = max(4 * k, 64) if self.rerank else k
+        if single:
+            qi, qs = quantize_query(q_host)
+            qi = qi.to(self.device)
+            if mask is None and k_short <= _FUSED_MAX_K:
+                s, r = topk_int8(qi, self._matrix, self._scales, qs, k_short, self._n_valid)
+            else:
+                s, r = topk_int8_scores(qi, self._matrix, self._scales, qs, k_short, self._n_valid, mask)
         else:
-            # tpuclip's route above k = 128: an int8 shortlist of depth
-            # max(4k, 64), rescored in fp32 from the host memmap.
-            s, r = self._int8_shortlist(q, max(4 * k, 64))
-            scores, rows = self._exact_rerank_batch(q_host, s, r, k)
-            return self._map_batch_results(scores, rows, len(q_host))
-        return self._map_batch_results(scores.cpu().numpy(), rows.cpu().numpy(), len(q_host))
-
-    def _int8_shortlist(self, q: torch.Tensor, m: int):
-        """Kernel 1's int8 scores, then the exact top-m ordered (score desc,
-        row asc): ((Q, m) f32, (Q, m) rows) on the host."""
-        qi, _ = quantize_queries(q)
-        scores = int8_scores(qi, self._matrix, self._scales, self._n_valid)
-        rows = torch.arange(scores.shape[1], device=scores.device).expand_as(scores)
-        s, r = _final_merge(scores, rows, min(m, scores.shape[1]))
-        return s.cpu().numpy(), r.cpu().numpy()
+            qi, qs = quantize_queries(q)
+            s, r = topk_int8_scores(qi, self._matrix, self._scales, qs, k_short, self._n_valid, mask)
+        s, r = s.cpu().numpy(), r.cpu().numpy()
+        if self.rerank:
+            return self._exact_rerank_batch(q_host, s, r, k)
+        return s, r
 
     def _exact_rerank_batch(self, qn, scores, rows, k):
         """Exact fp32 rescoring of (Q, m) shortlists from the memmapped
@@ -336,12 +410,22 @@ class DeviceIndex:
         words = pack_bits_to_words((queries_2d >= 0).astype(np.uint8)).view(np.int32)
         return torch.from_numpy(np.ascontiguousarray(words)).to(self.device)
 
-    def _search_binary(self, queries_2d: np.ndarray, k: int) -> List[List[Tuple[str, float]]]:
+    def _binary_mask(self, filter_folders) -> Optional[torch.Tensor]:
+        if not filter_folders:
+            return None
+        return self._folder_mask(filter_folders, self._bin_ids, self._bin_matrix.shape[0])
+
+    def _search_binary(self, queries_2d: np.ndarray, k: int, filter_folders) -> List[List[Tuple[str, float]]]:
         """Binary-only search: one :func:`binary_topk` call for the whole
-        batch (tpuclip loops over the queries); similarity = matches / D."""
-        matches, rows = binary_topk(
-            self._query_words(queries_2d), self._bin_matrix, k, len(self._bin_ids)
-        )
+        batch (tpuclip loops over the queries), or
+        :func:`binary_topk_masked` under a folder filter; similarity =
+        matches / D."""
+        qwords = self._query_words(queries_2d)
+        mask = self._binary_mask(filter_folders)
+        if mask is None:
+            matches, rows = binary_topk(qwords, self._bin_matrix, k, len(self._bin_ids))
+        else:
+            matches, rows = binary_topk_masked(qwords, self._bin_matrix, k, len(self._bin_ids), mask)
         matches, rows = matches.cpu().numpy(), rows.cpu().numpy()
         dim = self.store.embedding_dim
         out = []
@@ -377,33 +461,37 @@ class DeviceIndex:
             depth = max(32 * k, 512)
         return max(k, min(depth, len(self._ids)))
 
-    def _cascade_prefilter(self, qwords: torch.Tensor, depth: int):
+    def _cascade_prefilter(self, qwords: torch.Tensor, depth: int, mask: Optional[torch.Tensor]):
         """The packed-binary prefilter: ((Q, m) f32 matches with -inf
         invalid, (Q, m) rows) on the host.
 
-        One query takes the scores route (kernel 5, then the exact top
-        min(2 * depth, N)) under TPUCLIP_CASCADE_PREFILTER=scores, and under
-        auto on CUDA (tpuclip's TPU rule); every other case takes
+        One unmasked query takes the scores route (kernel 5, then the exact
+        top min(2 * depth, N)) under TPUCLIP_CASCADE_PREFILTER=scores, and
+        under auto on CUDA (tpuclip's TPU rule); a masked search takes
+        :func:`binary_topk_masked` at ``depth``, and every other case
         :func:`binary_topk` at ``depth`` (kernel 6 or 7)."""
         mode = os.environ.get("TPUCLIP_CASCADE_PREFILTER", "auto")
-        eligible = qwords.shape[0] == 1 and (
+        eligible = mask is None and qwords.shape[0] == 1 and (
             mode == "scores" or (mode == "auto" and self.device.type == "cuda")
         )
         n_valid = len(self._bin_ids)
         if eligible:
             s, i = binary_shortlist_q1(qwords, self._bin_matrix, min(2 * depth, n_valid), n_valid)
             return s.cpu().numpy(), i.cpu().numpy()
-        matches, rows = binary_topk(qwords, self._bin_matrix, depth, n_valid)
+        if mask is None:
+            matches, rows = binary_topk(qwords, self._bin_matrix, depth, n_valid)
+        else:
+            matches, rows = binary_topk_masked(qwords, self._bin_matrix, depth, n_valid, mask)
         matches = matches.cpu().numpy().astype(np.float32)
-        # INT32_MIN marks rows past n_valid: -inf for the rescore.
+        # INT32_MIN marks rows past n_valid and masked rows: -inf for the rescore.
         matches[matches <= _INT32_MIN + 1] = -np.inf
         return matches, rows.cpu().numpy()
 
-    def _search_cascade(self, queries_2d: np.ndarray, k: int) -> List[List[Tuple[str, float]]]:
+    def _search_cascade(self, queries_2d: np.ndarray, k: int, filter_folders) -> List[List[Tuple[str, float]]]:
         """Packed-binary prefilter + exact fp32 rescore from the host memmap,
         (Q, k) results."""
         matches, rows = self._cascade_prefilter(
-            self._query_words(queries_2d), self._cascade_depth(k)
+            self._query_words(queries_2d), self._cascade_depth(k), self._binary_mask(filter_folders)
         )
         scores, out_rows = self._exact_rerank_batch(queries_2d, matches, rows, k)
         return self._map_batch_results(scores, out_rows, len(queries_2d))

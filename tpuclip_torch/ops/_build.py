@@ -35,6 +35,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "tpuclip_int8_scores": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tpuclip_int8_candidates_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "tpuclip_int8_candidates": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "tpuclip_patch_embed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "tpuclip_topk_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "tpuclip_binary_scores": [_P, _P, _P, _I, _I, _I, _P],
     "tpuclip_binary_topk_q1": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -9,7 +9,8 @@ Three kernels sit behind this module, in ``tpuclip_torch/csrc/binary_scan.cu``:
 
 - :func:`binary_scores` — kernel 5, every row's score for one query as f32
   (replaces ``_binary_scores_kernel``); the cascade's single-query prefilter
-  (:func:`binary_shortlist_q1`);
+  (:func:`binary_shortlist_q1`) and every folder-filtered binary search
+  (:func:`binary_topk_masked`);
 - :func:`binary_topk_q1` — kernel 6, the exact top-k of one query
   (replaces ``_binary_topk_q1_kernel``);
 - :func:`binary_topk_batched` — kernel 7, the same for a batch (replaces
@@ -257,6 +258,29 @@ def binary_topk(
     if qwords.shape[0] == 1:
         return binary_topk_q1(qwords, words, k, n_valid)
     return binary_topk_batched(qwords, words, k, n_valid)
+
+
+def binary_topk_masked(
+    qwords: torch.Tensor, words: torch.Tensor, k: int, n_valid: int, mask: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`binary_topk` under the (N_pad,) additive 0/-inf folder
+    ``mask`` (tpuclip's masked ``binary_topk_packed``): kernel 5's match
+    counts, one query at a time; masked rows and rows past ``n_valid``
+    score INT32_MIN; then the exact (matches desc, row asc) top-k."""
+    _check_binary_args(qwords, words, n_valid)
+    if mask.shape != (words.shape[0],):
+        raise ValueError(f"mask must be ({words.shape[0]},), got {tuple(mask.shape)}")
+    k_eff = min(k, words.shape[0])
+    rows = torch.arange(words.shape[0], device=words.device)[None]
+    out_m, out_r = [], []
+    for q in qwords.split(1):
+        scores = binary_scores(q, words, n_valid)
+        masked = torch.isneginf(scores) | (mask[None, :] < 0)
+        matches = scores.masked_fill(masked, 0.0).to(torch.int32).masked_fill(masked, _INT32_MIN)
+        m, r = _merge_int_candidates(matches, rows, k_eff)
+        out_m.append(m)
+        out_r.append(r)
+    return torch.cat(out_m), torch.cat(out_r)
 
 
 # =============================================================================

@@ -12,9 +12,10 @@ Results are ordered (score desc, row asc); slots with no valid row are
   replaces ``_iterative_topk_kernel``): per-tile top-k in the kernel, then
   :func:`_final_merge`; k <= 128.
 - :func:`topk_plain` — the counterpart of ``topk_xla``: every score from a
-  chunked fp32 matmul, then the exact selection; any k.
-- :func:`cosine_topk` — the dispatch: k <= 128 takes :func:`topk_tiles`,
-  larger k :func:`topk_plain`.
+  chunked fp32 matmul, plus an optional folder mask, then the exact
+  selection; any k.
+- :func:`cosine_topk` — the dispatch: unmasked k <= 128 takes
+  :func:`topk_tiles`, larger k and masked searches :func:`topk_plain`.
 
 :func:`topk_tiles` dispatches on its tensors' device: CPU tensors go to the
 plain version (:func:`_topk_tiles_plain`); CUDA tensors go to the kernel,
@@ -27,7 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from tpuclip_torch.ops.topk_int8 import _INT32_MAX, _NEG_INF, _check_cuda_args, _u32
+from tpuclip_torch.ops.topk_int8 import _INT32_MAX, _NEG_INF, _check_cuda_args, _final_merge
 
 DEFAULT_TILE_N = 2048
 # The tile top-k is a max-and-mask loop; larger k takes topk_plain.
@@ -45,22 +46,6 @@ def pad_matrix(rows: torch.Tensor, tile_n: int = DEFAULT_TILE_N) -> Tuple[torch.
     if rem:
         rows = torch.cat([rows, rows.new_zeros((rem, rows.shape[1]))])
     return rows, n
-
-
-def order_keys(scores: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """Unique int64 keys ordering (score desc, row asc): the f32 score's
-    monotonic bits above the inverted row (rows in [0, 2**32)). -0.0 counts
-    as +0.0."""
-    u = _u32(scores.float() + 0.0)
-    mono = u ^ torch.where((u >> 31) == 1, 0xFFFFFFFF, 0x80000000)
-    return (mono - 2**31) * 2**32 + (0xFFFFFFFF - rows.long())
-
-
-def _final_merge(scores: torch.Tensor, idx: torch.Tensor, k_eff: int):
-    """Merge per-tile candidates: the exact top-``k_eff`` ordered (score
-    desc, idx asc). ``idx`` must be unique per query row."""
-    pos = torch.topk(order_keys(scores, idx), k_eff, dim=1).indices
-    return scores.gather(1, pos), idx.long().gather(1, pos)
 
 
 def _invalid_to_sentinel(scores: torch.Tensor, rows: torch.Tensor):
@@ -104,19 +89,27 @@ def _select(scores: torch.Tensor, k: int):
 
 
 def topk_plain(
-    queries: torch.Tensor, matrix: torch.Tensor, k: int, n_valid: Optional[int] = None
+    queries: torch.Tensor,
+    matrix: torch.Tensor,
+    k: int,
+    n_valid: Optional[int] = None,
+    mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The counterpart of ``topk_xla`` for k > 128, where tpuclip too scores
-    outside any kernel: a matmul per chunk of rows, then the exact (score
-    desc, row asc) top-k: ((Q, k) f32, (Q, k) int64). On CUDA the matmul is
-    fp32 (bf16 products are exact in fp32; TF32 must be off), as XLA's dot
-    on a GPU. On the CPU the sums are float64, rounded once to f32: that
-    agrees with XLA's CPU dot where an fp32 sum in torch's order can swap
-    rows that tie to the last bit."""
+    """The counterpart of ``topk_xla`` for k > 128 and masked searches, where
+    tpuclip too scores outside any kernel: a matmul per chunk of rows, plus
+    the (N,) additive 0/-inf ``mask``, then the exact (score desc, row asc)
+    top-k: ((Q, k) f32, (Q, k) int64). On CUDA the matmul is fp32 (bf16
+    products are exact in fp32; TF32 must be off), as XLA's dot on a GPU.
+    On the CPU the sums are float64, rounded once to f32: that agrees with
+    XLA's CPU dot where an fp32 sum in torch's order can swap rows that tie
+    to the last bit."""
     n_valid = matrix.shape[0] if n_valid is None else int(n_valid)
     _check_topk_args(queries, matrix, k, n_valid)
     acc = torch.float32 if queries.device.type == "cuda" else torch.float64
-    return _select(_chunked_scores(queries, matrix, n_valid, acc), k)
+    scores = _chunked_scores(queries, matrix, n_valid, acc)
+    if mask is not None:
+        scores = scores + mask[None, :]
+    return _select(scores, k)
 
 
 def _topk_tiles_plain(
@@ -176,15 +169,20 @@ topk_tiles.launches = 0
 
 
 def cosine_topk(
-    queries: torch.Tensor, matrix: torch.Tensor, k: int, n_valid: Optional[int] = None
+    queries: torch.Tensor,
+    matrix: torch.Tensor,
+    k: int,
+    n_valid: Optional[int] = None,
+    mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k dispatch (tpuclip's ``cosine_topk`` and
-    ``cosine_topk_single_fetch`` in one): k <= 128 takes :func:`topk_tiles`
-    (kernel 4 on CUDA), larger k :func:`topk_plain`."""
+    ``cosine_topk_single_fetch`` in one): unmasked k <= 128 takes
+    :func:`topk_tiles` (kernel 4 on CUDA); larger k and every masked search
+    take :func:`topk_plain`, as tpuclip's ``topk_xla``."""
     k_eff = min(k, matrix.shape[0])
     if k_eff <= 0:
         empty = torch.zeros((queries.shape[0], 0), device=queries.device)
         return empty, empty.long()
-    if k_eff <= MAX_TILE_K:
+    if mask is None and k_eff <= MAX_TILE_K:
         return topk_tiles(queries, matrix, k_eff, n_valid)
-    return topk_plain(queries, matrix, k_eff, n_valid)
+    return topk_plain(queries, matrix, k_eff, n_valid, mask=mask)

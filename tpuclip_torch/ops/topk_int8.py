@@ -7,12 +7,21 @@ shortlist, and the shortlisted rows are rescored exactly against the
 resident full-precision (bf16 on CUDA) rows. Results are ordered
 (score desc, row asc).
 
-Two kernels sit behind this module, in ``tpuclip_torch/csrc/int8_scan.cu``:
+Three kernels sit behind this module, in ``tpuclip_torch/csrc/int8_scan.cu``:
 
 - :func:`int8_scores` — kernel 1, the full (Q, N) f32 score matrix
-  (replaces ``_int8_scores_kernel``); the single-query ``exact`` shortlist;
+  (replaces ``_int8_scores_kernel``); the single-query ``exact`` shortlist,
+  and the masked and batch routes without the resident rows
+  (:func:`topk_int8_scores`);
 - :func:`int8_candidates_packed` — kernel 2, per-tile top-``k_tile`` packed
-  keys (replaces ``_int8_packed_kernel``); the batch ``extract`` shortlist.
+  keys (replaces ``_int8_packed_kernel``); the batch ``extract`` shortlist;
+- :func:`int8_candidates` — kernel 3, per-tile top-``k_tile`` exact (score,
+  row) pairs (replaces ``_int8_topk_kernel``); one unmasked query without
+  the resident rows (:func:`topk_int8`).
+
+Without the resident rows the int8 matrix comes from the fp32 originals
+(:func:`quantize_matrix`) and one query is quantized on the host
+(:func:`quantize_query`), as tpuclip does.
 
 Each wrapper dispatches on its tensors' device: CPU tensors go to the plain
 PyTorch version beside it (same signature, same bits); CUDA tensors go to
@@ -26,8 +35,9 @@ feature-major (D, N_pad) for the TPU's MXU. Results do not depend on it.
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 _NEG_INF = float("-inf")
@@ -65,6 +75,22 @@ def _i32_from_u32(u: torch.Tensor) -> torch.Tensor:
     return torch.where(u >= 2**31, u - 2**32, u).to(torch.int32)
 
 
+def order_keys(scores: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Unique int64 keys ordering (score desc, row asc): the f32 score's
+    monotonic bits above the inverted row (rows in [0, 2**32)). -0.0 counts
+    as +0.0."""
+    u = _u32(scores.float() + 0.0)
+    mono = u ^ torch.where((u >> 31) == 1, 0xFFFFFFFF, 0x80000000)
+    return (mono - 2**31) * 2**32 + (0xFFFFFFFF - rows.long())
+
+
+def _final_merge(scores: torch.Tensor, idx: torch.Tensor, k_eff: int):
+    """Merge per-tile candidates: the exact top-``k_eff`` ordered (score
+    desc, idx asc). ``idx`` must be unique per query row."""
+    pos = torch.topk(order_keys(scores, idx), k_eff, dim=1).indices
+    return scores.gather(1, pos), idx.long().gather(1, pos)
+
+
 def round_f32_to_bf16_bits(x: torch.Tensor) -> torch.Tensor:
     """Round float32 to the nearest bfloat16 (half to even) with integer bit
     ops, returned AS float32 (tpuclip's ``round_f32_to_bf16_bits``).
@@ -75,14 +101,52 @@ def round_f32_to_bf16_bits(x: torch.Tensor) -> torch.Tensor:
     return _i32_from_u32(u).view(torch.float32)
 
 
+def _to_int8(x: torch.Tensor, scale: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 of f32 rows ``x`` by their (..., 1) ``scale`` (1.0
+    where a row is all zero): ((..., D) int8, the scales used)."""
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8), scale
+
+
 def quantize_queries(q_f32: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8: (Q, D) f32 → ((Q, D) int8, (Q, 1) f32 scales).
-    The scale is rank-invariant, so shortlist-only callers may drop it."""
+    The scale is rank-invariant, so shortlist-only callers may drop it.
+    This is the jitted form (tpuclip's ``quantize_queries_device``), which
+    the batch routes use; one query outside the fused search takes
+    :func:`quantize_query`."""
     q = q_f32.float()
-    qs = q.abs().amax(dim=1, keepdim=True) * _INV_127
-    qs = torch.where(qs == 0, torch.ones_like(qs), qs)
-    qi = torch.clamp(torch.round(q / qs), -127, 127).to(torch.int8)
-    return qi, qs
+    return _to_int8(q, q.abs().amax(dim=1, keepdim=True) * _INV_127)
+
+
+def quantize_query(q: np.ndarray) -> Tuple[torch.Tensor, float]:
+    """Host int8 quantization of one query, tpuclip's numpy
+    ``quantize_query``: scale = max|q| / 127 and q / scale, both true f32
+    divisions (the jitted form multiplies by f32(1/127) and differs in the
+    last bit of some scales), rint, clip, scale 1.0 for a zero query.
+    Returns ((1, D) int8 CPU tensor, scale)."""
+    q = np.asarray(q, np.float32).reshape(1, -1)
+    scale = float(np.float32(np.abs(q).max()) / np.float32(127.0)) or 1.0
+    qi = np.clip(np.rint(q / np.float32(scale)), -127, 127).astype(np.int8)
+    return torch.from_numpy(qi), scale
+
+
+def quantize_matrix(vectors, n_pad: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N, D) fp32 host rows (the memmap) → ((n_pad, D) int8, (n_pad,) f32
+    scales) on ``device``, bit-equal to tpuclip's ``quantize_matrix_t`` up
+    to the transpose: per row, scale = max|x| / 127 (1.0 for a zero row)
+    and round(x / scale), both true divisions; zero rows / unit scales past
+    N. The rows go up in chunks and none stays resident."""
+    n, d = vectors.shape
+    m = torch.zeros((n_pad, d), dtype=torch.int8, device=device)
+    scales = torch.ones((n_pad,), dtype=torch.float32, device=device)
+    for s in range(0, n, _CHUNK_ROWS):
+        mf = torch.from_numpy(np.array(vectors[s : s + _CHUNK_ROWS], np.float32)).to(device)
+        top = mf.abs().amax(dim=1, keepdim=True)
+        # Tensor divisors throughout: CUDA's div by a Python number
+        # multiplies by its reciprocal, which is not a true division.
+        m[s : s + len(mf)], sc = _to_int8(mf, top / torch.full_like(top, 127.0))
+        scales[s : s + len(mf)] = sc[:, 0]
+    return m, scales
 
 
 def derive_int8_matrix(rows: torch.Tensor, n_pad: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -95,10 +159,8 @@ def derive_int8_matrix(rows: torch.Tensor, n_pad: int) -> Tuple[torch.Tensor, to
     scales = torch.ones((n_pad,), dtype=torch.float32, device=rows.device)
     for s in range(0, n, _CHUNK_ROWS):
         mf = rows[s : s + _CHUNK_ROWS].float()
-        sc = mf.abs().amax(dim=1) * _INV_127
-        sc = torch.where(sc == 0, torch.ones_like(sc), sc)
-        m[s : s + len(mf)] = torch.clamp(torch.round(mf / sc[:, None]), -127, 127).to(torch.int8)
-        scales[s : s + len(mf)] = sc
+        m[s : s + len(mf)], sc = _to_int8(mf, mf.abs().amax(dim=1, keepdim=True) * _INV_127)
+        scales[s : s + len(mf)] = sc[:, 0]
     return m, scales
 
 
@@ -250,6 +312,133 @@ def int8_candidates_packed(
 
 
 int8_candidates_packed.launches = 0
+
+
+# =============================================================================
+# Kernel 3: per-tile top-k (score, row) candidates
+# =============================================================================
+
+
+def _int8_candidates_plain(q_int8, m_int8, scales, k_tile, n_valid, tile):
+    """Plain version of :func:`int8_candidates`: kernel 1's exact scores
+    (:func:`_int8_scores_plain`), then each tile's exact top-``k_tile`` by
+    unique keys (score desc, row asc)."""
+    q_count, n = q_int8.shape[0], m_int8.shape[0]
+    tiles = n // tile
+    k_pad = -(-k_tile // 128) * 128
+    scores = _int8_scores_plain(q_int8, m_int8, scales, n_valid).view(q_count, tiles, tile)
+    rows = torch.arange(n, device=q_int8.device).view(1, tiles, tile).expand(q_count, -1, -1)
+    pos = torch.topk(order_keys(scores, rows), k_tile, dim=-1).indices
+    out_s = torch.full((q_count, tiles, k_pad), _NEG_INF, dtype=torch.float32, device=q_int8.device)
+    out_i = torch.full((q_count, tiles, k_pad), _INT32_MAX, dtype=torch.int32, device=q_int8.device)
+    out_s[..., :k_tile] = scores.gather(-1, pos)
+    out_i[..., :k_tile] = rows.gather(-1, pos).to(torch.int32)
+    return out_s.view(q_count, tiles * k_pad), out_i.view(q_count, tiles * k_pad)
+
+
+def int8_candidates(
+    q_int8: torch.Tensor,
+    m_int8: torch.Tensor,
+    scales: torch.Tensor,
+    k_tile: int,
+    n_valid: int,
+    tile: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each ``tile``-row tile's top-``k_tile`` of :func:`int8_scores`' exact
+    scores, ordered (score desc, row asc): ((Q, tiles * k_pad) f32 scores,
+    (Q, tiles * k_pad) int32 global rows), k_pad = k_tile rounded up to
+    128, (-inf, INT32_MAX) in the padding slots (tpuclip's
+    ``_int8_candidates`` contract; rows past ``n_valid`` score -inf)."""
+    _check_scan_args(q_int8, m_int8, scales, n_valid)
+    n = m_int8.shape[0]
+    if not (0 < tile and tile % 16 == 0 and n % tile == 0):
+        raise ValueError(f"tile must divide N={n} and be a multiple of 16, got {tile}")
+    if not 1 <= k_tile <= tile:
+        raise ValueError(f"k_tile must be in [1, {tile}], got {k_tile}")
+    if q_int8.device.type == "cpu":
+        return _int8_candidates_plain(q_int8, m_int8, scales, k_tile, n_valid, tile)
+    if q_int8.device.type != "cuda":
+        raise ValueError(f"unsupported device {q_int8.device}")
+    from tpuclip_torch.ops._build import library
+
+    q_count, d = q_int8.shape
+    _check_cuda_args(q_int8, m_int8, scales, dim=d)
+    k_pad = -(-k_tile // 128) * 128
+    width = (n // tile) * k_pad
+    out_s = torch.empty((q_count, width), dtype=torch.float32, device=q_int8.device)
+    out_i = torch.empty((q_count, width), dtype=torch.int32, device=q_int8.device)
+    if q_count == 0 or n == 0:
+        return out_s, out_i
+    with torch.cuda.device(q_int8.device):
+        rc = library().tpuclip_int8_candidates(
+            q_int8.data_ptr(), m_int8.data_ptr(), scales.data_ptr(), out_s.data_ptr(),
+            out_i.data_ptr(), q_count, n, d, int(n_valid), tile, k_tile, k_pad,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"int8_candidates kernel launch failed: cudaError {rc}")
+    int8_candidates.launches += 1
+    return out_s, out_i
+
+
+int8_candidates.launches = 0
+
+
+def _empty_topk(q_count: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    return (
+        torch.zeros((q_count, 0), dtype=torch.float32, device=device),
+        torch.zeros((q_count, 0), dtype=torch.int64, device=device),
+    )
+
+
+def topk_int8(
+    q_int8: torch.Tensor,
+    m_int8: torch.Tensor,
+    scales: torch.Tensor,
+    q_scale: Union[float, torch.Tensor],
+    k: int,
+    n_valid: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 top-k without a rescore (tpuclip's ``topk_int8_pallas``):
+    kernel 3's per-tile candidates at k_tile = k, the exact merge, then the
+    scores times ``q_scale``, last, as tpuclip rounds them. Returns ((Q, k)
+    f32, (Q, k) int64 rows) ordered (score desc, row asc); slots with no
+    valid row score -inf."""
+    n = m_int8.shape[0]
+    n_valid = n if n_valid is None else int(n_valid)
+    k_eff = min(k, n)
+    if k_eff <= 0:
+        return _empty_topk(q_int8.shape[0], q_int8.device)
+    s, i = int8_candidates(q_int8, m_int8, scales, k_eff, n_valid, min(PACKED_TILE_N, n))
+    s, rows = _final_merge(s, i, k_eff)
+    return s * q_scale, rows
+
+
+def topk_int8_scores(
+    q_int8: torch.Tensor,
+    m_int8: torch.Tensor,
+    scales: torch.Tensor,
+    q_scale: Union[float, torch.Tensor],
+    k: int,
+    n_valid: Optional[int] = None,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 top-k from the full score matrix (tpuclip's ``topk_int8_xla`` and
+    ``topk_int8_batch``): kernel 1's scores, plus the (N,) additive 0/-inf
+    ``mask``, the exact top-k (score desc, row asc), then times ``q_scale``
+    (a float, or (Q, 1) per-query scales). Any k; the masked and batch
+    routes."""
+    n = m_int8.shape[0]
+    n_valid = n if n_valid is None else int(n_valid)
+    k_eff = min(k, n)
+    if k_eff <= 0:
+        return _empty_topk(q_int8.shape[0], q_int8.device)
+    scores = int8_scores(q_int8, m_int8, scales, n_valid)
+    if mask is not None:
+        scores = scores + mask[None, :]
+    rows = torch.arange(n, device=scores.device).expand_as(scores)
+    s, rows = _final_merge(scores, rows, k_eff)
+    return s * q_scale, rows
 
 
 # =============================================================================
