@@ -1,6 +1,12 @@
 """Smoke run of the PyTorch port (tpuclip_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--ab LABEL:PATH] ...
+
+With ``--ab``, phase 3 also builds each other ``int8_scan.cu`` given (say,
+an older tree's) into its own library
+and times its kernels 2 and 3 against this tree's in turns (theirs, this,
+this, theirs) on the same inputs, bit-equal, with the fused int8 search
+and ``topk_int8`` routed through each.
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -25,7 +31,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    Also on the 1M int8 matrix: int8_candidates (kernel 3) at Q = 1, k_tile
    = 20, 80, 128 and Q = 16, k_tile = 80 bit-equal, ties planted (copies
    of one row in one tile; the top 128 of another tile in two selection
-   lanes' slots), and topk_int8 (kernel 3 + merge) against the plain route;
+   lanes' slots), and topk_int8 (kernel 3 + merge) against the plain route,
+   timed beside kernel 1 + torch.topk over the same scores; kernel 3 at
+   Q = 1, k_tile = 80 on a 4,000,000 x 1152 int8 matrix (a seeded
+   torch.Generator on the card; the size where the host route is the
+   default) bit-equal, with topk_int8 beside the same two-call route;
    quantize_matrix on 65,536 fp32 rows bit-equal to numpy; and
    patch_embed_fused (kernel 8) on 64 seeded 224 x 224 uint8 images (R =
    16,384 patch rows x 588 -> 1152, seeded bf16 weights) within 1e-5 of the
@@ -61,12 +71,21 @@ Phases, each printing its own lines; any failure exits non-zero:
 7. the library entry point ``tpuclip_torch.ops.patch_embed_fused`` on 64 of
    the JPEGs with the vision tower's own patch weights, loosely equal to
    the tower's patch embedding; kernel 8's launch counter must rise.
-   jax must never have been imported.
+   Neither jax nor the JAX package (tpuclip) may ever have been imported.
 
 The last two lines are the kernels' JSON record and then
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. Each kernel's record carries its bound:
+the larger of the bytes it must move (each input read once, each output
+written once) over 3.35 TB/s and its operations over the peak rate of
+their type (int8 1,979 TOP/s, bf16 989 TFLOP/s, popcounts 16 per SM per
+clock at 1.98 GHz), at the recorded case's shapes; ``library_ms`` is null
+(no single PyTorch call computes any of these functions) and
+``nearest_ms`` times the nearest route of PyTorch calls, where there is
+one.
 """
 
+import argparse
+import ctypes
 import json
 import os
 import sqlite3
@@ -88,11 +107,36 @@ N_IMAGES = 512
 N_BINARY = 10_000_000  # the cascade's documented scale (tpuclip/index/search.py:92-97)
 WORDS = DIM // 32
 TEXTS = ["a red car", "blue sky", "a dog on a beach", "city lights at night"]
+N_ROWS_4M = 4_000_000  # past the rerank gate (~2.31M rows): kernel 3's route is the default
+
+# H100 SXM peaks (NVIDIA's data sheet; popcounts: 16 per SM per clock,
+# 132 SMs, 1.98 GHz boost clock).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "popc": 16 * 132 * 1.98e9}
 
 
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def entry(err, ms, plain_ms, n_bytes, ops, kind, nearest=None, nearest_ms=None):
+    """One kernel's record: its error and times, and its bound, the larger
+    of ``n_bytes`` over the memory rate and ``ops`` over the peak rate of
+    ``kind``."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+        "library_ms": None, "nearest_route": nearest, "nearest_ms": nearest_ms,
+    }
+
+
+def int8_scan_bytes(q_count, n_valid, out_bytes):
+    """Bytes an int8 scan must move: the valid rows and their scales, the
+    queries, and its output."""
+    return n_valid * (DIM + 4) + q_count * DIM + out_bytes
 
 
 def gpu_line():
@@ -149,9 +193,8 @@ def ordered(scores, rows):
     return bool(((a > b) | ((a == b) & (rows[:, :-1] < rows[:, 1:]))).all())
 
 
-def phase_kernels(mods, gpu):
-    """Phase 3, the dense kernels: returns {kernel name: (max_abs_err, ms,
-    plain_ms)}."""
+def phase_kernels(mods, gpu, variants):
+    """Phase 3, the dense kernels: returns {kernel name: its record}."""
     ops, tops, _ = mods
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -171,7 +214,7 @@ def phase_kernels(mods, gpu):
     record = {}
     tiles = n_pad // ops.PACKED_TILE_N
     k_tile = min(128, max(4 * K, 2 * (-(-512 // tiles))))
-    for q_count in (1, 16):
+    for q_count in (1, 16, 64):
         qi, _ = ops.quantize_queries(queries[:q_count])
         got = ops.int8_scores(qi, m, scales, N_ROWS)
         want = ops._int8_scores_plain(qi, m, scales, N_ROWS)
@@ -182,7 +225,9 @@ def phase_kernels(mods, gpu):
         print(f"[kernels] int8_scores Q={q_count}: bit-equal, p50 {ms:.4f} ms vs plain "
               f"{plain:.4f} ms  ({gpu})", flush=True)
         if q_count == 1:  # the single-query main path
-            record["int8_scores"] = (err, ms, plain)
+            record["int8_scores"] = entry(
+                err, ms, plain, int8_scan_bytes(1, N_ROWS, n_pad * 4), 2 * N_ROWS * DIM, "int8")
+    k_pad = -(-k_tile // 128) * 128
     for q_count in (16, 64):
         qi, _ = ops.quantize_queries(queries[:q_count])
         args = (qi, m, scales, k_tile, N_ROWS, ops.PACKED_TILE_N)
@@ -192,10 +237,17 @@ def phase_kernels(mods, gpu):
         err = (got.long() - want.long()).abs().max().item()
         ms = p50_ms(lambda: ops.int8_candidates_packed(*args), 20)
         plain = p50_ms(lambda: ops._int8_candidates_packed_plain(*args), 5)
+        # Nearest PyTorch route: kernel 1's scores, then torch.topk per tile
+        # (the values, without the packed keys).
+        nearest = p50_ms(lambda: torch.topk(ops.int8_scores(qi, m, scales, N_ROWS).view(
+            q_count, tiles, ops.PACKED_TILE_N), k_tile, dim=-1), 20)
         print(f"[kernels] int8_candidates_packed Q={q_count} k_tile={k_tile}: keys bit-equal, "
-              f"p50 {ms:.4f} ms vs plain {plain:.4f} ms  ({gpu})", flush=True)
+              f"p50 {ms:.4f} ms vs plain {plain:.4f} ms; kernel 1 + per-tile torch.topk "
+              f"{nearest:.4f} ms  ({gpu})", flush=True)
         if q_count == 16:
-            record["int8_candidates_packed"] = (err, ms, plain)
+            record["int8_candidates_packed"] = entry(
+                err, ms, plain, int8_scan_bytes(q_count, N_ROWS, q_count * tiles * k_pad * 4),
+                2 * q_count * N_ROWS * DIM, "int8", "int8_scores + per-tile torch.topk", nearest)
     record["int8_candidates"] = phase_int8_candidates(mods, gpu, m, scales, queries)
     for q_count in (1, 16):
         q = queries[:q_count]
@@ -212,6 +264,8 @@ def phase_kernels(mods, gpu):
         ms = p50_ms(fused, 20)
         print(f"[kernels] fused int8 search Q={q_count} k={K}: ids identical to the plain route, "
               f"max score diff {err:.2e}, p50 {ms:.4f} ms  ({gpu})", flush=True)
+    if variants:
+        phase_ab(ops, gpu, variants, m, scales, queries, rows)
 
     # Kernel 4 on the same bf16 rows: scores accumulate in fp32 in another
     # order than the plain float64 sum, so near-tie rows may swap.
@@ -229,13 +283,18 @@ def phase_kernels(mods, gpu):
             diff = (i != i_p).nonzero().tolist()
             ms = p50_ms(lambda: tops.topk_tiles(q, rows, k, N_ROWS), 20)
             plain = p50_ms(lambda: tops._topk_tiles_plain(q, rows, k, N_ROWS), 3)
+            # Nearest PyTorch route: one bf16 GEMM (bf16 scores), then torch.topk.
+            nearest = p50_ms(lambda: torch.topk(q.to(torch.bfloat16) @ rows.T, k, dim=1), 10)
             ids = "ids identical" if not diff else (
                 f"{len(diff)} id positions differ (near ties), first {[(p, int(i[p[0], p[1]]), int(i_p[p[0], p[1]])) for p in diff[:5]]}"
             )
             print(f"[kernels] topk_tiles Q={q_count} k={k}: {ids}, max score diff {err:.2e}, "
-                  f"p50 {ms:.4f} ms vs plain {plain:.4f} ms  ({gpu})", flush=True)
+                  f"p50 {ms:.4f} ms vs plain {plain:.4f} ms; bf16 matmul + torch.topk "
+                  f"{nearest:.4f} ms  ({gpu})", flush=True)
             if q_count == 1 and k == K:  # the single-query bf16 search
-                record["topk_tiles"] = (err, ms, plain)
+                record["topk_tiles"] = entry(
+                    err, ms, plain, N_ROWS * DIM * 2 + q_count * DIM * 4 + q_count * k * 12,
+                    2 * q_count * N_ROWS * DIM, "bf16", "bf16 torch.matmul + torch.topk", nearest)
 
     # k = 128 with the top 128 rows at local positions 0 and 1 mod 32 of
     # one tile, the best 64 at 0: the selection warp's lane 0 runs out of
@@ -281,6 +340,7 @@ def phase_int8_candidates(mods, gpu, m, scales, queries):
         return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
     record = None
+    tiles = m.shape[0] // tile
     for q_count, k_tile in ((1, 20), (1, 80), (1, 128), (16, 80)):
         qi, _ = ops.quantize_queries(queries[:q_count])
         args = (qi, m, scales, k_tile, N_ROWS, tile)
@@ -290,10 +350,17 @@ def phase_int8_candidates(mods, gpu, m, scales, queries):
         err = (got[0] - want[0]).nan_to_num(0.0).abs().max().item()  # -inf padding on both sides
         ms = p50_ms(lambda: ops.int8_candidates(*args), 20)
         plain = p50_ms(lambda: ops._int8_candidates_plain(*args), 3)
+        # Nearest PyTorch route: kernel 1's scores, then torch.topk per tile
+        # (ties in no defined order).
+        nearest = p50_ms(lambda: torch.topk(ops.int8_scores(qi, m, scales, N_ROWS).view(
+            q_count, tiles, tile), k_tile, dim=-1), 20)
         print(f"[kernels] int8_candidates Q={q_count} k_tile={k_tile}: scores and rows bit-equal, "
-              f"p50 {ms:.4f} ms vs plain {plain:.4f} ms  ({gpu})", flush=True)
+              f"p50 {ms:.4f} ms vs plain {plain:.4f} ms; kernel 1 + per-tile torch.topk "
+              f"{nearest:.4f} ms  ({gpu})", flush=True)
         if (q_count, k_tile) == (1, 80):
-            record = (err, ms, plain)
+            k_pad = -(-k_tile // 128) * 128
+            record = entry(err, ms, plain, int8_scan_bytes(q_count, N_ROWS, q_count * tiles * k_pad * 8),
+                           2 * q_count * N_ROWS * DIM, "int8", "int8_scores + per-tile torch.topk", nearest)
 
     # Ties, on a copy: tile 3's top 128 rows are the query's own int8 row at
     # local positions 0 and 1 mod 32, in pairs of equal scales, so the
@@ -329,12 +396,15 @@ def phase_int8_candidates(mods, gpu, m, scales, queries):
 
     s, i = route()
     ms = p50_ms(route, 20)
+    # The yardstick: kernel 1's full scores, then torch.topk over them.
+    yardstick = p50_ms(lambda: torch.topk(ops.int8_scores(qi, m, scales, N_ROWS), 4 * K, dim=1), 20)
     with plain_kernels(mods):
         s_p, i_p = route()
         plain = p50_ms(route, 3)
     check(torch.equal(i, i_p) and torch.equal(s, s_p), "topk_int8 differs from the plain route")
     print(f"[kernels] topk_int8 Q=1 k={4 * K}: ids identical and scores bit-equal to the plain route, "
-          f"p50 {ms:.4f} ms vs plain route {plain:.4f} ms  ({gpu})", flush=True)
+          f"p50 {ms:.4f} ms vs plain route {plain:.4f} ms; kernel 1 + torch.topk over "
+          f"{m.shape[0]:,} scores {yardstick:.4f} ms  ({gpu})", flush=True)
 
     # quantize_matrix: fp32 rows -> int8 by true divisions, as numpy does.
     chunk = np.random.default_rng(7).standard_normal((65536, DIM), dtype=np.float32)
@@ -346,6 +416,169 @@ def phase_int8_candidates(mods, gpu, m, scales, queries):
     print(f"[kernels] quantize_matrix {len(chunk):,} x {DIM} fp32 rows: int8 values and scales "
           f"bit-equal to numpy", flush=True)
     return record
+
+
+def thin_wrappers(lib):
+    """Kernels 2 and 3 of one built library as (packed, candidates), with
+    the wrappers' signatures and output layout but none of their checks, so
+    that every build compared in the A/B pays the same host cost."""
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def packed(q_int8, m_int8, scales, k_tile, n_valid, tile):
+        k_pad = -(-k_tile // 128) * 128
+        out = torch.empty((q_int8.shape[0], m_int8.shape[0] // tile * k_pad), dtype=torch.int32,
+                          device=q_int8.device)
+        rc = lib.tpuclip_int8_candidates_packed(
+            q_int8.data_ptr(), m_int8.data_ptr(), scales.data_ptr(), out.data_ptr(), q_int8.shape[0],
+            m_int8.shape[0], q_int8.shape[1], int(n_valid), tile, k_tile, k_pad, stream())
+        check(rc == 0, f"int8_candidates_packed launch failed: cudaError {rc}")
+        return out
+
+    def candidates(q_int8, m_int8, scales, k_tile, n_valid, tile):
+        k_pad = -(-k_tile // 128) * 128
+        shape = (q_int8.shape[0], m_int8.shape[0] // tile * k_pad)
+        out_s = torch.empty(shape, dtype=torch.float32, device=q_int8.device)
+        out_i = torch.empty(shape, dtype=torch.int32, device=q_int8.device)
+        rc = lib.tpuclip_int8_candidates(
+            q_int8.data_ptr(), m_int8.data_ptr(), scales.data_ptr(), out_s.data_ptr(),
+            out_i.data_ptr(), q_int8.shape[0], m_int8.shape[0], q_int8.shape[1], int(n_valid), tile,
+            k_tile, k_pad, stream())
+        check(rc == 0, f"int8_candidates launch failed: cudaError {rc}")
+        return out_s, out_i
+
+    return packed, candidates
+
+
+def build_variants(specs):
+    """Each ``LABEL:PATH`` built into build/ab/libLABEL.so
+    (one nvcc each, all together); returns [(label, packed, candidates)],
+    this tree's own library first as "this"."""
+    from tpuclip_torch.ops import _build
+
+    out_dir = _build.BUILD_DIR.parent / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for spec in specs:
+        label, path = spec.split(":", 1)
+        lib = out_dir / f"lib{label}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), path]
+        jobs.append((spec, label, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                        stderr=subprocess.PIPE, text=True)))
+    variants = [("this", *thin_wrappers(_build.library()))]
+    for spec, label, lib, proc in jobs:
+        _, err = proc.communicate()
+        check(proc.returncode == 0, f"--ab {label}: nvcc failed\n{err}")
+        handle = ctypes.CDLL(str(lib))
+        for name in ("tpuclip_int8_candidates_packed", "tpuclip_int8_candidates"):
+            fn = getattr(handle, name)
+            fn.argtypes = _build.SIGNATURES[name]
+            fn.restype = ctypes.c_int
+        variants.append((label, *thin_wrappers(handle)))
+        print(f"[ab] built {label} from {spec}", flush=True)
+    return variants
+
+
+def same_output(a, b):
+    if isinstance(a, tuple):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def ab_turns(ops, gpu, variants, cases):
+    """Each case's callable, made from every build's (packed, candidates),
+    timed in turns: the others, this, this, the others in reverse (p50 of
+    20 launches each). The fused search and topk_int8 reach the build's
+    kernels through the module's names, swapped for the call. Outputs must
+    be bit-equal to this tree's. Prints one line per case and one JSON line
+    of every time."""
+    def route(packed, candidates, make):
+        fn = make(packed, candidates)
+
+        def run():
+            saved = ops.int8_candidates_packed, ops.int8_candidates
+            ops.int8_candidates_packed, ops.int8_candidates = packed, candidates
+            try:
+                return fn()
+            finally:
+                ops.int8_candidates_packed, ops.int8_candidates = saved
+        return run
+
+    this, others = variants[0], variants[1:]
+    results = {}
+    for name, make in cases:
+        runs = {label: route(p, c, make) for label, p, c in variants}
+        want = runs["this"]()
+        for label, _, _ in others:
+            check(same_output(runs[label](), want), f"[ab] {name}: {label} differs from this tree")
+        order = [label for label, _, _ in others]
+        times = {}
+        for label in order + ["this", "this"] + order[::-1]:
+            times.setdefault(label, []).append(p50_ms(runs[label], 20))
+        results[name] = times
+        turns = ", ".join(f"{label} {' / '.join(f'{t:.4f}' for t in ts)} ms" for label, ts in times.items())
+        print(f"[ab] {name}: {turns}; outputs bit-equal  ({gpu})", flush=True)
+    print("[ab-json] " + json.dumps({"gpu": gpu, "ms": results}), flush=True)
+
+
+def phase_ab(ops, gpu, variants, m, scales, queries, rows):
+    """Phase 3 with ``--ab``: kernels 2 and 3 of every build at the 1M-row
+    cases of PERF.md's predictions, and the two routes that run them."""
+    tile = ops.PACKED_TILE_N
+    q16, _ = ops.quantize_queries(queries[:16])
+    q64, _ = ops.quantize_queries(queries[:64])
+    q1, qs1 = ops.quantize_query(queries[0].cpu().numpy())
+    q1 = q1.to(m.device)
+    cases = [
+        (f"kernel 3 Q=1 k_tile={k}", lambda p, c, k=k: lambda: c(q1, m, scales, k, N_ROWS, tile))
+        for k in (20, 80, 128)
+    ]
+    cases += [
+        ("kernel 3 Q=16 k_tile=80", lambda p, c: lambda: c(q16, m, scales, 80, N_ROWS, tile)),
+        ("kernel 2 Q=16 k_tile=80", lambda p, c: lambda: p(q16, m, scales, 80, N_ROWS, tile)),
+        ("kernel 2 Q=64 k_tile=80", lambda p, c: lambda: p(q64, m, scales, 80, N_ROWS, tile)),
+        (f"fused int8 search Q=16 k={K}", lambda p, c: lambda: ops.topk_int8_rerank_fused_auto(
+            queries[:16], m, scales, rows, K, n_valid=N_ROWS)),
+        (f"topk_int8 Q=1 k={4 * K}", lambda p, c: lambda: ops.topk_int8(q1, m, scales, qs1, 4 * K, N_ROWS)),
+    ]
+    ab_turns(ops, gpu, variants, cases)
+
+
+def phase_int8_4m(ops, gpu, variants):
+    """Phase 3, kernel 3 where its route is the default: Q = 1, k_tile = 80
+    on 4M x 1152 int8 rows made on the card, bit-equal to its plain
+    version, beside the two-call route (kernel 1 + torch.topk)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    n_pad = -(-N_ROWS_4M // ops.INT8_TILE_N) * ops.INT8_TILE_N
+    m = torch.empty((n_pad, DIM), dtype=torch.int8, device=dev)
+    for s in range(0, n_pad, 262144):
+        e = min(n_pad, s + 262144)
+        m[s:e] = torch.randint(-127, 128, (e - s, DIM), generator=gen, device=dev, dtype=torch.int32)
+    # Per-row scales of unit-norm rows (max|x| / 127 lies near 1 / 1270).
+    scales = (torch.rand(n_pad, generator=gen, device=dev) * 0.5 + 0.5) / 1270.0
+    q, q_scale = ops.quantize_query(np.random.default_rng(9).standard_normal(DIM).astype(np.float32))
+    q = q.to(dev)
+    tile = ops.PACKED_TILE_N
+    args = (q, m, scales, 4 * K, N_ROWS_4M, tile)
+    got, want = ops.int8_candidates(*args), ops._int8_candidates_plain(*args)
+    check(same_output(got, want), "int8_candidates at 4M rows differs from its plain version")
+    ms = p50_ms(lambda: ops.int8_candidates(*args), 20)
+    plain = p50_ms(lambda: ops._int8_candidates_plain(*args), 3)
+    route = p50_ms(lambda: ops.topk_int8(q, m, scales, q_scale, 4 * K, N_ROWS_4M), 20)
+    yardstick = p50_ms(lambda: torch.topk(ops.int8_scores(q, m, scales, N_ROWS_4M), 4 * K, dim=1), 20)
+    k_pad = 128
+    bound = entry(0.0, ms, plain, int8_scan_bytes(1, N_ROWS_4M, n_pad // tile * k_pad * 8),
+                  2 * N_ROWS_4M * DIM, "int8")["bound_ms"]
+    print(f"[kernels] int8_candidates Q=1 k_tile={4 * K} on {N_ROWS_4M:,} x {DIM} int8 rows "
+          f"({m.numel() / 1e9:.2f} GB, n_pad {n_pad:,}): bit-equal, p50 {ms:.4f} ms (bound {bound:.4f} ms) "
+          f"vs plain {plain:.4f} ms; topk_int8 k={4 * K} {route:.4f} ms vs kernel 1 + torch.topk "
+          f"{yardstick:.4f} ms  ({gpu})", flush=True)
+    if variants:
+        ab_turns(ops, gpu, variants, [
+            (f"kernel 3 Q=1 k_tile={4 * K} at 4M rows", lambda p, c: lambda: c(*args)),
+        ])
+    del m, scales
 
 
 def phase_patch_embed(pops, gpu):
@@ -378,6 +611,7 @@ def phase_patch_embed(pops, gpu):
     err = (got - want).abs()
     check(bool((err <= step + 1e-5).all()), "patch_embed_fused bf16 out more than one bf16 step off the plain version")
     err = err.max().item()
+    rows = x.shape[0]
     ms = p50_ms(lambda: pops.patch_embed_fused(x, w, b), 20)
     plain = p50_ms(lambda: pops._patch_embed_plain(x, w, b), 3)
     # The tower's own route: normalise to bf16, then cuBLAS's bf16 GEMM.
@@ -393,7 +627,8 @@ def phase_patch_embed(pops, gpu):
           f"bf16 out within one bf16 step (max diff {err:.2e}); p50 {ms:.4f} ms ({gflop / ms:.1f} "
           f"TFLOP/s) vs plain {plain:.4f} ms; the tower's cuBLAS F.linear on normalised bf16 rows "
           f"{gemm:.4f} ms, with the normalisation {both:.4f} ms  ({gpu})", flush=True)
-    return err, ms, plain
+    return entry(err, ms, plain, rows * 588 + 588 * DIM * 2 + DIM * 2 + rows * DIM * 2,
+                 2 * rows * 588 * DIM, "bf16", "normalise to bf16 + F.linear", both)
 
 
 def phase_binary_kernels(hops, gpu):
@@ -421,7 +656,9 @@ def phase_binary_kernels(hops, gpu):
     plain = p50_ms(lambda: hops._binary_scores_plain(q1, words, n_valid), 3)
     print(f"[kernels] binary_scores Q=1: bit-equal, p50 {ms:.4f} ms vs plain {plain:.4f} ms  ({gpu})",
           flush=True)
-    record["binary_scores"] = (err, ms, plain)
+    n_pad = words.shape[0]
+    record["binary_scores"] = entry(err, ms, plain, n_valid * WORDS * 4 + WORDS * 4 + n_pad * 4,
+                                    n_valid * WORDS, "popc")
     m = 2 * 640  # the cascade's single-query shortlist at k = 20 (depth 640)
     ms = p50_ms(lambda: hops.binary_shortlist_q1(q1, words, m, n_valid), 10)
     print(f"[kernels] binary_shortlist_q1 m={m}: p50 {ms:.4f} ms (kernel 5 + exact top-m over "
@@ -446,7 +683,13 @@ def phase_binary_kernels(hops, gpu):
                       f"({ties} tied neighbours), p50 {ms:.4f} ms vs plain {plain:.4f} ms  ({gpu})",
                       flush=True)
                 if (q_count, k) == keep:
-                    record[name] = (err, ms, plain)
+                    # Nearest PyTorch route: per-query popcount scores (kernel
+                    # 5), then torch.topk (ties in no defined order).
+                    nearest = p50_ms(lambda: [torch.topk(hops.binary_scores(q[j:j + 1], words, n_valid), k)
+                                              for j in range(q_count)], 10)
+                    record[name] = entry(
+                        err, ms, plain, n_valid * WORDS * 4 + q_count * WORDS * 4 + q_count * k * 12,
+                        q_count * n_valid * WORDS, "popc", "binary_scores + torch.topk per query", nearest)
     return record
 
 
@@ -871,6 +1114,10 @@ def phase_patch_embed_library(pops, gpu, work, engine):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--ab", action="append", default=[], metavar="LABEL:PATH",
+                        help="another int8_scan.cu to time kernels 2 and 3 against, in turns")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
               file=sys.stderr)
@@ -896,8 +1143,11 @@ def main():
           f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in parallel: "
           f"{_build.last_build_seconds:.2f} s)", flush=True)
     _build.library()
+    variants = build_variants(args.ab) if args.ab else None
 
-    record = phase_kernels(mods, gpu)
+    record = phase_kernels(mods, gpu, variants)
+    torch.cuda.empty_cache()
+    phase_int8_4m(ops, gpu, variants)
     torch.cuda.empty_cache()
     record.update(phase_binary_kernels(hops, gpu))
     record["patch_embed_fused"] = phase_patch_embed(pops, gpu)
@@ -920,11 +1170,12 @@ def main():
     }
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches[name], "max_abs_err": record[name][0], "ms": record[name][1],
-         "plain_ms": record[name][2]}
+         "launches": launches[name], **record[name]}
         for name, (source, replaces) in sources.items()
     ]
     check("jax" not in sys.modules, "the port loaded jax")
+    check(not [m for m in sys.modules if m == "tpuclip" or m.startswith("tpuclip.")],
+          "the port loaded the JAX package (tpuclip)")
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,12 @@
-"""The port stays jax-free, and the pieces it carries as copies (configs,
-checkpoint reading, hamming helpers, duplicate filter) equal tpuclip's
-originals on the same inputs."""
+"""The port imports neither jax nor the JAX package (tpuclip), and the
+pieces it carries as copies (configs, checkpoint reading, hamming helpers,
+duplicate filter) equal tpuclip's originals on the same inputs; the
+framework-neutral modules copied whole are held in
+``tests/test_torch_copies.py``."""
 
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -60,6 +63,44 @@ def test_port_sources_never_import_jax():
     for path in (REPO / "tpuclip_torch").rglob("*.py"):
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path
+
+
+def test_port_imports_neither_tpuclip_nor_jax():
+    """Every module of the port, and chip_smoke.py with what it imports,
+    loaded in a fresh process: no ``tpuclip`` / ``tpuclip.*`` and no jax in
+    ``sys.modules``."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import tpuclip_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(tpuclip_torch.__path__, 'tpuclip_torch.')]\n"
+        "assert len(names) > 30, names\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'tpuclip' or m.startswith('tpuclip.')\n"
+        "             or m == 'jax' or m.startswith('jax.'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+_TPUCLIP_IMPORT = re.compile(r"^\s*(?:from|import)\s+tpuclip(?:\.|\s|$)", re.MULTILINE)
+
+
+def test_port_sources_never_import_tpuclip():
+    paths = [*(REPO / "tpuclip_torch").rglob("*.py"), REPO / "chip_smoke.py"]
+    assert len(paths) > 30
+    for path in paths:
+        assert not _TPUCLIP_IMPORT.search(path.read_text()), path
+    # The pattern does catch the forms it is for, and not the port's own name.
+    assert _TPUCLIP_IMPORT.search("import tpuclip\n") and _TPUCLIP_IMPORT.search(
+        "    from tpuclip.index.store import MetadataStore\n")
+    assert not _TPUCLIP_IMPORT.search("from tpuclip_torch.index.store import MetadataStore\n")
 
 
 def test_configs_copy_equals_original():

@@ -208,6 +208,54 @@ def test_cuda_kernel_matches_plain(cuda_device, index, q_count, k_tile):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def adversarial_index():
+    """(8192, D) int8 rows, scales, n_valid and 64 int8 queries, in four
+    2048-row tiles built to break a threshold select: tile 0 random, tile 1
+    one row repeated at one scale (every score equal: ties to the lowest
+    row), tile 2 one row at scales 1 + j * 2**-22 (scores sharing their top
+    radix digits, some equal after rounding), tile 3 past n_valid (all
+    -inf, still candidates)."""
+    rng = np.random.default_rng(11)
+    m = rng.integers(-127, 128, (4 * 2048, D), dtype=np.int8)
+    m[2048:4096] = m[2048]
+    m[4096:6144] = m[4096]
+    scales = rng.uniform(0.5, 1.5, 4 * 2048).astype(np.float32)
+    scales[2048:4096] = 0.75
+    scales[4096:6144] = 1.0 + np.arange(2048, dtype=np.float32) * np.float32(2.0**-22)
+    queries = rng.integers(-127, 128, (64, D), dtype=np.int8)
+    return torch.from_numpy(m), torch.from_numpy(scales), 3 * 2048, torch.from_numpy(queries)
+
+
+def test_adversarial_tiles_plain():
+    """What the adversarial tiles hold, on the plain version: tile 1's
+    k_tile winners are its first rows (all tied), tile 3's are -inf in row
+    order, tile 2 has more than 128 scores sharing their top 16 bits."""
+    m, scales, n_valid, queries = adversarial_index()
+    s, i = pt.int8_candidates(queries[:2], m, scales, 128, n_valid, 2048)
+    s, i = s.view(2, 4, 128), i.view(2, 4, 128)
+    assert i[:, 1].tolist() == [list(range(2048, 2048 + 128))] * 2
+    assert bool((s[:, 1] == s[:, 1, :1]).all())
+    assert i[:, 3].tolist() == [list(range(6144, 6144 + 128))] * 2
+    assert bool(torch.isneginf(s[:, 3]).all())
+    top16 = pt._u32(pt.int8_scores(queries[:2], m, scales, n_valid)[:, 4096:6144]) >> 16
+    assert int((top16 == top16[:, :1]).sum(1).min()) > 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_tile", [1, 80, 128, 300])
+@pytest.mark.parametrize("q_count", [1, 3, 8, 16, 64])
+def test_cuda_select_on_adversarial_tiles(cuda_device, q_count, k_tile):
+    """Kernel 3's threshold select bit for bit against its plain version on
+    tiles of equal, near-equal and -inf scores, through both selection
+    teams (the block per query, a warp per query), both block sizes (8 and
+    16 queries) and the rank-count order above 128 slots."""
+    m, scales, n_valid, queries = adversarial_index()
+    m, scales, qi = m.to(cuda_device), scales.to(cuda_device), queries[:q_count].to(cuda_device)
+    args = (qi, m, scales, k_tile, n_valid, pt.PACKED_TILE_N)
+    got, want = pt.int8_candidates(*args), pt._int8_candidates_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_lane_out_of_slots(cuda_device):
     """k_tile = 128 with 64 of the top rows in each of two lanes' slots:

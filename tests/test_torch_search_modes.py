@@ -8,6 +8,7 @@ Where tpuclip's cascade takes its single-query scores prefilter, its binary
 rows are put in the TPU's grouped layout and its Pallas kernel runs in
 interpret mode."""
 
+import importlib
 import shutil
 import sqlite3
 
@@ -296,7 +297,8 @@ def world(tmp_path_factory):
 
 
 def _cli_search(cli, tmp, cache, db, extra, monkeypatch):
-    import tpuclip.gallery.html as gallery
+    # The gallery of the CLI's own package: tpuclip's, or the port's copy.
+    gallery = importlib.import_module(cli.__name__.rsplit(".", 1)[0] + ".gallery.html")
 
     captured = []
     monkeypatch.setattr(

@@ -4,6 +4,7 @@ tree, ``scan`` then ``search --no-session`` through both CLIs, and a batch
 of texts through both engines' ``search_texts``. tpuclip runs its int8
 search with the resident rerank copy, the port's configuration."""
 
+import importlib
 import shutil
 import sqlite3
 
@@ -44,7 +45,8 @@ def world(tmp_path, monkeypatch):
 def _scan_and_search(cli, tmp_path, cache, root, name, extra, monkeypatch, search_flags=()):
     """Runs ``scan`` + ``search`` through ``cli``; returns (db path, the
     results the search handed to its gallery)."""
-    import tpuclip.gallery.html as gallery
+    # The gallery of the CLI's own package: tpuclip's, or the port's copy.
+    gallery = importlib.import_module(cli.__name__.rsplit(".", 1)[0] + ".gallery.html")
 
     db = str(tmp_path / f"{name}.db")
     common = ["--db", db, "--model", MODEL, "--model-cache", str(cache), *extra]

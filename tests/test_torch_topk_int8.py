@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_int8_topk import adversarial_index
 from tpuclip.ops import topk_int8 as jx
 from tpuclip_torch.ops import topk_int8 as pt
 
@@ -206,6 +207,21 @@ def test_cuda_kernels_match_plain(cuda_device, index, q_count):
         pt._int8_candidates_packed_plain(qi, m, scales, 80, N_VALID, pt.PACKED_TILE_N),
         rtol=0, atol=0,
     )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_tile", [1, 80, 128, 300])
+@pytest.mark.parametrize("q_count", [1, 3, 8, 16, 64])
+def test_cuda_packed_select_on_adversarial_tiles(cuda_device, q_count, k_tile):
+    """Kernel 2's threshold select bit for bit against its plain version on
+    ``adversarial_index``'s tiles of equal, near-equal and -inf scores,
+    through both selection teams (the block per query, a warp per query),
+    both block sizes (8 and 16 queries) and the rank-count order above 128
+    slots."""
+    m, scales, n_valid, queries = adversarial_index()
+    m, scales, qi = m.to(cuda_device), scales.to(cuda_device), queries[:q_count].to(cuda_device)
+    args = (qi, m, scales, k_tile, n_valid, pt.PACKED_TILE_N)
+    assert torch.equal(pt.int8_candidates_packed(*args), pt._int8_candidates_packed_plain(*args))
 
 
 @pytest.mark.cuda

@@ -1,14 +1,20 @@
 """tpuclip_torch — the PyTorch / CUDA port of tpuclip for one NVIDIA H100.
 
 ``tpuclip/`` (JAX + Pallas for TPU) is the reference and is left unchanged;
-this package follows its layout module by module. It imports torch and
-never jax. The framework-neutral tpuclip modules (config, SQLite store and
-matrix cache, decode/prefetch, tokenizer, gallery, logging/profiling) are
-imported from ``tpuclip`` as they are; the pieces whose tpuclip modules pull
-jax at import are carried as copies pinned to the originals by tests.
+this package follows its layout module by module. It imports torch, never
+jax, and nothing of ``tpuclip``: the framework-neutral modules it needs
+(config, SQLite store and matrix cache, decode/prefetch/preprocess,
+tokenizer, gallery, logging/profiling/bucketing, model configs and
+checkpoint reading, the hamming helpers and the duplicate filter) are
+carried as copies under the same relative paths, each held to its
+original by a test. Environment variables, the SQLite schema, the
+matrix-cache files and the cache paths are the same, so a database written
+by one package opens in the other.
 
-Ported so far: ``scan`` and ``search`` (int8 scan + exact rescore) on the
-SigLIP towers, with the two int8 scan kernels in CUDA (``csrc/``).
+Ported so far: ``scan`` and ``search`` (int8 with an exact rescore, bf16,
+binary-only, the cascade, folder filters) on the SigLIP towers, with every
+Pallas kernel of tpuclip in CUDA (``csrc/``); IVF, serving, NaFlex,
+training and multi-GPU are still to come (ROADMAP Queue 1).
 """
 
 __version__ = "0.1.0"

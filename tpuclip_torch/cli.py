@@ -17,8 +17,8 @@ import sys
 from pathlib import Path
 from typing import List, Optional
 
-from tpuclip.config import default_paths, list_db_files, resolve_db_path
-from tpuclip.utils.logging import log
+from tpuclip_torch.config import default_paths, list_db_files, resolve_db_path
+from tpuclip_torch.utils.logging import log
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -193,7 +193,7 @@ def _run_scan(args, paths) -> None:
 
 
 def _run_search(args, paths) -> None:
-    from tpuclip.gallery.html import (
+    from tpuclip_torch.gallery.html import (
         combined_output_filename,
         generate_output_filename,
     )

@@ -12,33 +12,59 @@
 //   tpuclip/ops/topk_int8.py:_int8_packed_kernel  -> int8_packed_kernel
 //   tpuclip/ops/topk_int8.py:_int8_topk_kernel    -> int8_topk_kernel
 //
-// Kernel 3 keeps kernel 1's exact f32 scores of one tile in shared memory
-// (8 queries x 2048 rows x 4 bytes) and selects each tile's top k_tile by a
-// warp-wide max over unique 64-bit keys (score bits above the inverted
-// row), as topk_bf16.cu does, instead of the TPU's k rounds of max-and-mask
-// over a whole VMEM block: ties go to the lowest row and the scores stay
-// exact. At Q = 1 one warp of the block's eight selects.
-//
 // What bounds them on the H100: the scan reads the whole int8 matrix once
-// per call, N x D bytes (about 1.18 GB at 1M x 1152, ~0.35 ms at 3.35 TB/s);
+// per call, N x D bytes (about 1.15 GB at 1M x 1152, ~0.35 ms at 3.35 TB/s);
 // queries and scales are small. The dot products are 2 * Q * N * D integer
 // operations (37 GOP at Q = 16), far below the int8 tensor-core rate, so
 // done on tensor cores the scan stays memory-bound up to Q = 64.
 //
-// Design for that bound: the matrix is row-major (N, D) int8, K-major, as
-// the tensor cores take it. A warp computes a 16-row x 8-query tile with
-// mma.sync m16n8k32 (int8 in, exact int32 accumulation): per 128-byte slice
-// of K each lane loads 16 + 16 contiguous bytes of two rows straight from
-// global memory (every 32-byte sector used whole) and the same byte
-// positions of its query from shared memory. A dot product is a sum over
-// K, so the mma's logical K positions may come from any fixed permutation
-// of the physical bytes, as long as rows and queries use the same one; the
-// one used keeps every load 16 bytes wide. Queries sit in shared memory
-// for the whole block. Kernel 2 never writes the (Q, N) score matrix: one
-// tile's packed keys live in shared memory and a warp per query extracts
-// its top-k_tile. Blocks that share rows are adjacent in launch order, so
-// a second query group finds the rows in L2. Later work: TMA loads, wgmma
-// and a multi-stage pipeline.
+// The scan: the matrix is row-major (N, D) int8, K-major, as the tensor
+// cores take it. A warp computes a 16-row x 8-query tile with mma.sync
+// m16n8k32 (int8 in, exact int32 accumulation): per 128-byte slice of K each
+// lane loads 16 + 16 contiguous bytes of two rows straight from global
+// memory (every 32-byte sector used whole) and the same byte positions of
+// its query from shared memory. A dot product is a sum over K, so the mma's
+// logical K positions may come from any fixed permutation of the physical
+// bytes, as long as rows and queries use the same one; the one used keeps
+// every load 16 bytes wide. Queries sit in shared memory for the whole
+// block.
+//
+// Kernels 2 and 3 (per-tile top-k_tile of a 2048-row tile) never write the
+// (Q, N) scores: a block scans one tile for its qb queries into shared
+// memory (packed int32 keys, or exact f32 scores), then selects. What would
+// bound them beside the scan is that selection: the TPU kernel's k_tile
+// rounds of max-and-mask, carried over as one warp per query reading the
+// whole tile every round, cost k_tile x 2048 shared-memory reads in
+// sequence while the block's other warps waited. Here the selection is a
+// threshold, not rounds:
+//   1. radix select, 8 bits a pass from the top, over the keys' 32
+//      order-preserving bits: a shared-memory histogram of the digit among
+//      the keys that match the digits chosen so far (warp-aggregated
+//      atomics), then one warp finds the digit where the count from the top
+//      reaches k_tile. It stops as soon as that digit's whole bin is
+//      needed, usually after two or three passes;
+//   2. one pass collects every key above the threshold, and the keys equal
+//      to it in row order (a ballot prefix count), into exactly k_tile
+//      slots: kernel 2's packed keys are unique, so equal keys arise only
+//      in kernel 3, whose ties go to the lowest row as (score bits, inverted
+//      row) order keys require;
+//   3. one warp sorts the <= 128 slots by a bitonic network over shuffles
+//      (a rank count above 128) and writes them out.
+// The cost is a few passes over 2048 keys, whatever k_tile is. At qb = 1 the
+// whole block (8 warps) selects for the one query; from 4 queries each warp
+// selects for its own.
+//
+// What then bounds them is the scan's loads in flight. Shared memory is
+// sized from the block's queries: qb x 2048 x 4 bytes of keys, then the qb
+// query rows, which the selection reuses as its workspace once the scan is
+// done. Up to 8 queries a block has 8 warps (9.4 KB at Q = 1: the 489 tiles
+// of a 1M-row matrix are resident at once, ~32 warps per SM). Above 8, a
+// block takes 16 queries (two mma groups), so a tile is read once per 16
+// queries; their 128 KB of keys leave one block per SM, which gets 32 warps
+// to keep the SM's loads in flight (8-query blocks re-read each tile from L2
+// once per 8 queries; 16-query blocks of 8 or 16 warps, and a second K slice
+// in flight per warp, measured slower: PERF.md). Blocks that share rows are
+// adjacent in launch order, so a second query chunk finds the rows in L2.
 
 #include <cuda_runtime.h>
 
@@ -54,19 +80,23 @@ constexpr int kRowsPerWarp = 16;     // mma M
 constexpr int kQueriesPerMma = 8;    // mma N
 constexpr int kKSlice = 128;         // bytes of K per load step (4 mma K-steps)
 constexpr int kScoreGroups = 4;      // kernel 1: 4 x 8 = 32 queries per block
-constexpr int kMaxQueriesPerTile = 8;  // kernel 2: queries sharing one tile
 constexpr unsigned kIdxMask = (1u << 13) - 1u;
+
+// Kernels 2 and 3: a block scans one tile for up to G x 8 queries (G mma
+// groups, G = 1 or 2), then selects: 8 warps at G = 1, 32 at G = 2, where
+// the 16 queries' 128 KB of keys leave room for one block per SM.
+constexpr int kMaxGroups = 2;
+__host__ __device__ constexpr int block_warps(int groups) { return groups == 1 ? kWarps : 4 * kWarps; }
+constexpr int kWarpTeamQueries = 4;  // from this many queries per block, a warp per query
+constexpr int kBins = 256;           // radix digit of 8 bits
+constexpr int kSortSlots = 128;      // one warp's bitonic sort: 4 keys per lane
+constexpr int kCtlBytes = 64;        // a team's control words, before its histogram / slots
+constexpr int kWarpWorkspace = kCtlBytes + kSortSlots * 8;
 
 // Shared-memory row stride of a query: D rounded up to the K slice, plus
 // 64 bytes so the query rows of one mma start in different bank halves.
 __host__ __device__ __forceinline__ int query_stride(int dim) {
   return (dim + kKSlice - 1) / kKSlice * kKSlice + 64;
-}
-
-__device__ __forceinline__ int warp_max(int v) {
-#pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
 }
 
 // Copies queries [q0, q0 + nq) into `rows` shared-memory rows of
@@ -196,168 +226,422 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Kernel 2. Grid: one block per (tile, chunk of qb <= 8 queries), query
-// chunk fastest. Shared memory: qb x tile int32 keys, then 8 query rows.
-// out (n_q, tiles * k_pad) int32: per tile, the top k_tile keys
-// descending, then INT32_MIN padding up to k_pad.
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------------
+// Kernels 2 and 3: scan of one tile, then a threshold selection per query.
+// ---------------------------------------------------------------------------
+
+// As mma_rows, for a block that holds only its own nq queries: a query row
+// at or past nq is zero registers, not a shared-memory row.
+template <int kGroups>
+__device__ __forceinline__ void mma_rows_nq(const int8_t* __restrict__ m, int n_rows, int dim,
+                                            int row0, const int8_t* __restrict__ qs, int nq,
+                                            int lane, int (&acc)[kGroups][4]) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kGroups; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
+  const bool ok_lo = row0 + g < n_rows;
+  const bool ok_hi = row0 + g + 8 < n_rows;
+  const int8_t* r_lo = m + static_cast<size_t>(ok_lo ? row0 + g : 0) * dim;
+  const int8_t* r_hi = m + static_cast<size_t>(ok_hi ? row0 + g + 8 : 0) * dim;
+  const int stride = query_stride(dim);
+  const int4 zero = make_int4(0, 0, 0, 0);
+  for (int kb = 0; kb < dim; kb += kKSlice) {
+    const int4 lo_a = load16(r_lo, kb + 16 * t, dim, ok_lo);
+    const int4 lo_b = load16(r_lo, kb + 64 + 16 * t, dim, ok_lo);
+    const int4 hi_a = load16(r_hi, kb + 16 * t, dim, ok_hi);
+    const int4 hi_b = load16(r_hi, kb + 64 + 16 * t, dim, ok_hi);
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j) {
+      if (j * kQueriesPerMma < nq) {
+        const int qi = j * kQueriesPerMma + g;
+        const int8_t* qrow = qs + qi * stride + kb + 16 * t;
+        const int4 qa = qi < nq ? *reinterpret_cast<const int4*>(qrow) : zero;
+        const int4 qb = qi < nq ? *reinterpret_cast<const int4*>(qrow + 64) : zero;
+        mma_s8(acc[j], lo_a.x, hi_a.x, lo_b.x, hi_b.x, qa.x, qb.x);
+        mma_s8(acc[j], lo_a.y, hi_a.y, lo_b.y, hi_b.y, qa.y, qb.y);
+        mma_s8(acc[j], lo_a.z, hi_a.z, lo_b.z, hi_b.z, qa.z, qb.z);
+        mma_s8(acc[j], lo_a.w, hi_a.w, lo_b.w, hi_b.w, qa.w, qb.w);
+      }
+    }
+  }
+}
+
+// Copies the block's nq query rows into shared memory (query_stride(dim)
+// bytes each, zero past dim), with all kBlockThreads threads.
+template <int kBlockThreads>
+__device__ __forceinline__ void load_block_queries(const int8_t* __restrict__ q, int q0, int nq,
+                                                   int dim, int8_t* __restrict__ qs) {
+  const int stride_words = query_stride(dim) / 4;
+  const int dim_words = dim / 4;
+  const int* src = reinterpret_cast<const int*>(q + static_cast<size_t>(q0) * dim);
+  int* dst = reinterpret_cast<int*>(qs);
+  for (int i = threadIdx.x; i < nq * stride_words; i += kBlockThreads) {
+    const int w = i % stride_words;
+    dst[i] = w < dim_words ? src[static_cast<size_t>(i / stride_words) * dim_words + w] : 0;
+  }
+}
+
+// Scans tile rows [base, base + tile) for the block's nq <= 8 kGroups
+// queries and hands each (query, tile-local row, score) to `put`. Each of
+// the block's warps takes 16-row blocks in turn.
+template <int kGroups, class Put>
+__device__ __forceinline__ void scan_tile(const int8_t* __restrict__ m,
+                                          const float* __restrict__ scales, int n_rows, int dim,
+                                          int n_valid, int base, int tile,
+                                          const int8_t* __restrict__ qs, int nq, const Put& put) {
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int dot_limit = min(n_rows, n_valid);
+  for (int s = warp * kRowsPerWarp; s < tile; s += block_warps(kGroups) * kRowsPerWarp) {
+    int acc[kGroups][4];
+    mma_rows_nq<kGroups>(m, dot_limit, dim, base + s, qs, nq, lane, acc);
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int local = s + g + (r >> 1) * 8;
+        const int qi = j * kQueriesPerMma + 2 * t + (r & 1);
+        if (qi < nq) {
+          const bool valid = base + local < n_valid;
+          put(qi, local, score_of(acc[j][r], valid ? scales[base + local] : 0.0f, valid));
+        }
+      }
+    }
+  }
+}
+
+// The radix key of a tile's entry: 32 bits whose unsigned order is the
+// selection's order. Kernel 2: the packed key with its sign bit flipped
+// (unique in a tile). Kernel 3: the score's monotonic bits, -0.0 as +0.0
+// (equal scores give equal keys; the row breaks the tie).
+struct PackedKeys {
+  const int* keys;
+  __device__ __forceinline__ unsigned radix(int i) const {
+    return static_cast<unsigned>(keys[i]) ^ 0x80000000u;
+  }
+};
+
+struct ExactScores {
+  const float* scores;
+  __device__ __forceinline__ unsigned radix(int i) const {
+    unsigned b = __float_as_uint(scores[i]);
+    if (b == 0x80000000u) b = 0u;
+    return b ^ ((b >> 31) ? 0xFFFFFFFFu : 0x80000000u);
+  }
+};
+
+// A selected entry's sort key: the radix key above the inverted tile-local
+// row, unique, larger for a better entry (a lower row among equal keys).
+__device__ __forceinline__ unsigned long long sort_key(unsigned radix, int local) {
+  return (static_cast<unsigned long long>(radix) << 32) | (0xFFFFFFFFu - static_cast<unsigned>(local));
+}
+
+__device__ __forceinline__ int local_of(unsigned long long key) {
+  return static_cast<int>(0xFFFFFFFFu - static_cast<unsigned>(key));
+}
+
+// Writes a query's per-tile output: slot pos of k_pad gets a sort key, or
+// the padding. Kernel 2: the packed int32 key, INT32_MIN padding.
+struct PackedOut {
+  int* out;
+  __device__ __forceinline__ void put(int pos, unsigned long long key) const {
+    out[pos] = static_cast<int>(static_cast<unsigned>(key >> 32) ^ 0x80000000u);
+  }
+  __device__ __forceinline__ void pad(int pos) const { out[pos] = INT_MIN; }
+};
+
+// Kernel 3: the exact score from shared memory and the global row;
+// (-inf, INT32_MAX) padding.
+struct ExactOut {
+  float* out_s;
+  int* out_i;
+  const float* scores;
+  int base;
+  __device__ __forceinline__ void put(int pos, unsigned long long key) const {
+    const int local = local_of(key);
+    out_s[pos] = scores[local];
+    out_i[pos] = base + local;
+  }
+  __device__ __forceinline__ void pad(int pos) const {
+    out_s[pos] = __uint_as_float(0xff800000u);
+    out_i[pos] = INT_MAX;
+  }
+};
+
+// A team selects for one query: the whole block (kTeam = 256) or one warp.
+template <int kTeam>
+__device__ __forceinline__ void team_sync() {
+  if constexpr (kTeam == kThreads) {
+    __syncthreads();
+  } else {
+    __syncwarp();
+  }
+}
+
+// One warp: the digit d where the count of keys from the top bin down
+// reaches `need`. Lane l holds bins 255 - 8l down to 248 - 8l. ctl[0] gets
+// d, ctl[1] the count in bins above d.
+__device__ __forceinline__ void find_digit(const unsigned* hist, int need, int lane, int* ctl) {
+  const uint4 lo = *reinterpret_cast<const uint4*>(hist + 248 - 8 * lane);
+  const uint4 hi = *reinterpret_cast<const uint4*>(hist + 252 - 8 * lane);
+  const int c[8] = {static_cast<int>(hi.w), static_cast<int>(hi.z), static_cast<int>(hi.y),
+                    static_cast<int>(hi.x), static_cast<int>(lo.w), static_cast<int>(lo.z),
+                    static_cast<int>(lo.y), static_cast<int>(lo.x)};
+  int sum = 0;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) sum += c[r];
+  int incl = sum;
+#pragma unroll
+  for (int o = 1; o < kWarp; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  int cum = incl - sum;
+  if (cum < need && need <= incl) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      if (cum + c[r] >= need) {
+        ctl[0] = 255 - 8 * lane - r;
+        ctl[1] = cum;
+        break;
+      }
+      cum += c[r];
+    }
+  }
+}
+
+// Sorts 128 keys descending across one warp, key e = 32r + lane in x[r]:
+// a bitonic network, partners within a lane for distances 32 and 64 and by
+// shuffles below.
+__device__ __forceinline__ void warp_sort_desc(unsigned long long (&x)[4], int lane) {
+#pragma unroll
+  for (int size = 2; size <= kSortSlots; size <<= 1) {
+#pragma unroll
+    for (int j = size >> 1; j > 0; j >>= 1) {
+      unsigned long long y[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int e = r * kWarp + lane;
+        const unsigned long long other =
+            j >= kWarp ? x[r ^ (j / kWarp)] : __shfl_xor_sync(0xffffffffu, x[r], j);
+        const bool keep_max = ((e & j) == 0) == ((e & size) == 0);
+        y[r] = keep_max ? (x[r] > other ? x[r] : other) : (x[r] < other ? x[r] : other);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) x[r] = y[r];
+    }
+  }
+}
+
+// The k largest of one query's `tile` radix keys, ordered by sort key
+// (descending), written through `out` at [0, k), then padding to k_pad.
+// `ws` is the team's workspace: kCtlBytes of control words, then a
+// histogram of kBins counts that the collected slots overwrite.
+template <int kTeam, class Keys, class Out>
+__device__ void select_topk(const Keys& keys, const Out& out, int tile, int k, int k_pad,
+                            unsigned char* ws) {
+  int* ctl = reinterpret_cast<int*>(ws);  // [0] digit, [1] above it, [2] slots taken, [8, 16) per warp
+  unsigned* hist = reinterpret_cast<unsigned*>(ws + kCtlBytes);
+  unsigned long long* slots = reinterpret_cast<unsigned long long*>(ws + kCtlBytes);
+  const int tt = threadIdx.x % kTeam;
+  const int lane = threadIdx.x % kWarp;
+  const int team_warp = tt / kWarp;
+  const unsigned below = (1u << lane) - 1u;
+
+  // 1. Radix select: prefix holds the digits chosen so far, need the keys
+  // still to take from those that match it.
+  unsigned prefix = 0u;
+  int need = k;
+  int shift = 24;
+  bool tie = false;
+  for (;;) {
+    for (int b = tt; b < kBins; b += kTeam) hist[b] = 0u;
+    team_sync<kTeam>();
+    for (int i0 = 0; i0 < tile; i0 += kTeam) {
+      const int i = i0 + tt;
+      unsigned digit = kBins;  // outside the prefix, or past the tile: no bin
+      if (i < tile) {
+        const unsigned v = keys.radix(i);
+        if (shift == 24 || ((v ^ prefix) >> (shift + 8)) == 0u) digit = (v >> shift) & (kBins - 1);
+      }
+      const unsigned peers = __match_any_sync(0xffffffffu, digit);
+      if (digit < kBins && lane == __ffs(peers) - 1) atomicAdd(&hist[digit], __popc(peers));
+    }
+    team_sync<kTeam>();
+    if (tt < kWarp) find_digit(hist, need, lane, ctl);
+    team_sync<kTeam>();
+    const int digit = ctl[0];
+    need -= ctl[1];
+    prefix |= static_cast<unsigned>(digit) << shift;
+    const int in_bin = static_cast<int>(hist[digit]);
+    team_sync<kTeam>();  // every read of ctl and hist is done before either changes
+    if (in_bin == need) break;  // the whole bin is taken: no finer digit needed
+    if (shift == 0) {           // more keys equal the threshold than are needed
+      tie = true;
+      break;
+    }
+    shift -= 8;
+  }
+
+  // 2. Collect the k winners into slots: every key whose digits down to
+  // `shift` are above the prefix's or equal to them; under a tie, only the
+  // first `need` keys equal to the threshold, in row order.
+  if (tt == 0) ctl[2] = 0;
+  team_sync<kTeam>();
+  const unsigned top = prefix >> shift;
+  int ties_before = 0;  // keys equal to the threshold in earlier rounds
+  for (int i0 = 0; i0 < tile; i0 += kTeam) {
+    const int i = i0 + tt;
+    const bool ok = i < tile;
+    const unsigned v = ok ? keys.radix(i) : 0u;
+    bool take = ok && (v >> shift) >= top;
+    if (tie) {
+      const bool eq = ok && v == prefix;
+      const unsigned eq_mask = __ballot_sync(0xffffffffu, eq);
+      int rank = ties_before + __popc(eq_mask & below);
+      int round = __popc(eq_mask);
+      if constexpr (kTeam == kThreads) {
+        if (lane == 0) ctl[8 + team_warp] = round;
+        __syncthreads();
+        round = 0;
+        for (int w = 0; w < kWarps; ++w) {
+          const int c = ctl[8 + w];
+          if (w < team_warp) rank += c;
+          round += c;
+        }
+        __syncthreads();
+      }
+      take = (ok && v > prefix) || (eq && rank < need);
+      ties_before += round;
+    }
+    const unsigned take_mask = __ballot_sync(0xffffffffu, take);
+    if (take_mask) {
+      int first = 0;
+      if (lane == 0) first = atomicAdd(&ctl[2], __popc(take_mask));
+      first = __shfl_sync(0xffffffffu, first, 0);
+      if (take) slots[first + __popc(take_mask & below)] = sort_key(v, i);
+    }
+  }
+  team_sync<kTeam>();
+
+  // 3. Order the k slots (unique keys) and write them out.
+  if (k <= kSortSlots) {
+    if (tt < kWarp) {
+      unsigned long long x[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) x[r] = r * kWarp + lane < k ? slots[r * kWarp + lane] : 0ull;
+      warp_sort_desc(x, lane);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (r * kWarp + lane < k) out.put(r * kWarp + lane, x[r]);
+      }
+    }
+  } else {
+    // Above 128 slots (the whole block only): each slot's rank is the count
+    // of larger keys.
+    for (int s = tt; s < k; s += kTeam) {
+      const unsigned long long key = slots[s];
+      int rank = 0;
+      for (int j = 0; j < k; ++j) rank += slots[j] > key;
+      out.put(rank, key);
+    }
+  }
+  for (int pos = k + tt; pos < k_pad; pos += kTeam) out.pad(pos);
+  team_sync<kTeam>();  // the workspace is free for the next query
+}
+
+// Bytes of one team's workspace: the block's team holds up to max(k_tile,
+// 128) slots, a warp's team 128.
+int block_workspace(int k_tile) {
+  const int slots = (k_tile > kSortSlots ? k_tile : kSortSlots) * 8;
+  return kCtlBytes + (slots > kBins * 4 ? slots : kBins * 4);
+}
+
+// Kernel 2. Grid: one block of block_warps(kGroups) warps per (tile, chunk
+// of qb <= 8 kGroups queries), query chunk fastest. Shared memory: qb x tile int32
+// keys, then the qb query rows, later the selection's workspace. out (n_q,
+// tiles * k_pad) int32: per tile, the top k_tile keys descending, then
+// INT32_MIN padding to k_pad.
+template <int kTeam, int kGroups>
+__global__ void __launch_bounds__(block_warps(kGroups) * kWarp)
     int8_packed_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ m,
                        const float* __restrict__ scales, int* __restrict__ out, int n_q,
                        int n_rows, int dim, int n_valid, int tile, int k_tile, int k_pad,
                        int qb, int n_qchunks) {
   extern __shared__ int4 smem_packed[];
   int* keys = reinterpret_cast<int*>(smem_packed);
-  int8_t* qs = reinterpret_cast<int8_t*>(keys + qb * tile);
+  unsigned char* region = reinterpret_cast<unsigned char*>(keys + qb * tile);
   const int tile_idx = blockIdx.x / n_qchunks;
   const int q0 = (blockIdx.x % n_qchunks) * qb;
   const int nq = min(qb, n_q - q0);
-  load_queries(q, q0, nq, kMaxQueriesPerTile, dim, qs);
+  const int8_t* qs = reinterpret_cast<const int8_t*>(region);
+  load_block_queries<block_warps(kGroups) * kWarp>(q, q0, nq, dim, reinterpret_cast<int8_t*>(region));
   __syncthreads();
+  scan_tile<kGroups>(m, scales, n_rows, dim, n_valid, tile_idx * tile, tile, qs, nq,
+            [&](int qi, int local, float score) { keys[qi * tile + local] = pack_key(score, local); });
+  __syncthreads();  // the keys are complete and the query rows dead
 
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int base = tile_idx * tile;
-  const int dot_limit = min(n_rows, n_valid);
-  for (int s = warp * kRowsPerWarp; s < tile; s += kWarps * kRowsPerWarp) {
-    int acc[1][4];
-    mma_rows<1>(m, dot_limit, dim, base + s, qs, 1, lane, acc);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int local = s + g + (r >> 1) * 8;
-      const int qi = 2 * t + (r & 1);
-      if (qi < nq) {
-        const bool valid = base + local < n_valid;
-        const float score = score_of(acc[0][r], valid ? scales[base + local] : 0.0f, valid);
-        keys[qi * tile + local] = pack_key(score, local);
-      }
+  const size_t row_len = static_cast<size_t>(n_rows / tile) * k_pad;
+  const size_t first = static_cast<size_t>(q0) * row_len + static_cast<size_t>(tile_idx) * k_pad;
+  static_assert(kTeam == kWarp || kGroups == 1, "the block selects as one team only at 8 warps");
+  if constexpr (kTeam == kThreads) {
+    for (int qi = 0; qi < nq; ++qi) {
+      select_topk<kTeam>(PackedKeys{keys + qi * tile}, PackedOut{out + first + qi * row_len},
+                         tile, k_tile, k_pad, region);
+    }
+  } else {
+    const int warp = threadIdx.x / kWarp;
+    for (int qi = warp; qi < nq; qi += block_warps(kGroups)) {
+      select_topk<kTeam>(PackedKeys{keys + qi * tile}, PackedOut{out + first + qi * row_len},
+                         tile, k_tile, k_pad, region + warp * kWarpWorkspace);
     }
   }
-  __syncthreads();
-
-  // One warp per query: k_tile rounds of warp-wide max over the tile's keys.
-  // Keys are unique within a tile, so exactly one lane owns each maximum and
-  // only that lane touches the positions it scans (i = lane mod 32).
-  const int tiles = n_rows / tile;
-  for (int qi = warp; qi < nq; qi += kWarps) {
-    int* kq = keys + qi * tile;
-    int* o = out + static_cast<size_t>(q0 + qi) * tiles * k_pad +
-             static_cast<size_t>(tile_idx) * k_pad;
-    for (int r = 0; r < k_tile; ++r) {
-      int best = INT_MIN;
-      int pos = -1;
-      for (int i = lane; i < tile; i += kWarp) {
-        const int v = kq[i];
-        if (v > best) {
-          best = v;
-          pos = i;
-        }
-      }
-      const int top = warp_max(best);
-      if (pos >= 0 && best == top) kq[pos] = INT_MIN;
-      if (lane == 0) o[r] = top;
-    }
-    for (int r = k_tile + lane; r < k_pad; r += kWarp) o[r] = INT_MIN;
-  }
 }
 
-// A unique key per (score, row), larger for a higher score and, among equal
-// scores, for a lower row: the float's monotonic bits above the inverted
-// row (topk_bf16.cu's order_key). A taken slot is below every real key;
-// -inf scores (rows past n_valid) are real keys.
-constexpr unsigned kTaken = 0x7fffffffu;  // a NaN no int8 score produces
-
-__device__ __forceinline__ long long order_key(unsigned bits, int row) {
-  if (bits == kTaken) return LLONG_MIN;
-  if (bits == 0x80000000u) bits = 0u;
-  const unsigned mono = bits ^ ((bits >> 31) ? 0xFFFFFFFFu : 0x80000000u);
-  const unsigned long long u = (static_cast<unsigned long long>(mono ^ 0x80000000u) << 32) |
-                               (0xFFFFFFFFu - static_cast<unsigned>(row));
-  return static_cast<long long>(u);
-}
-
-__device__ __forceinline__ long long warp_max_key(long long v) {
-#pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) {
-    const long long other = __shfl_xor_sync(0xffffffffu, v, o);
-    v = other > v ? other : v;
-  }
-  return v;
-}
-
-// Kernel 3. Grid: one block per (tile, chunk of qb <= 8 queries), query
-// chunk fastest. Shared memory: qb x tile f32 scores, then 8 query rows.
+// Kernel 3. Grid, block and shared memory as kernel 2, with qb x tile f32
+// scores.
 // out_s / out_i (n_q, tiles * k_pad): per tile, its top k_tile (score, row)
-// pairs ordered (score desc, row asc), then (-inf, INT_MAX) up to k_pad.
-// The scores are kernel 1's, exact; only the selection differs from kernel
-// 2, which ranks truncated packed keys.
-__global__ void __launch_bounds__(kThreads)
+// pairs ordered (score desc, row asc), then (-inf, INT32_MAX) to k_pad.
+// The scores are kernel 1's, exact; only the selection's key differs from
+// kernel 2, which ranks truncated packed keys.
+template <int kTeam, int kGroups>
+__global__ void __launch_bounds__(block_warps(kGroups) * kWarp)
     int8_topk_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ m,
                      const float* __restrict__ scales, float* __restrict__ out_s,
                      int* __restrict__ out_i, int n_q, int n_rows, int dim, int n_valid, int tile,
                      int k_tile, int k_pad, int qb, int n_qchunks) {
   extern __shared__ int4 smem_topk[];
   float* sc = reinterpret_cast<float*>(smem_topk);
-  int8_t* qs = reinterpret_cast<int8_t*>(sc + qb * tile);
+  unsigned char* region = reinterpret_cast<unsigned char*>(sc + qb * tile);
   const int tile_idx = blockIdx.x / n_qchunks;
   const int q0 = (blockIdx.x % n_qchunks) * qb;
   const int nq = min(qb, n_q - q0);
-  load_queries(q, q0, nq, kMaxQueriesPerTile, dim, qs);
-  __syncthreads();
-
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int g = lane >> 2;
-  const int t = lane & 3;
   const int base = tile_idx * tile;
-  const int dot_limit = min(n_rows, n_valid);
-  for (int s = warp * kRowsPerWarp; s < tile; s += kWarps * kRowsPerWarp) {
-    int acc[1][4];
-    mma_rows<1>(m, dot_limit, dim, base + s, qs, 1, lane, acc);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int local = s + g + (r >> 1) * 8;
-      const int qi = 2 * t + (r & 1);
-      if (qi < nq) {
-        const bool valid = base + local < n_valid;
-        sc[qi * tile + local] = score_of(acc[0][r], valid ? scales[base + local] : 0.0f, valid);
-      }
-    }
-  }
+  const int8_t* qs = reinterpret_cast<const int8_t*>(region);
+  load_block_queries<block_warps(kGroups) * kWarp>(q, q0, nq, dim, reinterpret_cast<int8_t*>(region));
+  __syncthreads();
+  scan_tile<kGroups>(m, scales, n_rows, dim, n_valid, base, tile, qs, nq,
+            [&](int qi, int local, float score) { sc[qi * tile + local] = score; });
   __syncthreads();
 
-  // One warp per query: k_tile rounds of a warp-wide max over the tile's
-  // keys. Keys are unique, so exactly one lane owns each maximum; it writes
-  // the pair out and marks its slot taken (it alone reads slots i = lane mod
-  // 32). Every lane joins the full-mask shuffle, including a lane whose
-  // slots are all taken (pos = -1, possible once k_tile > tile / 32).
-  const int tiles = n_rows / tile;
-  for (int qi = warp; qi < nq; qi += kWarps) {
-    float* sq = sc + qi * tile;
-    const size_t o = static_cast<size_t>(q0 + qi) * tiles * k_pad +
-                     static_cast<size_t>(tile_idx) * k_pad;
-    for (int r = 0; r < k_tile; ++r) {
-      long long best = LLONG_MIN;
-      int pos = -1;
-      for (int i = lane; i < tile; i += kWarp) {
-        const long long key = order_key(__float_as_uint(sq[i]), base + i);
-        if (key > best) {
-          best = key;
-          pos = i;
-        }
-      }
-      const long long top = warp_max_key(best);
-      if (pos >= 0 && best == top) {
-        out_s[o + r] = sq[pos];
-        out_i[o + r] = base + pos;
-        sq[pos] = __uint_as_float(kTaken);
-      }
-      __syncwarp();
+  const size_t row_len = static_cast<size_t>(n_rows / tile) * k_pad;
+  const size_t first = static_cast<size_t>(q0) * row_len + static_cast<size_t>(tile_idx) * k_pad;
+  static_assert(kTeam == kWarp || kGroups == 1, "the block selects as one team only at 8 warps");
+  if constexpr (kTeam == kThreads) {
+    for (int qi = 0; qi < nq; ++qi) {
+      const size_t o = first + qi * row_len;
+      select_topk<kTeam>(ExactScores{sc + qi * tile}, ExactOut{out_s + o, out_i + o, sc + qi * tile, base},
+                         tile, k_tile, k_pad, region);
     }
-    for (int r = k_tile + lane; r < k_pad; r += kWarp) {
-      out_s[o + r] = __uint_as_float(0xff800000u);
-      out_i[o + r] = INT_MAX;
+  } else {
+    const int warp = threadIdx.x / kWarp;
+    for (int qi = warp; qi < nq; qi += block_warps(kGroups)) {
+      const size_t o = first + qi * row_len;
+      select_topk<kTeam>(ExactScores{sc + qi * tile}, ExactOut{out_s + o, out_i + o, sc + qi * tile, base},
+                         tile, k_tile, k_pad, region + warp * kWarpWorkspace);
     }
   }
 }
@@ -370,17 +654,51 @@ size_t smem_optin() {
   return static_cast<size_t>(bytes);
 }
 
-// Queries per block of kernels 2 and 3: as many of 8 as have `tile` 4-byte
-// entries each in the shared memory left beside the 8 query rows (0: none
-// fit). `smem` receives the block's bytes.
-int queries_per_tile(int tile, int dim, size_t* smem) {
-  const size_t query_bytes = static_cast<size_t>(kMaxQueriesPerTile) * query_stride(dim);
-  const size_t per_query = static_cast<size_t>(tile) * 4;
+// The launch of kernels 2 and 3: qb queries per block, as many as fit of
+// 16 (8 above 128 slots); G = ceil(qb / 8) mma groups; a
+// warp per query from kWarpTeamQueries queries at k_tile <= 128 (else the
+// whole block per query); and the block's shared memory: qb x tile 4-byte
+// entries, then the larger of the qb query rows and the selection's
+// workspace.
+struct SelectLaunch {
+  int qb = 0;
+  int groups = 1;
+  bool warp_teams = false;
+  size_t smem = 0;
+};
+
+SelectLaunch select_launch(int n_q, int tile, int dim, int k_tile) {
   const size_t optin = smem_optin();
-  const size_t fit = optin > query_bytes ? (optin - query_bytes) / per_query : 0;
-  const int qb = fit < kMaxQueriesPerTile ? static_cast<int>(fit) : kMaxQueriesPerTile;
-  *smem = per_query * qb + query_bytes;
-  return qb;
+  const int most = (k_tile <= kSortSlots ? kMaxGroups : 1) * kQueriesPerMma;
+  SelectLaunch launch;
+  for (int qb = n_q < most ? n_q : most; qb >= 1; --qb) {
+    const int groups = (qb + kQueriesPerMma - 1) / kQueriesPerMma;
+    const bool warp_teams = qb >= kWarpTeamQueries && k_tile <= kSortSlots;
+    const int teams = qb < block_warps(groups) ? qb : block_warps(groups);
+    const size_t ws = warp_teams ? static_cast<size_t>(teams) * kWarpWorkspace
+                                 : static_cast<size_t>(block_workspace(k_tile));
+    const size_t rows = static_cast<size_t>(qb) * query_stride(dim);
+    const size_t smem = static_cast<size_t>(qb) * tile * 4 + (rows > ws ? rows : ws);
+    if (smem <= optin) {
+      launch.qb = qb;
+      launch.groups = groups;
+      launch.warp_teams = warp_teams;
+      launch.smem = smem;
+      return launch;
+    }
+  }
+  return launch;
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+bool select_args_ok(int n_q, int n_rows, int tile, int k_tile, int k_pad) {
+  return n_q >= 1 && tile > 0 && tile % kRowsPerWarp == 0 && n_rows % tile == 0 && k_tile >= 1 &&
+         k_tile <= tile && k_tile <= k_pad;
 }
 
 }  // namespace
@@ -409,22 +727,26 @@ int tpuclip_int8_scores(const void* q, const void* m, const void* scales, void* 
 }
 
 // Per-tile packed top-k_tile keys (n_q, (n_rows / tile) * k_pad) int32;
-// dim % 16 == 0, tile % 16 == 0.
+// dim % 16 == 0, tile % 16 == 0, 1 <= k_tile <= min(tile, k_pad).
 int tpuclip_int8_candidates_packed(const void* q, const void* m, const void* scales, void* out,
                                    int n_q, int n_rows, int dim, int n_valid, int tile,
                                    int k_tile, int k_pad, void* stream) {
-  size_t smem = 0;
-  const int qb = queries_per_tile(tile, dim, &smem);
-  if (qb < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      int8_packed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (!select_args_ok(n_q, n_rows, tile, k_tile, k_pad)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const SelectLaunch launch = select_launch(n_q, tile, dim, k_tile);
+  if (launch.qb < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = launch.groups == 2 ? int8_packed_kernel<kWarp, 2>
+                      : launch.warp_teams ? int8_packed_kernel<kWarp, 1>
+                                          : int8_packed_kernel<kThreads, 1>;
+  const cudaError_t err = allow_smem(kernel, launch.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_qchunks = (n_q + qb - 1) / qb;
-  const int tiles = n_rows / tile;
-  int8_packed_kernel<<<tiles * n_qchunks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int n_qchunks = (n_q + launch.qb - 1) / launch.qb;
+  kernel<<<(n_rows / tile) * n_qchunks, block_warps(launch.groups) * kWarp, launch.smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(q), static_cast<const int8_t*>(m),
       static_cast<const float*>(scales), static_cast<int*>(out), n_q, n_rows, dim, n_valid,
-      tile, k_tile, k_pad, qb, n_qchunks);
+      tile, k_tile, k_pad, launch.qb, n_qchunks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -434,21 +756,22 @@ int tpuclip_int8_candidates_packed(const void* q, const void* m, const void* sca
 int tpuclip_int8_candidates(const void* q, const void* m, const void* scales, void* out_s,
                             void* out_i, int n_q, int n_rows, int dim, int n_valid, int tile,
                             int k_tile, int k_pad, void* stream) {
-  if (tile % kRowsPerWarp != 0 || k_tile < 1 || k_tile > tile || k_tile > k_pad) {
+  if (!select_args_ok(n_q, n_rows, tile, k_tile, k_pad)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  size_t smem = 0;
-  const int qb = queries_per_tile(tile, dim, &smem);
-  if (qb < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      int8_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const SelectLaunch launch = select_launch(n_q, tile, dim, k_tile);
+  if (launch.qb < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = launch.groups == 2 ? int8_topk_kernel<kWarp, 2>
+                      : launch.warp_teams ? int8_topk_kernel<kWarp, 1>
+                                          : int8_topk_kernel<kThreads, 1>;
+  const cudaError_t err = allow_smem(kernel, launch.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_qchunks = (n_q + qb - 1) / qb;
-  const int tiles = n_rows / tile;
-  int8_topk_kernel<<<tiles * n_qchunks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int n_qchunks = (n_q + launch.qb - 1) / launch.qb;
+  kernel<<<(n_rows / tile) * n_qchunks, block_warps(launch.groups) * kWarp, launch.smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(q), static_cast<const int8_t*>(m),
       static_cast<const float*>(scales), static_cast<float*>(out_s), static_cast<int*>(out_i),
-      n_q, n_rows, dim, n_valid, tile, k_tile, k_pad, qb, n_qchunks);
+      n_q, n_rows, dim, n_valid, tile, k_tile, k_pad, launch.qb, n_qchunks);
   return static_cast<int>(cudaGetLastError());
 }
 

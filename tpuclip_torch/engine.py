@@ -16,13 +16,13 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from tpuclip.config import default_paths
-from tpuclip.index.store import MetadataStore
-from tpuclip.io.preprocess import preprocess_batch
-from tpuclip.io.thumbnails import Thumbnailer
-from tpuclip.text.tokenizer import build_prompt, load_tokenizer
-from tpuclip.utils.bucketing import batch_bucket
-from tpuclip.utils.logging import banner, log, safe_print_path
+from tpuclip_torch.config import default_paths
+from tpuclip_torch.index.store import MetadataStore
+from tpuclip_torch.io.preprocess import preprocess_batch
+from tpuclip_torch.io.thumbnails import Thumbnailer
+from tpuclip_torch.text.tokenizer import build_prompt, load_tokenizer
+from tpuclip_torch.utils.bucketing import batch_bucket
+from tpuclip_torch.utils.logging import banner, log, safe_print_path
 from tpuclip_torch.device import DeviceLike, default_dtype, resolve_device
 from tpuclip_torch.index.search import DeviceIndex
 from tpuclip_torch.models.configs import DEFAULT_MODEL
@@ -165,14 +165,14 @@ class ImageDatabase:
     def _embed_pil(self, img) -> np.ndarray:
         if self.is_naflex:
             raise NotImplementedError("NaFlex models are not ported yet (ROADMAP Queue 1 item 7)")
-        from tpuclip.io.preprocess import resize_to_uint8
+        from tpuclip_torch.io.preprocess import resize_to_uint8
 
         pixels = resize_to_uint8(img, self.image_size)
         return self.embed_images_uint8(pixels[None])[0].flatten()
 
     def _get_image_embedding(self, image_path: str) -> Optional[np.ndarray]:
         try:
-            from tpuclip.io.decode import load_image
+            from tpuclip_torch.io.decode import load_image
 
             img = load_image(image_path)
             if img is None:
@@ -210,6 +210,6 @@ class ImageDatabase:
         return search_by_embedding(self, embedding, k, **kwargs)
 
     def generate_html_gallery(self, results, output_file="results.html", query=None):
-        from tpuclip.gallery.html import generate_html_gallery
+        from tpuclip_torch.gallery.html import generate_html_gallery
 
         generate_html_gallery(results, output_file, query=query, thumbnailer=self.thumbnailer)

@@ -20,9 +20,9 @@ from typing import List, Tuple
 
 import numpy as np
 
-from tpuclip.index.store import MetadataStore
+from tpuclip_torch.index.store import MetadataStore
 from tpuclip_torch.ops.hamming import hamming_distance_packed, pack_bits
-from tpuclip.utils.logging import log
+from tpuclip_torch.utils.logging import log
 
 DEFAULT_TOLERANCE_BITS = 2
 

@@ -49,10 +49,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from tpuclip.index.cache import MatrixCache
-from tpuclip.index.store import MetadataStore
-from tpuclip.utils.bucketing import batch_bucket
-from tpuclip.utils.logging import log
+from tpuclip_torch.index.cache import MatrixCache
+from tpuclip_torch.index.store import MetadataStore
+from tpuclip_torch.utils.bucketing import batch_bucket
+from tpuclip_torch.utils.logging import log
 from tpuclip_torch.device import DeviceLike, default_dtype, resolve_device
 from tpuclip_torch.ops.hamming import (
     BINARY_TILE_N,

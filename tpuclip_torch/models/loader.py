@@ -22,7 +22,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from tpuclip.utils.logging import log
+from tpuclip_torch.utils.logging import log
 from tpuclip_torch.models import convert
 from tpuclip_torch.models.configs import (
     DEFAULT_MODEL,

@@ -47,8 +47,8 @@ _INT32_MAX = 2**31 - 1
 # Row padding unit of the int8 matrix (as tpuclip's INT8_TILE_N).
 INT8_TILE_N = 6144
 # Tile width of the batch (extract) shortlist: per-tile top-k_tile keys.
-# Divides INT8_TILE_N; the kernel holds 8 queries x 2048 keys in 64 KB of
-# shared memory.
+# Divides INT8_TILE_N; a block of kernels 2 and 3 holds up to 16 queries x
+# 2048 keys (128 KB) in shared memory.
 PACKED_TILE_N = 2048
 
 # Packed keys carry the tile-local lane in their low 13 bits (tiles <= 8192).

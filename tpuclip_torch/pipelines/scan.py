@@ -8,7 +8,7 @@ profiling report with images/sec throughput.
 
 Differences from the reference, shared with tpuclip:
 - Decode+resize+hash run on a thread pool *ahead of* the device
-  (tpuclip.io.prefetch, reused), instead of serially inside the embed call.
+  (``tpuclip_torch.io.prefetch``), instead of serially inside the embed call.
 - Batches are fixed-shape uint8; normalization happens on the device as
   the tower's first op.
 - The device embed for batch N is dispatched asynchronously (CUDA kernels
@@ -28,11 +28,11 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from tpuclip.index.store import connect
-from tpuclip.io.prefetch import prefetch_batches
-from tpuclip.io.walker import census, group_by_folder, sample_folder_sequences
-from tpuclip.utils.logging import banner, log
-from tpuclip.utils.profiling import StepTimers
+from tpuclip_torch.index.store import connect
+from tpuclip_torch.io.prefetch import prefetch_batches
+from tpuclip_torch.io.walker import census, group_by_folder, sample_folder_sequences
+from tpuclip_torch.utils.logging import banner, log
+from tpuclip_torch.utils.profiling import StepTimers
 
 
 def shard_of_folder(folder: str, num_shards: int) -> int:
@@ -258,7 +258,7 @@ def scan_directory(
         )
         reuse_embeddings = False
     if reuse_embeddings and save_full_embeddings:
-        from tpuclip.io.prefetch import default_procs
+        from tpuclip_torch.io.prefetch import default_procs
 
         procs = default_procs() if decode_procs is None else decode_procs
         if procs > 0:

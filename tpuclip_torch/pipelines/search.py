@@ -25,8 +25,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from tpuclip_torch.index.dedup import filter_duplicates
-from tpuclip.utils.logging import log
-from tpuclip.utils.profiling import Timings
+from tpuclip_torch.utils.logging import log
+from tpuclip_torch.utils.profiling import Timings
 
 
 def _normalize(v: np.ndarray) -> np.ndarray:
