@@ -2,18 +2,20 @@
 
     python3 chip_smoke.py [--ab LABEL:PATH] ...
 
-With ``--ab``, phase 3 also builds each other ``int8_scan.cu`` given (say,
-an older tree's) into its own library
-and times its kernels 2 and 3 against this tree's in turns (theirs, this,
-this, theirs) on the same inputs, bit-equal, with the fused int8 search
-and ``topk_int8`` routed through each.
+With ``--ab``, phase 3 also builds each other ``int8_scan.cu`` or
+``binary_scan.cu`` given (say, an older tree's; the file name says which)
+into its own library and times its kernels against this tree's in turns
+(theirs, this, this, theirs) on the same inputs, bit-equal: kernels 2 and
+3, with the fused int8 search and ``topk_int8`` routed through each, or
+kernels 6 and 7 at the 10M-row cases below.
 
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. environment: torch / CUDA versions, the card's name and power limit
    (nvidia-smi), TF32 off;
 2. build: the CUDA kernels from tpuclip_torch/csrc (one nvcc per source, in
-   parallel), timed;
+   parallel), timed, and beside them a register-only loop of b1 mmas whose
+   rate is the binary tensor cores' peak in the bounds of kernels 6 and 7;
 3. kernels against their plain PyTorch versions at the main path's size,
    1,000,000 unit-norm rows x 1152 (numpy seed 0, bf16 rows + int8 matrix
    on the card): int8_scores at Q = 1, 16 and int8_candidates_packed at
@@ -24,10 +26,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    within 1e-5 of the plain k-th score, ordered (score desc, row asc), and
    at k = 128 with one selection lane's slots all among the top rows; the
    bf16 route above k = 128 (topk_plain, a chunked fp32 matmul) at k = 200
-   within 1e-5 of the float64 reference, timed; then 10,000,000 packed binary rows x 36 words (a seeded torch.Generator on the
-   card): binary_scores bit-equal, binary_topk_q1 at k = 20, 640, 4096 and
-   binary_topk_batched at Q = 4, 16, k = 20, 640 identical to the plain
-   version; CUDA-event p50 times of each kernel and its plain version.
+   within 1e-5 of the float64 reference, timed; then 10,000,000 packed
+   binary rows x 36 words (a seeded torch.Generator on the card):
+   binary_scores bit-equal, binary_topk_q1 at k = 20, 640, 4096 and
+   binary_topk_batched at Q = 4, 16, k = 20, 640 and Q = 64, k = 20
+   identical to the plain version, each with its bound and the bytes of
+   its scratch; CUDA-event p50 times of each kernel and its plain version,
+   and of kernel 5 + torch.topk per query at the recorded cases.
    Also on the 1M int8 matrix: int8_candidates (kernel 3) at Q = 1, k_tile
    = 20, 80, 128 and Q = 16, k_tile = 80 bit-equal, ties planted (copies
    of one row in one tile; the top 128 of another tile in two selection
@@ -74,11 +79,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    Neither jax nor the JAX package (tpuclip) may ever have been imported.
 
 The last two lines are the kernels' JSON record and then
-``{"ok": true, "device": {...}}``. Each kernel's record carries its bound:
+``{"ok": true, "device": {...}}``. Kernel 7 has two records, at Q = 4,
+k = 640 (``binary_topk_batched``) and Q = 16, k = 20
+(``binary_topk_batched_q16``). Each kernel's record carries its bound:
 the larger of the bytes it must move (each input read once, each output
 written once) over 3.35 TB/s and its operations over the peak rate of
-their type (int8 1,979 TOP/s, bf16 989 TFLOP/s, popcounts 16 per SM per
-clock at 1.98 GHz), at the recorded case's shapes; ``library_ms`` is null
+their type (int8 1,979 TOP/s, bf16 989 TFLOP/s, kernel 5's popcounts 16
+per SM per clock at 1.98 GHz, kernels 6 and 7's b1 AND + add at the rate
+phase 2 measures), at the recorded case's shapes; ``library_ms`` is null
 (no single PyTorch call computes any of these functions) and
 ``nearest_ms`` times the nearest route of PyTorch calls, where there is
 one.
@@ -113,6 +121,74 @@ N_ROWS_4M = 4_000_000  # past the rerank gate (~2.31M rows): kernel 3's route is
 # 132 SMs, 1.98 GHz boost clock).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "popc": 16 * 132 * 1.98e9}
+
+
+# The binary tensor cores' rate (mma.sync m16n8k256 b1, AND + POPC), which
+# the published tables do not give, is measured in phase 2 by this loop:
+# each warp runs four independent chains of mmas on registers.
+B1_RATE_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void b1_mma_loop(int* out, int iters) {
+  const unsigned x = threadIdx.x * 2654435761u;
+  const unsigned a0 = x, a1 = x ^ 0x5bd1e995u, a2 = x * 3u, a3 = ~x, b0 = x >> 3, b1 = x * 7u;
+  int d[4][4] = {};
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      asm volatile("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+                   "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+                   : "+r"(d[c][0]), "+r"(d[c][1]), "+r"(d[c][2]), "+r"(d[c][3])
+                   : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+    }
+  }
+  int s = 0;
+  for (int c = 0; c < 4; ++c)
+    for (int e = 0; e < 4; ++e) s += d[c][e];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int b1_mma_loop_launch(void* out, int blocks, int iters, void* stream) {
+  b1_mma_loop<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<int*>(out), iters);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+B1_OPS_PER_MMA = 2 * 16 * 8 * 256  # an AND and an add per bit pair, as NVIDIA counts int8 TOPS
+
+
+def start_b1_rate_build():
+    """nvcc of the b1 rate loop into build/b1_rate/, started beside the
+    kernels' build; returns (library path, process)."""
+    from tpuclip_torch.ops import _build
+
+    out_dir = _build.BUILD_DIR.parent / "b1_rate"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "b1_rate.cu").write_text(B1_RATE_SOURCE)
+    lib = out_dir / "libb1_rate.so"
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(out_dir / "b1_rate.cu")]
+    return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def measure_b1_rate(build, gpu):
+    """The b1 mma rate in operations per second (median of 5 launches of
+    4 blocks per SM x 8 warps x 4 chains x 2048 mmas), set as the peak of
+    kind "b1"."""
+    lib, proc = build
+    _, err = proc.communicate()
+    check(proc.returncode == 0, f"nvcc of the b1 rate loop failed\n{err}")
+    fn = ctypes.CDLL(str(lib)).b1_mma_loop_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks, iters = 4 * torch.cuda.get_device_properties(0).multi_processor_count, 2048
+    out = torch.empty(blocks * 256, dtype=torch.int32, device="cuda")
+
+    def run():
+        check(fn(out.data_ptr(), blocks, iters, torch.cuda.current_stream().cuda_stream) == 0,
+              "b1 rate loop launch failed")
+
+    ms = statistics.median(p50_ms(run, 1) for _ in range(5))
+    rate = blocks * 8 * iters * 4 * B1_OPS_PER_MMA / (ms * 1e-3)
+    PEAK_OPS_PER_S["b1"] = rate
+    print(f"[build] binary tensor cores (mma.sync m16n8k256 b1 AND+POPC): {rate / 1e12:.1f} TOP/s "
+          f"measured ({ms:.4f} ms for {blocks * 8 * iters * 4:,} mmas)  ({gpu})", flush=True)
 
 
 def check(cond, msg):
@@ -418,13 +494,14 @@ def phase_int8_candidates(mods, gpu, m, scales, queries):
     return record
 
 
+def stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
 def thin_wrappers(lib):
     """Kernels 2 and 3 of one built library as (packed, candidates), with
     the wrappers' signatures and output layout but none of their checks, so
     that every build compared in the A/B pays the same host cost."""
-    def stream():
-        return torch.cuda.current_stream().cuda_stream
-
     def packed(q_int8, m_int8, scales, k_tile, n_valid, tile):
         k_pad = -(-k_tile // 128) * 128
         out = torch.empty((q_int8.shape[0], m_int8.shape[0] // tile * k_pad), dtype=torch.int32,
@@ -450,10 +527,44 @@ def thin_wrappers(lib):
     return packed, candidates
 
 
-def build_variants(specs):
-    """Each ``LABEL:PATH`` built into build/ab/libLABEL.so
-    (one nvcc each, all together); returns [(label, packed, candidates)],
-    this tree's own library first as "this"."""
+def thin_binary_wrappers(lib, hops):
+    """Kernels 6 and 7 of one built library as (q1, batched), called as the
+    wrappers call them (this tree's chunking, one call for all queries) but
+    without their checks. An older build of the same C signature reads the
+    head of the same scratch as its histogram (the previous design's
+    (Q, chunks + 1, bins) int32 counts, as many as this one's)."""
+    def call(entry, q, words, k, n_valid):
+        n, w = words.shape
+        sms = torch.cuda.get_device_properties(words.device).multi_processor_count
+        chunk_rows, group, n_bytes = hops._binary_plan(q.shape[0], n, w, sms)
+        check(group == q.shape[0], "the A/B runs every query in one kernel call")
+        scratch = torch.empty(n_bytes, dtype=torch.uint8, device=words.device)
+        out_m = torch.empty((q.shape[0], k), dtype=torch.int32, device=words.device)
+        out_r = torch.empty((q.shape[0], k), dtype=torch.int64, device=words.device)
+        args = [q.data_ptr(), words.data_ptr(), scratch.data_ptr(), out_m.data_ptr(), out_r.data_ptr()]
+        if entry == "tpuclip_binary_topk":
+            args.append(q.shape[0])
+        rc = getattr(lib, entry)(*args, n, w, int(n_valid), k, chunk_rows, stream())
+        check(rc == 0, f"{entry} launch failed: cudaError {rc}")
+        return out_m, out_r
+
+    return (lambda q, words, k, n_valid: call("tpuclip_binary_topk_q1", q, words, k, n_valid),
+            lambda q, words, k, n_valid: call("tpuclip_binary_topk", q, words, k, n_valid))
+
+
+# Entry points of each source that --ab can take, and their thin wrappers.
+AB_SOURCES = {
+    "int8_scan.cu": (("tpuclip_int8_candidates_packed", "tpuclip_int8_candidates"),
+                     lambda lib, hops: thin_wrappers(lib)),
+    "binary_scan.cu": (("tpuclip_binary_topk_q1", "tpuclip_binary_topk"), thin_binary_wrappers),
+}
+
+
+def build_variants(specs, hops):
+    """Each ``LABEL:PATH`` built into build/ab/libLABEL.so (one nvcc each,
+    all together); the file name says which kernels it holds
+    (``AB_SOURCES``). Returns {file name: [(label, thin wrappers)]}, this
+    tree's own library first as "this"."""
     from tpuclip_torch.ops import _build
 
     out_dir = _build.BUILD_DIR.parent / "ab"
@@ -461,20 +572,26 @@ def build_variants(specs):
     jobs = []
     for spec in specs:
         label, path = spec.split(":", 1)
+        source = Path(path).name
+        check(source in AB_SOURCES, f"--ab {spec}: not one of {sorted(AB_SOURCES)}")
         lib = out_dir / f"lib{label}.so"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), path]
-        jobs.append((spec, label, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                        stderr=subprocess.PIPE, text=True)))
-    variants = [("this", *thin_wrappers(_build.library()))]
-    for spec, label, lib, proc in jobs:
+        jobs.append((spec, label, source, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                                stderr=subprocess.PIPE, text=True)))
+    this = _build.library()
+    variants = {}
+    for spec, label, source, lib, proc in jobs:
         _, err = proc.communicate()
         check(proc.returncode == 0, f"--ab {label}: nvcc failed\n{err}")
         handle = ctypes.CDLL(str(lib))
-        for name in ("tpuclip_int8_candidates_packed", "tpuclip_int8_candidates"):
+        names, wrap = AB_SOURCES[source]
+        for name in names:
             fn = getattr(handle, name)
             fn.argtypes = _build.SIGNATURES[name]
             fn.restype = ctypes.c_int
-        variants.append((label, *thin_wrappers(handle)))
+        if source not in variants:
+            variants[source] = [("this", wrap(this, hops))]
+        variants[source].append((label, wrap(handle, hops)))
         print(f"[ab] built {label} from {spec}", flush=True)
     return variants
 
@@ -485,13 +602,32 @@ def same_output(a, b):
     return torch.equal(a, b)
 
 
+def time_turns(gpu, cases):
+    """Each case is (name, {label: callable}), "this" among the labels: every
+    other build's output must be bit-equal to this tree's; then each is
+    timed in turns: the others, this, this, the others in reverse (p50 of 20
+    launches each). Prints one line per case and one JSON line of every
+    time."""
+    results = {}
+    for name, runs in cases:
+        want = runs["this"]()
+        order = [label for label in runs if label != "this"]
+        for label in order:
+            check(same_output(runs[label](), want), f"[ab] {name}: {label} differs from this tree")
+        del want
+        times = {}
+        for label in order + ["this", "this"] + order[::-1]:
+            times.setdefault(label, []).append(p50_ms(runs[label], 20))
+        results[name] = times
+        turns = ", ".join(f"{label} {' / '.join(f'{t:.4f}' for t in ts)} ms" for label, ts in times.items())
+        print(f"[ab] {name}: {turns}; outputs bit-equal  ({gpu})", flush=True)
+    print("[ab-json] " + json.dumps({"gpu": gpu, "ms": results}), flush=True)
+
+
 def ab_turns(ops, gpu, variants, cases):
-    """Each case's callable, made from every build's (packed, candidates),
-    timed in turns: the others, this, this, the others in reverse (p50 of
-    20 launches each). The fused search and topk_int8 reach the build's
-    kernels through the module's names, swapped for the call. Outputs must
-    be bit-equal to this tree's. Prints one line per case and one JSON line
-    of every time."""
+    """:func:`time_turns` over int8 builds: each case's callable is made from
+    a build's (packed, candidates); the fused search and topk_int8 reach the
+    build's kernels through the module's names, swapped for the call."""
     def route(packed, candidates, make):
         fn = make(packed, candidates)
 
@@ -504,21 +640,8 @@ def ab_turns(ops, gpu, variants, cases):
                 ops.int8_candidates_packed, ops.int8_candidates = saved
         return run
 
-    this, others = variants[0], variants[1:]
-    results = {}
-    for name, make in cases:
-        runs = {label: route(p, c, make) for label, p, c in variants}
-        want = runs["this"]()
-        for label, _, _ in others:
-            check(same_output(runs[label](), want), f"[ab] {name}: {label} differs from this tree")
-        order = [label for label, _, _ in others]
-        times = {}
-        for label in order + ["this", "this"] + order[::-1]:
-            times.setdefault(label, []).append(p50_ms(runs[label], 20))
-        results[name] = times
-        turns = ", ".join(f"{label} {' / '.join(f'{t:.4f}' for t in ts)} ms" for label, ts in times.items())
-        print(f"[ab] {name}: {turns}; outputs bit-equal  ({gpu})", flush=True)
-    print("[ab-json] " + json.dumps({"gpu": gpu, "ms": results}), flush=True)
+    time_turns(gpu, [(name, {label: route(*fns, make) for label, fns in variants})
+                     for name, make in cases])
 
 
 def phase_ab(ops, gpu, variants, m, scales, queries, rows):
@@ -631,9 +754,10 @@ def phase_patch_embed(pops, gpu):
                  2 * rows * 588 * DIM, "bf16", "normalise to bf16 + F.linear", both)
 
 
-def phase_binary_kernels(hops, gpu):
+def phase_binary_kernels(hops, gpu, variants):
     """Phase 3, the binary kernels on 10M packed rows of random bits (dense
-    ties): returns {kernel name: (max_abs_err, ms, plain_ms)}."""
+    ties): returns {kernel name: its record}; kernel 7 has two, at Q = 4,
+    k = 640 (a cascade batch at its default depth) and at Q = 16, k = 20."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -642,10 +766,12 @@ def phase_binary_kernels(hops, gpu):
                              dtype=torch.int64).to(torch.int32)
 
     words, n_valid = hops.pad_words(random_words(N_BINARY))
-    queries = random_words(16)
+    queries = random_words(64)
     torch.cuda.synchronize()
+    n_pad = words.shape[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"[kernels] {N_BINARY:,} x {WORDS} packed words resident: "
-          f"{words.numel() * 4 / 1e9:.2f} GB (n_pad {words.shape[0]:,})", flush=True)
+          f"{words.numel() * 4 / 1e9:.2f} GB (n_pad {n_pad:,})", flush=True)
     record = {}
     q1 = queries[:1]
     got = hops.binary_scores(q1, words, n_valid)
@@ -656,40 +782,58 @@ def phase_binary_kernels(hops, gpu):
     plain = p50_ms(lambda: hops._binary_scores_plain(q1, words, n_valid), 3)
     print(f"[kernels] binary_scores Q=1: bit-equal, p50 {ms:.4f} ms vs plain {plain:.4f} ms  ({gpu})",
           flush=True)
-    n_pad = words.shape[0]
     record["binary_scores"] = entry(err, ms, plain, n_valid * WORDS * 4 + WORDS * 4 + n_pad * 4,
                                     n_valid * WORDS, "popc")
     m = 2 * 640  # the cascade's single-query shortlist at k = 20 (depth 640)
     ms = p50_ms(lambda: hops.binary_shortlist_q1(q1, words, m, n_valid), 10)
     print(f"[kernels] binary_shortlist_q1 m={m}: p50 {ms:.4f} ms (kernel 5 + exact top-m over "
-          f"{words.shape[0]:,} keys)  ({gpu})", flush=True)
-    for name, q_counts, ks, keep in (
-        ("binary_topk_q1", (1,), (K, 640, 4096), (1, K)),
-        ("binary_topk_batched", (4, 16), (K, 640), (4, 640)),
-    ):
+          f"{n_pad:,} keys)  ({gpu})", flush=True)
+    # (wrapper, Q, k values, {(Q, k): record name}) of every case.
+    cases = (
+        ("binary_topk_q1", 1, (K, 640, 4096), {(1, K): "binary_topk_q1"}),
+        ("binary_topk_batched", 4, (K, 640), {(4, 640): "binary_topk_batched"}),
+        ("binary_topk_batched", 16, (K, 640), {(16, K): "binary_topk_batched_q16"}),
+        ("binary_topk_batched", 64, (K,), {}),
+    )
+    for name, q_count, ks, keep in cases:
         kernel = getattr(hops, name)
-        for q_count in q_counts:
-            q = queries[:q_count]
-            for k in ks:
-                m, r = kernel(q, words, k, n_valid)
-                m_p, r_p = hops._binary_topk_plain(q, words, k, n_valid)
-                check(torch.equal(m, m_p) and torch.equal(r, r_p),
-                      f"{name} Q={q_count} k={k}: matches or rows differ from the plain version")
-                err = (m.long() - m_p.long()).abs().max().item()
-                ms = p50_ms(lambda: kernel(q, words, k, n_valid), 10)
-                plain = p50_ms(lambda: hops._binary_topk_plain(q, words, k, n_valid), 3)
-                ties = int((m[:, :-1] == m[:, 1:]).sum())
-                print(f"[kernels] {name} Q={q_count} k={k}: matches and rows identical "
-                      f"({ties} tied neighbours), p50 {ms:.4f} ms vs plain {plain:.4f} ms  ({gpu})",
-                      flush=True)
-                if (q_count, k) == keep:
-                    # Nearest PyTorch route: per-query popcount scores (kernel
-                    # 5), then torch.topk (ties in no defined order).
-                    nearest = p50_ms(lambda: [torch.topk(hops.binary_scores(q[j:j + 1], words, n_valid), k)
-                                              for j in range(q_count)], 10)
-                    record[name] = entry(
-                        err, ms, plain, n_valid * WORDS * 4 + q_count * WORDS * 4 + q_count * k * 12,
-                        q_count * n_valid * WORDS, "popc", "binary_scores + torch.topk per query", nearest)
+        q = queries[:q_count]
+        for k in ks:
+            m, r = kernel(q, words, k, n_valid)
+            m_p, r_p = hops._binary_topk_plain(q, words, k, n_valid)
+            check(torch.equal(m, m_p) and torch.equal(r, r_p),
+                  f"{name} Q={q_count} k={k}: matches or rows differ from the plain version")
+            err = (m.long() - m_p.long()).abs().max().item()
+            del m_p, r_p
+            ms = p50_ms(lambda: kernel(q, words, k, n_valid), 10)
+            plain = p50_ms(lambda: hops._binary_topk_plain(q, words, k, n_valid), 3)
+            ties = int((m[:, :-1] == m[:, 1:]).sum())
+            _, group, scratch = hops._binary_plan(q_count, n_pad, WORDS, sms)
+            # Pass 1 runs on the binary tensor cores: an AND and an add per
+            # (query, row, bit).
+            bound = entry(err, ms, plain, n_valid * WORDS * 4 + q_count * WORDS * 4 + q_count * k * 12,
+                          2 * q_count * n_valid * DIM, "b1")
+            print(f"[kernels] {name} Q={q_count} k={k}: matches and rows identical "
+                  f"({ties} tied neighbours), p50 {ms:.4f} ms (bound {bound['bound_ms']:.4f} ms, "
+                  f"{bound['bound_by']}) vs plain {plain:.4f} ms; scratch {scratch:,} bytes in "
+                  f"{-(-q_count // group)} call(s)  ({gpu})", flush=True)
+            if (q_count, k) in keep:
+                # Nearest PyTorch route: per-query popcount scores (kernel
+                # 5), then torch.topk (ties in no defined order).
+                nearest = p50_ms(lambda: [torch.topk(hops.binary_scores(q[j:j + 1], words, n_valid), k)
+                                          for j in range(q_count)], 10)
+                print(f"[kernels] {name} Q={q_count} k={k}: kernel 5 + torch.topk per query "
+                      f"{nearest:.4f} ms  ({gpu})", flush=True)
+                record[keep[(q_count, k)]] = {
+                    **bound, "nearest_route": "binary_scores + torch.topk per query",
+                    "nearest_ms": nearest}
+    if variants:
+        q4, q16 = queries[:4], queries[:16]
+        runs = [(f"kernel 6 Q=1 k={k}", lambda q1f, bf, k=k: lambda: q1f(q1, words, k, n_valid))
+                for k in (K, 640, 4096)]
+        runs += [(f"kernel 7 Q={len(q)} k={k}", lambda q1f, bf, q=q, k=k: lambda: bf(q, words, k, n_valid))
+                 for q, k in ((q4, 640), (q16, K), (queries, K))]
+        time_turns(gpu, [(name, {label: make(*fns) for label, fns in variants}) for name, make in runs])
     return record
 
 
@@ -1116,7 +1260,8 @@ def phase_patch_embed_library(pops, gpu, work, engine):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ab", action="append", default=[], metavar="LABEL:PATH",
-                        help="another int8_scan.cu to time kernels 2 and 3 against, in turns")
+                        help="another int8_scan.cu (kernels 2 and 3) or binary_scan.cu (kernels 6 "
+                             "and 7) to time against this tree's, in turns")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
@@ -1138,18 +1283,21 @@ def main():
     print(f"[env] nvidia-smi: {gpu}", flush=True)
 
     t0 = time.perf_counter()
+    b1_build = start_b1_rate_build()
     _build.build(force=True)
     print(f"[build] {', '.join(s.name for s in _build.SOURCES)} -> build/tpuclip_torch/ in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in parallel: "
           f"{_build.last_build_seconds:.2f} s)", flush=True)
     _build.library()
-    variants = build_variants(args.ab) if args.ab else None
+    measure_b1_rate(b1_build, gpu)
+    variants = build_variants(args.ab, hops) if args.ab else {}
 
-    record = phase_kernels(mods, gpu, variants)
+    record = phase_kernels(mods, gpu, variants.get("int8_scan.cu"))
     torch.cuda.empty_cache()
-    phase_int8_4m(ops, gpu, variants)
+    phase_int8_4m(ops, gpu, variants.get("int8_scan.cu"))
     torch.cuda.empty_cache()
-    record.update(phase_binary_kernels(hops, gpu))
+    record.update(phase_binary_kernels(hops, gpu, variants.get("binary_scan.cu")))
+    torch.cuda.empty_cache()
     record["patch_embed_fused"] = phase_patch_embed(pops, gpu)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1166,8 +1314,10 @@ def main():
         "binary_scores": ("tpuclip_torch/csrc/binary_scan.cu", "tpuclip/ops/hamming.py:354"),
         "binary_topk_q1": ("tpuclip_torch/csrc/binary_scan.cu", "tpuclip/ops/hamming.py:259"),
         "binary_topk_batched": ("tpuclip_torch/csrc/binary_scan.cu", "tpuclip/ops/hamming.py:132"),
+        "binary_topk_batched_q16": ("tpuclip_torch/csrc/binary_scan.cu", "tpuclip/ops/hamming.py:132"),
         "patch_embed_fused": ("tpuclip_torch/csrc/patch_embed.cu", "tpuclip/ops/patch_embed.py:24"),
     }
+    launches["binary_topk_batched_q16"] = launches["binary_topk_batched"]  # one kernel, two cases
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], **record[name]}

@@ -17,12 +17,14 @@ Three kernels sit behind this module, in ``tpuclip_torch/csrc/binary_scan.cu``:
   ``_binary_topk_kernel``).
 
 :func:`binary_topk` sends one query to kernel 6 and a batch to kernel 7.
-On the card kernels 6 and 7 serve every k up to N. Each wrapper dispatches
-on its tensors' device: CPU tensors go to the plain PyTorch version beside
-it (same signature, same results); CUDA tensors go to the kernel, which runs
-or raises, and count in the wrapper's ``launches``. Words are (N, W) int32
-or uint32 tensors, row-major (the TPU's (W, 8, N/8) sublane grouping is not
-carried over); rows at or past ``n_valid`` are padding.
+On the card kernels 6 and 7 serve every k up to N, with a transient
+scratch of about 2 bytes per (query, row) (``SCRATCH_MAX_BYTES``, below).
+Each wrapper dispatches on its tensors' device: CPU tensors go to the plain
+PyTorch version beside it (same signature, same results); CUDA tensors go
+to the kernel, which runs or raises, and count in the wrapper's
+``launches``. Words are (N, W) int32 or uint32 tensors, row-major (the
+TPU's (W, 8, N/8) sublane grouping is not carried over); rows at or past
+``n_valid`` are padding.
 
 The numpy helpers at the end are copies of tpuclip's (that module imports
 jax); ``tests/test_torch_imports.py`` pins them to the originals.
@@ -45,6 +47,12 @@ _INT32_MIN = -(2**31)
 _NEG_INF = float("-inf")
 _CHUNK_BYTES = 1 << 24  # bounds the transient memory of the plain popcounts
 _BLOCKS_PER_SM = 4  # row chunks of kernels 6 and 7 per SM
+# The kernels count a chunk's rows in 16-bit counters: at most 255 sub-tiles.
+_MAX_CHUNK_ROWS = 255 * BINARY_TILE_N
+# Scratch of one call of kernels 6 / 7 (the (Q, N_pad) uint16 bins and the
+# histograms: 22.5 MB a query at 10M rows). A batch whose scratch would pass
+# it is taken in groups of queries, one kernel call each.
+SCRATCH_MAX_BYTES = 2 << 30
 
 
 def pad_words(words: torch.Tensor, tile_n: int = BINARY_TILE_N) -> Tuple[torch.Tensor, int]:
@@ -181,6 +189,32 @@ def _binary_topk_plain(qwords, words, k, n_valid):
     return _merge_int_candidates(scores, rows, min(k, scores.shape[1]))
 
 
+def _scratch_bytes(q_count: int, n: int, w: int, n_chunks: int) -> int:
+    """Bytes of the scratch of kernels 6 / 7 for ``q_count`` queries
+    (``binary_scan.cu``'s header): int32 histograms (per chunk, totals, the
+    threshold), then the uint16 bins at a 16-byte boundary."""
+    bins = 32 * w + 2
+    ints = q_count * (bins * (n_chunks + 1) + bins + 4)
+    return -(-ints * 4 // 16) * 16 + q_count * (-(-n // 8) * 8) * 2
+
+
+def _binary_plan(q_count: int, n: int, w: int, sms: int) -> Tuple[int, int, int]:
+    """(chunk_rows, queries per kernel call, scratch bytes of one call) for
+    kernels 6 / 7 over ``n`` rows of ``w`` words on ``sms`` SMs: about
+    ``_BLOCKS_PER_SM`` chunks of whole sub-tiles per SM, at most
+    ``_MAX_CHUNK_ROWS`` rows each; every query in one call while their
+    scratch fits ``SCRATCH_MAX_BYTES``, else as many as fit (a multiple of
+    16, pass 1's group, when 16 or more do), and at least one."""
+    sub_tiles = -(-n // BINARY_TILE_N)
+    chunk_rows = min(_MAX_CHUNK_ROWS, -(-sub_tiles // (_BLOCKS_PER_SM * sms)) * BINARY_TILE_N)
+    n_chunks = -(-n // chunk_rows)
+    group = q_count
+    if _scratch_bytes(q_count, n, w, n_chunks) > SCRATCH_MAX_BYTES:
+        group = SCRATCH_MAX_BYTES // _scratch_bytes(1, n, w, n_chunks)
+        group = max(1, group - group % 16 if group >= 16 else group)
+    return chunk_rows, group, _scratch_bytes(group, n, w, n_chunks)
+
+
 def _binary_topk_cuda(entry: str, qwords, words, k, n_valid):
     from tpuclip_torch.ops._build import library
 
@@ -194,26 +228,29 @@ def _binary_topk_cuda(entry: str, qwords, words, k, n_valid):
     if q_count == 0 or k_eff == 0:
         return out_m, out_r
     sms = torch.cuda.get_device_properties(w.device).multi_processor_count
-    sub_tiles = -(-n // BINARY_TILE_N)
-    chunk_rows = -(-sub_tiles // (_BLOCKS_PER_SM * sms)) * BINARY_TILE_N
-    n_chunks = -(-n // chunk_rows)
-    hist = torch.empty((q_count, n_chunks + 1, 32 * w_words + 2), dtype=torch.int32, device=w.device)
-    args = [q.data_ptr(), w.data_ptr(), hist.data_ptr(), out_m.data_ptr(), out_r.data_ptr()]
-    if entry == "tpuclip_binary_topk":
-        args.append(q_count)
+    chunk_rows, group, n_bytes = _binary_plan(q_count, n, w_words, sms)
+    scratch = torch.empty(n_bytes, dtype=torch.uint8, device=w.device)
+    fn = getattr(library(), entry)
     with torch.cuda.device(w.device):
-        rc = getattr(library(), entry)(
-            *args, n, w_words, n_valid, k_eff, chunk_rows, torch.cuda.current_stream().cuda_stream
-        )
-    if rc != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: cudaError {rc}")
+        stream = torch.cuda.current_stream().cuda_stream
+        for g0 in range(0, q_count, group):
+            g = min(group, q_count - g0)
+            args = [q[g0].data_ptr(), w.data_ptr(), scratch.data_ptr(), out_m[g0].data_ptr(),
+                    out_r[g0].data_ptr()]
+            if entry == "tpuclip_binary_topk":
+                args.append(g)
+            rc = fn(*args, n, w_words, n_valid, k_eff, chunk_rows, stream)
+            if rc != 0:
+                raise RuntimeError(f"{entry} kernel launch failed: cudaError {rc}")
     return out_m, out_r
 
 
 def binary_topk_q1(
     qwords: torch.Tensor, words: torch.Tensor, k: int, n_valid: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel 6: :func:`binary_topk` for one (1, W) query."""
+    """Kernel 6: :func:`binary_topk` for one (1, W) query. On the card: one
+    read of the words scores every row on the binary tensor cores, keeping
+    its uint16 score bin and a histogram; a collect reads the bins back."""
     n_valid = words.shape[0] if n_valid is None else int(n_valid)
     _check_binary_args(qwords, words, n_valid)
     if qwords.shape[0] != 1:
@@ -233,7 +270,9 @@ binary_topk_q1.launches = 0
 def binary_topk_batched(
     qwords: torch.Tensor, words: torch.Tensor, k: int, n_valid: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel 7: :func:`binary_topk` for (Q, W) queries."""
+    """Kernel 7: :func:`binary_topk` for (Q, W) queries. On the card: as
+    kernel 6, one read of the words per 16 queries, in groups of queries when
+    the (Q, N_pad) uint16 scratch would pass ``SCRATCH_MAX_BYTES``."""
     n_valid = words.shape[0] if n_valid is None else int(n_valid)
     _check_binary_args(qwords, words, n_valid)
     if qwords.device.type == "cpu":
