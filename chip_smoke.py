@@ -2,12 +2,17 @@
 
     python3 chip_smoke.py [--ab LABEL:PATH] ...
 
-With ``--ab``, phase 3 also builds each other ``int8_scan.cu`` or
-``binary_scan.cu`` given (say, an older tree's; the file name says which)
-into its own library and times its kernels against this tree's in turns
-(theirs, this, this, theirs) on the same inputs, bit-equal: kernels 2 and
-3, with the fused int8 search and ``topk_int8`` routed through each, or
-kernels 6 and 7 at the 10M-row cases below.
+With ``--ab``, phase 3 also builds each other ``int8_scan.cu``,
+``binary_scan.cu``, ``topk_bf16.cu`` or ``patch_embed.cu`` given (say, an
+older tree's; the file name says which) into its own library and times its
+kernels against this tree's in turns (theirs, this, this, theirs) on the
+same inputs: kernels 2 and 3 bit-equal, with the fused int8 search and
+``topk_int8`` routed through each; kernels 6 and 7 bit-equal at the
+10M-row cases below; kernel 4's per-tile candidates (scores within 1e-5)
+at Q = 1, 16, 64 on the 1M bf16 rows; kernel 8's bf16 out (within one bf16
+step) at R = 16,384. An older ``patch_embed.cu`` is called with its own
+C signature (K-major zero-padded weights and an f32 bias, made outside the
+timed launch).
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -26,7 +31,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    within 1e-5 of the plain k-th score, ordered (score desc, row asc), and
    at k = 128 with one selection lane's slots all among the top rows; the
    bf16 route above k = 128 (topk_plain, a chunked fp32 matmul) at k = 200
-   within 1e-5 of the float64 reference, timed; then 10,000,000 packed
+   within 1e-5 of the float64 reference, timed (kernel 4 also as its own
+   launch, without the merge); then 10,000,000 packed
    binary rows x 36 words (a seeded torch.Generator on the card):
    binary_scores bit-equal, binary_topk_q1 at k = 20, 640, 4096 and
    binary_topk_batched at Q = 4, 16, k = 20, 640 and Q = 64, k = 20
@@ -44,8 +50,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    quantize_matrix on 65,536 fp32 rows bit-equal to numpy; and
    patch_embed_fused (kernel 8) on 64 seeded 224 x 224 uint8 images (R =
    16,384 patch rows x 588 -> 1152, seeded bf16 weights) within 1e-5 of the
-   plain version in f32 out and one bf16 step in bf16 out, timed beside the
-   tower's own cuBLAS patch GEMM;
+   plain version in f32 out and one bf16 step in bf16 out, timed (the
+   wrapper and the kernel's own launch) beside the tower's own cuBLAS patch
+   GEMM;
 4. end to end through the entry points: 512 seeded JPEGs, ``scan`` and
    ``search "a red car" -k 20 --no-session`` through tpuclip_torch.cli, and
    ``ImageDatabase.search_texts`` on 4 texts, with SigLIP2 SO400M-patch14-224
@@ -89,7 +96,8 @@ per SM per clock at 1.98 GHz, kernels 6 and 7's b1 AND + add at the rate
 phase 2 measures), at the recorded case's shapes; ``library_ms`` is null
 (no single PyTorch call computes any of these functions) and
 ``nearest_ms`` times the nearest route of PyTorch calls, where there is
-one.
+one. Kernels 4 and 8 also carry ``kernel_ms``, the kernel's own launch
+(``ms`` is the wrapper's).
 """
 
 import argparse
@@ -340,11 +348,13 @@ def phase_kernels(mods, gpu, variants):
         ms = p50_ms(fused, 20)
         print(f"[kernels] fused int8 search Q={q_count} k={K}: ids identical to the plain route, "
               f"max score diff {err:.2e}, p50 {ms:.4f} ms  ({gpu})", flush=True)
-    if variants:
-        phase_ab(ops, gpu, variants, m, scales, queries, rows)
+    if variants.get("int8_scan.cu"):
+        phase_ab(ops, gpu, variants["int8_scan.cu"], m, scales, queries, rows)
 
     # Kernel 4 on the same bf16 rows: scores accumulate in fp32 in another
-    # order than the plain float64 sum, so near-tie rows may swap.
+    # order than the plain float64 sum, so near-tie rows may swap. Beside
+    # the wrapper (kernel + merge), the kernel's own launch.
+    own = thin_topk_tiles(_build_library())
     for q_count in (1, 16):
         q = queries[:q_count]
         for k in (K, 128):
@@ -358,6 +368,7 @@ def phase_kernels(mods, gpu, variants):
             check(ordered(s, i), f"topk_tiles Q={q_count} k={k}: not ordered (score desc, row asc)")
             diff = (i != i_p).nonzero().tolist()
             ms = p50_ms(lambda: tops.topk_tiles(q, rows, k, N_ROWS), 20)
+            kernel_ms = p50_ms(own(q, rows, k, N_ROWS), 20)
             plain = p50_ms(lambda: tops._topk_tiles_plain(q, rows, k, N_ROWS), 3)
             # Nearest PyTorch route: one bf16 GEMM (bf16 scores), then torch.topk.
             nearest = p50_ms(lambda: torch.topk(q.to(torch.bfloat16) @ rows.T, k, dim=1), 10)
@@ -365,12 +376,19 @@ def phase_kernels(mods, gpu, variants):
                 f"{len(diff)} id positions differ (near ties), first {[(p, int(i[p[0], p[1]]), int(i_p[p[0], p[1]])) for p in diff[:5]]}"
             )
             print(f"[kernels] topk_tiles Q={q_count} k={k}: {ids}, max score diff {err:.2e}, "
-                  f"p50 {ms:.4f} ms vs plain {plain:.4f} ms; bf16 matmul + torch.topk "
-                  f"{nearest:.4f} ms  ({gpu})", flush=True)
+                  f"p50 {ms:.4f} ms (the kernel's own launch {kernel_ms:.4f} ms) vs plain {plain:.4f} ms; "
+                  f"bf16 matmul + torch.topk {nearest:.4f} ms  ({gpu})", flush=True)
             if q_count == 1 and k == K:  # the single-query bf16 search
                 record["topk_tiles"] = entry(
                     err, ms, plain, N_ROWS * DIM * 2 + q_count * DIM * 4 + q_count * k * 12,
                     2 * q_count * N_ROWS * DIM, "bf16", "bf16 torch.matmul + torch.topk", nearest)
+                record["topk_tiles"]["kernel_ms"] = kernel_ms
+    if variants.get("topk_bf16.cu"):
+        cases = [(f"kernel 4 Q={q_count} k={k}", q_count, k)
+                 for q_count, k in ((1, K), (1, 128), (16, K), (16, 128), (64, K))]
+        time_turns(gpu, [(name, {label: prepare(queries[:q_count], rows, k, N_ROWS)
+                                 for label, prepare in variants["topk_bf16.cu"]})
+                         for name, q_count, k in cases], close_scores)
 
     # k = 128 with the top 128 rows at local positions 0 and 1 mod 32 of
     # one tile, the best 64 at 0: the selection warp's lane 0 runs out of
@@ -498,6 +516,12 @@ def stream():
     return torch.cuda.current_stream().cuda_stream
 
 
+def _build_library():
+    from tpuclip_torch.ops import _build
+
+    return _build.library()
+
+
 def thin_wrappers(lib):
     """Kernels 2 and 3 of one built library as (packed, candidates), with
     the wrappers' signatures and output layout but none of their checks, so
@@ -552,16 +576,80 @@ def thin_binary_wrappers(lib, hops):
             lambda q, words, k, n_valid: call("tpuclip_binary_topk", q, words, k, n_valid))
 
 
-# Entry points of each source that --ab can take, and their thin wrappers.
+def thin_topk_tiles(lib):
+    """Kernel 4 of one built library: ``prepare(q, rows, k, n_valid)``
+    allocates the (Q, tiles * k) candidates once and returns the launch
+    alone, which returns them (both builds share the C signature)."""
+    def prepare(q, rows, k, n_valid):
+        q = q.to(torch.bfloat16).contiguous()
+        tiles = -(-rows.shape[0] // 2048)
+        out_s = torch.empty((q.shape[0], tiles * k), dtype=torch.float32, device=q.device)
+        out_i = torch.empty((q.shape[0], tiles * k), dtype=torch.int32, device=q.device)
+
+        def run():
+            rc = lib.tpuclip_topk_tiles(q.data_ptr(), rows.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+                                        q.shape[0], rows.shape[0], q.shape[1], int(n_valid), 2048, k, stream())
+            check(rc == 0, f"topk_tiles launch failed: cudaError {rc}")
+            return out_s, out_i
+        return run
+    return prepare
+
+
+def thin_patch_embed(lib, current):
+    """Kernel 8 of one built library: ``prepare(x, w, b)`` allocates the
+    bf16 out once and returns the launch alone. A build with this tree's C
+    signature (``current``) reads the (K, D) weights and the bias as given;
+    an older one (x, wt, bias, out, rows, k, k_pad, d, out_f32) gets its
+    K-major zero-padded weight copy and f32 bias made here, outside the
+    timed launch."""
+    def prepare(x, w, b):
+        rows, k = x.shape
+        d = w.shape[1]
+        out = torch.empty((rows, d), dtype=torch.bfloat16, device=x.device)
+        if current:
+            args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), rows, k, d, 0,
+                    int(b.dtype == torch.bfloat16))
+            keep = ()
+        else:
+            k_pad = -(-k // 64) * 64
+            wt = torch.zeros((d, k_pad), dtype=torch.bfloat16, device=x.device)
+            wt[:, :k] = w.t()
+            b32 = b.float().contiguous()
+            args = (x.data_ptr(), wt.data_ptr(), b32.data_ptr(), out.data_ptr(), rows, k, k_pad, d, 0)
+            keep = (wt, b32)
+
+        def run():
+            rc = lib.tpuclip_patch_embed(*args, stream())
+            check(rc == 0, f"patch_embed launch failed: cudaError {rc}")
+            return out
+        run.tensors = (out, *keep)  # alive as long as the launch
+        return run
+    return prepare
+
+
+# Entry points of each source that --ab can take, and their thin wrappers
+# (made from a library, the hamming module and whether the library takes
+# this tree's C signatures).
 AB_SOURCES = {
     "int8_scan.cu": (("tpuclip_int8_candidates_packed", "tpuclip_int8_candidates"),
-                     lambda lib, hops: thin_wrappers(lib)),
-    "binary_scan.cu": (("tpuclip_binary_topk_q1", "tpuclip_binary_topk"), thin_binary_wrappers),
+                     lambda lib, hops, current: thin_wrappers(lib)),
+    "binary_scan.cu": (("tpuclip_binary_topk_q1", "tpuclip_binary_topk"),
+                       lambda lib, hops, current: thin_binary_wrappers(lib, hops)),
+    "topk_bf16.cu": (("tpuclip_topk_tiles",), lambda lib, hops, current: thin_topk_tiles(lib)),
+    "patch_embed.cu": (("tpuclip_patch_embed",), lambda lib, hops, current: thin_patch_embed(lib, current)),
 }
 
 
+def entry_points(path):
+    """The C signatures a kernel source exports, as text: equal for two
+    builds that take the same arguments."""
+    import re
+
+    return re.findall(r"^int (tpuclip_\w+\([^)]*\))", Path(path).read_text(), flags=re.M)
+
+
 def build_variants(specs, hops):
-    """Each ``LABEL:PATH`` built into build/ab/libLABEL.so (one nvcc each,
+    """Each ``LABEL:PATH`` built into build/ab/libLABEL_STEM.so (one nvcc each,
     all together); the file name says which kernels it holds
     (``AB_SOURCES``). Returns {file name: [(label, thin wrappers)]}, this
     tree's own library first as "this"."""
@@ -574,7 +662,7 @@ def build_variants(specs, hops):
         label, path = spec.split(":", 1)
         source = Path(path).name
         check(source in AB_SOURCES, f"--ab {spec}: not one of {sorted(AB_SOURCES)}")
-        lib = out_dir / f"lib{label}.so"
+        lib = out_dir / f"lib{label}_{Path(path).stem}.so"  # one label may name several sources
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), path]
         jobs.append((spec, label, source, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                                 stderr=subprocess.PIPE, text=True)))
@@ -590,8 +678,9 @@ def build_variants(specs, hops):
             fn.argtypes = _build.SIGNATURES[name]
             fn.restype = ctypes.c_int
         if source not in variants:
-            variants[source] = [("this", wrap(this, hops))]
-        variants[source].append((label, wrap(handle, hops)))
+            variants[source] = [("this", wrap(this, hops, True))]
+        current = entry_points(spec.split(":", 1)[1]) == entry_points(_build.SOURCES[0].parent / source)
+        variants[source].append((label, wrap(handle, hops, current)))
         print(f"[ab] built {label} from {spec}", flush=True)
     return variants
 
@@ -602,25 +691,55 @@ def same_output(a, b):
     return torch.equal(a, b)
 
 
-def time_turns(gpu, cases):
+def bit_equal(a, b):
+    """The A/B comparison of the exact kernels: bit-equal or fail."""
+    return same_output(a, b), "bit-equal"
+
+
+def close_scores(a, b):
+    """The A/B comparison of kernel 4, whose fp32 sums may differ in the
+    last bits between builds: bit-equal, or the candidates' scores within
+    1e-5, with the max difference told."""
+    if same_output(a, b):
+        return True, "bit-equal"
+    err = (a[0] - b[0]).nan_to_num(0.0).abs().max().item()  # -inf padding on both sides
+    return err <= 1e-5, f"max score diff {err:.2e}"
+
+
+def within_bf16_step(a, b):
+    """The A/B comparison of kernel 8's bf16 out: bit-equal, or each value
+    within one bf16 step of the other build's, with the max difference
+    told."""
+    if torch.equal(a, b):
+        return True, "bit-equal"
+    x, y = a.float(), b.float()
+    _, exp = torch.frexp(y)
+    err = (x - y).abs()
+    return bool((err <= torch.ldexp(torch.ones_like(y), exp - 8)).all()), f"max diff {err.max().item():.2e}"
+
+
+def time_turns(gpu, cases, compare=bit_equal):
     """Each case is (name, {label: callable}), "this" among the labels: every
-    other build's output must be bit-equal to this tree's; then each is
-    timed in turns: the others, this, this, the others in reverse (p50 of 20
-    launches each). Prints one line per case and one JSON line of every
-    time."""
+    other build's output must pass ``compare`` against this tree's; then
+    each is timed in turns: the others, this, this, the others in reverse
+    (p50 of 20 launches each). Prints one line per case and one JSON line of
+    every time."""
     results = {}
     for name, runs in cases:
         want = runs["this"]()
         order = [label for label in runs if label != "this"]
+        notes = []
         for label in order:
-            check(same_output(runs[label](), want), f"[ab] {name}: {label} differs from this tree")
+            ok, note = compare(runs[label](), want)
+            check(ok, f"[ab] {name}: {label} differs from this tree ({note})")
+            notes.append(f"{label} {note}")
         del want
         times = {}
         for label in order + ["this", "this"] + order[::-1]:
             times.setdefault(label, []).append(p50_ms(runs[label], 20))
         results[name] = times
         turns = ", ".join(f"{label} {' / '.join(f'{t:.4f}' for t in ts)} ms" for label, ts in times.items())
-        print(f"[ab] {name}: {turns}; outputs bit-equal  ({gpu})", flush=True)
+        print(f"[ab] {name}: {turns}; outputs: {', '.join(notes)}  ({gpu})", flush=True)
     print("[ab-json] " + json.dumps({"gpu": gpu, "ms": results}), flush=True)
 
 
@@ -704,9 +823,10 @@ def phase_int8_4m(ops, gpu, variants):
     del m, scales
 
 
-def phase_patch_embed(pops, gpu):
-    """Phase 3, kernel 8 at SO400M's patch shape: returns (max_abs_err, ms,
-    plain_ms) in bf16 out, the library function's default."""
+def phase_patch_embed(pops, gpu, variants):
+    """Phase 3, kernel 8 at SO400M's patch shape: returns its record in bf16
+    out, the library function's default; with ``--ab``, every build of
+    patch_embed.cu in turns."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
     pix = torch.from_numpy(rng.integers(0, 256, (64, 224, 224, 3), dtype=np.uint8)).to(dev)
@@ -736,6 +856,7 @@ def phase_patch_embed(pops, gpu):
     err = err.max().item()
     rows = x.shape[0]
     ms = p50_ms(lambda: pops.patch_embed_fused(x, w, b), 20)
+    kernel_ms = p50_ms(thin_patch_embed(_build_library(), True)(x, w, b), 20)
     plain = p50_ms(lambda: pops._patch_embed_plain(x, w, b), 3)
     # The tower's own route: normalise to bf16, then cuBLAS's bf16 GEMM.
     from tpuclip_torch.models.siglip import normalize_pixels
@@ -748,10 +869,15 @@ def phase_patch_embed(pops, gpu):
     gflop = 2 * x.shape[0] * 588 * DIM / 1e9
     print(f"[kernels] patch_embed_fused R={x.shape[0]:,} x 588 -> {DIM}: f32 out max diff {err32:.2e}, "
           f"bf16 out within one bf16 step (max diff {err:.2e}); p50 {ms:.4f} ms ({gflop / ms:.1f} "
-          f"TFLOP/s) vs plain {plain:.4f} ms; the tower's cuBLAS F.linear on normalised bf16 rows "
+          f"TFLOP/s; the kernel's own launch {kernel_ms:.4f} ms, {gflop / kernel_ms:.1f} TFLOP/s) vs plain "
+          f"{plain:.4f} ms; the tower's cuBLAS F.linear on normalised bf16 rows "
           f"{gemm:.4f} ms, with the normalisation {both:.4f} ms  ({gpu})", flush=True)
-    return entry(err, ms, plain, rows * 588 + 588 * DIM * 2 + DIM * 2 + rows * DIM * 2,
-                 2 * rows * 588 * DIM, "bf16", "normalise to bf16 + F.linear", both)
+    if variants:
+        time_turns(gpu, [(f"kernel 8 R={rows:,} bf16 out", {label: prepare(x, w, b) for label, prepare in variants})],
+                   within_bf16_step)
+    return {**entry(err, ms, plain, rows * 588 + 588 * DIM * 2 + DIM * 2 + rows * DIM * 2,
+                    2 * rows * 588 * DIM, "bf16", "normalise to bf16 + F.linear", both),
+            "kernel_ms": kernel_ms}
 
 
 def phase_binary_kernels(hops, gpu, variants):
@@ -1260,8 +1386,9 @@ def phase_patch_embed_library(pops, gpu, work, engine):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ab", action="append", default=[], metavar="LABEL:PATH",
-                        help="another int8_scan.cu (kernels 2 and 3) or binary_scan.cu (kernels 6 "
-                             "and 7) to time against this tree's, in turns")
+                        help="another int8_scan.cu (kernels 2 and 3), binary_scan.cu (kernels 6 "
+                             "and 7), topk_bf16.cu (kernel 4) or patch_embed.cu (kernel 8) to time "
+                             "against this tree's, in turns")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
@@ -1292,13 +1419,13 @@ def main():
     measure_b1_rate(b1_build, gpu)
     variants = build_variants(args.ab, hops) if args.ab else {}
 
-    record = phase_kernels(mods, gpu, variants.get("int8_scan.cu"))
+    record = phase_kernels(mods, gpu, variants)
     torch.cuda.empty_cache()
     phase_int8_4m(ops, gpu, variants.get("int8_scan.cu"))
     torch.cuda.empty_cache()
     record.update(phase_binary_kernels(hops, gpu, variants.get("binary_scan.cu")))
     torch.cuda.empty_cache()
-    record["patch_embed_fused"] = phase_patch_embed(pops, gpu)
+    record["patch_embed_fused"] = phase_patch_embed(pops, gpu, variants.get("patch_embed.cu"))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches, db, cache, engine = phase_end_to_end(mods, gpu, Path(tmp))

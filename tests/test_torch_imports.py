@@ -216,8 +216,8 @@ def test_resolve_device():
 def test_random_init_is_seeded_and_scaled():
     from tpuclip_torch.models.loader import load_model
 
-    cfg, a = load_model("tpuclip/test-tiny", None, allow_random=True, seed=4)
-    _, b = load_model("tpuclip/test-tiny", None, allow_random=True, seed=4)
+    cfg, a = load_model("tpuclip/test-tiny", None, device="cpu", allow_random=True, seed=4)
+    _, b = load_model("tpuclip/test-tiny", None, device="cpu", allow_random=True, seed=4)
     for (name, pa), (_, pb) in zip(a.named_parameters(), b.named_parameters()):
         assert torch.equal(pa, pb), name
     w = a.vision.encoder.layers[0].mlp.fc2.weight  # fan_in = intermediate_size

@@ -142,13 +142,22 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [1, 300, 16384])
-def test_cuda_kernel_matches_plain(cuda_device, rows):
-    """SO400M's patch shape; 300 rows leave a partial block of rows."""
+@pytest.mark.parametrize("layout", ["contiguous", "transposed"])
+@pytest.mark.parametrize("rows", [1, 127, 128, 300, 16384])
+def test_cuda_kernel_matches_plain(cuda_device, rows, layout):
+    """SO400M's patch shape over partial and whole 128-row blocks, with the
+    weights row-major as the kernel reads them and an f32 bias, or the
+    transposed view of a (D, K) tensor (the tower's layout, which the
+    wrapper copies) and a bf16 bias (which the kernel reads as it is)."""
     rng = np.random.default_rng(6)
     x = torch.from_numpy(rng.integers(0, 256, (rows, K), dtype=np.uint8)).to(cuda_device)
-    w = (torch.from_numpy(rng.standard_normal((K, D)).astype(np.float32)) * 0.02).to(torch.bfloat16).to(cuda_device)
+    w = (torch.from_numpy(rng.standard_normal((K, D)).astype(np.float32)) * 0.02).to(torch.bfloat16)
     b = (torch.from_numpy(rng.standard_normal(D).astype(np.float32)) * 0.02).to(cuda_device)
+    if layout == "contiguous":
+        w = w.to(cuda_device)
+    else:
+        w, b = w.t().contiguous().to(cuda_device).t(), b.to(torch.bfloat16)
+    assert w.is_contiguous() == (layout == "contiguous")
     got32 = pt.patch_embed_fused(x, w, b, torch.float32)
     want = pt._patch_embed_plain(x, w, b, torch.float32)
     torch.testing.assert_close(got32, want, rtol=0, atol=1e-5)
@@ -159,3 +168,20 @@ def test_cuda_kernel_matches_plain(cuda_device, rows):
     got = got.float().cpu().numpy()
     want = pt._patch_embed_plain(x, w, b).float().cpu().numpy()
     assert (np.abs(got - want) <= _bf16_ulp(want) + 1e-5).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, d", [(768, 1152), (192, 1000), (12, 8)])
+def test_cuda_kernel_other_patch_widths(cuda_device, k, d):
+    """Patch 16 (K = 768: 64-row blocks, the 128-row block's rows no longer
+    fit in shared memory), patch 8 with D = 1000 (a partial 192-column
+    tile), and a tiny K and D; the patch rows a view 4 bytes into a buffer,
+    which the wrapper re-aligns for the kernel's 16-byte loads."""
+    rng = np.random.default_rng(8)
+    buf = torch.from_numpy(rng.integers(0, 256, 300 * k + 4, dtype=np.uint8)).to(cuda_device)
+    x = buf[4:].view(300, k)
+    assert x.data_ptr() % 16
+    w = torch.from_numpy(rng.standard_normal((k, d)).astype(np.float32) * 0.02).to(torch.bfloat16).to(cuda_device)
+    b = torch.from_numpy(rng.standard_normal(d).astype(np.float32) * 0.02).to(cuda_device)
+    got = pt.patch_embed_fused(x, w, b, torch.float32)
+    torch.testing.assert_close(got, pt._patch_embed_plain(x, w, b, torch.float32), rtol=0, atol=1e-5)

@@ -213,3 +213,82 @@ def test_cuda_kernel_lane_out_of_slots(cuda_device):
     assert sorted(i[0].tolist()) == planted
     torch.testing.assert_close(s, s_p, rtol=0, atol=1e-5)
     assert bool(((s[:, :-1] > s[:, 1:]) | ((s[:, :-1] == s[:, 1:]) & (i[:, :-1] < i[:, 1:]))).all())
+
+
+@pytest.fixture(scope="module")
+def wide_rows():
+    """Random unit rows, 3 tiles of them, at D = 1152 and at D = 784 (not a
+    multiple of the kernel's 64-element K slice), and 64 unit queries."""
+    rng = np.random.default_rng(11)
+    n = 3 * pt.DEFAULT_TILE_N
+    return {d: (_unit_rows(rng, n, d), _unit_rows(rng, 64, d)) for d in (1152, 784)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1152, 784])
+@pytest.mark.parametrize("k", [1, 20, 127, 128])
+@pytest.mark.parametrize("q_count", [1, 7, 8, 9, 16, 17, 64])
+def test_cuda_kernel_query_blocks(cuda_device, wide_rows, q_count, k, d):
+    """Kernel 4 across its block plans: 1-8 queries (8 warps, the block or a
+    warp per query selecting), 9-16 (two mma groups, 32 warps), and more
+    than one block of queries per tile; n_valid mid-tile, with the rows past
+    it non-zero, so that none of them may come back."""
+    rows, queries = wide_rows[d]
+    n_valid = 2 * pt.DEFAULT_TILE_N + 1000
+    matrix = torch.from_numpy(rows).to(torch.bfloat16).to(cuda_device)
+    q = torch.from_numpy(queries[:q_count]).to(cuda_device)
+    before = pt.topk_tiles.launches
+    s, i = pt.topk_tiles(q, matrix, k, n_valid)
+    assert pt.topk_tiles.launches == before + 1
+    s_p, _ = pt._topk_tiles_plain(q, matrix, k, n_valid)
+    torch.testing.assert_close(s, s_p, rtol=0, atol=1e-5)
+    assert bool((i < n_valid).all())
+    plain = pt._scores_plain(q, matrix, n_valid).gather(1, i)
+    assert bool((plain >= s_p[:, -1:] - 1e-5).all())
+    assert bool(((s[:, :-1] > s[:, 1:]) | ((s[:, :-1] == s[:, 1:]) & (i[:, :-1] < i[:, 1:]))).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [20, 128])
+@pytest.mark.parametrize("q_count", [1, 9])
+def test_cuda_kernel_ragged_last_tile(cuda_device, wide_rows, q_count, k):
+    """A matrix whose row count is not a multiple of the tile (5000 rows:
+    the third tile holds 904): the kernel reads no row past the matrix and
+    no slot of the last tile returns one."""
+    rows, queries = wide_rows[1152]
+    matrix = torch.from_numpy(rows[:5000]).to(torch.bfloat16).to(cuda_device)
+    q = torch.from_numpy(queries[:q_count]).to(cuda_device)
+    s, i = pt.topk_tiles(q, matrix, k)
+    s_p, i_p = pt._topk_tiles_plain(q, matrix, k)
+    torch.testing.assert_close(s, s_p, rtol=0, atol=1e-5)
+    assert bool((i < 5000).all())
+    assert bool(((s[:, :-1] > s[:, 1:]) | ((s[:, :-1] == s[:, 1:]) & (i[:, :-1] < i[:, 1:]))).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [20, 128])
+@pytest.mark.parametrize("q_count", [1, 9])
+def test_cuda_kernel_equal_and_signed_zero_scores(cuda_device, q_count, k):
+    """Ties in a tile, against the exact expected rows: tile 0 holds 2048
+    copies of one row (every score -0.25), tile 1 rows scoring below -0.5
+    and 40 rows scoring exactly zero, half of them with a -0.0 first
+    component. The top k is the zero rows in row order (-0.0 ranks as
+    +0.0), then tile 0's rows in row order."""
+    d, tile = 1152, pt.DEFAULT_TILE_N
+    rng = np.random.default_rng(12)
+    rows = np.zeros((2 * tile, d), np.float32)
+    rows[:tile, 0] = -0.25
+    rows[tile:, 0] = -rng.uniform(0.5, 1.0, tile)
+    rows[tile:, 1:] = rng.standard_normal((tile, d - 1)) * 0.01
+    zeros = [tile + 7 + 50 * j for j in range(40)]
+    rows[zeros, 0] = [-0.0 if j % 2 else 0.0 for j in range(40)]
+    queries = np.zeros((q_count, d), np.float32)
+    queries[:, 0] = 1.0
+    matrix = torch.from_numpy(rows).to(torch.bfloat16).to(cuda_device)
+    q = torch.from_numpy(queries).to(cuda_device)
+    s, i = pt.topk_tiles(q, matrix, k, len(rows))
+    want = (zeros + list(range(tile)))[:k]
+    assert i.tolist() == [want] * q_count
+    assert bool((s[:, :40] == 0).all()) and bool((s[:, 40:] == -0.25).all())
+    s_p, i_p = pt._topk_tiles_plain(q, matrix, k, len(rows))
+    assert torch.equal(i, i_p) and bool((s == s_p).all())

@@ -34,7 +34,9 @@ needs; every search then runs on the device. What is ported:
   cached until the next refresh. Masked searches take tpuclip's routes:
   kernel 1's scores for int8, the chunked matmul for bf16, kernel 5's
   popcounts for binary rows and the cascade (an exact prefilter at depth).
-- ``TPUCLIP_INDEX_HBM_GB`` caps the flat matrix, as tpuclip does off the TPU.
+- ``TPUCLIP_INDEX_HBM_GB`` caps the flat matrix: on CUDA always (12 GB by
+  default, as tpuclip on the TPU), on the CPU only when it is set; an index
+  over the cap serves from its binary rows.
 
 Not ported yet, each raising ``NotImplementedError`` instead of running a
 slower path: the ``ivf`` mode (ROADMAP Queue 1 item 8) and mesh sharding
@@ -79,6 +81,8 @@ _INT32_MIN = -(2**31)
 # Largest k the fused int8 search serves, and largest shortlist kernel 3
 # serves; above them the scores route does.
 _FUSED_MAX_K = 128
+# TPUCLIP_INDEX_HBM_GB's default on CUDA, in GB (tpuclip's on the TPU).
+_INDEX_HBM_GB_DEFAULT = 12.0
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -211,18 +215,20 @@ class DeviceIndex:
             )
 
     def _flat_matrix_fits(self, n_rows: int) -> bool:
-        """Capacity gate for the flat matrix, applied when
-        ``TPUCLIP_INDEX_HBM_GB`` is set (as tpuclip does off the TPU). The
-        cap covers the scan matrix itself; a default tied to the card waits
-        for a measurement."""
+        """tpuclip's capacity gate for the flat matrix, with CUDA in the
+        TPU's place: on CUDA it always applies, with a 12 GB default (a
+        default sized to the 80 GB card waits for a measurement); on the CPU
+        only when ``TPUCLIP_INDEX_HBM_GB`` is set. A malformed value logs a
+        warning and takes the default. The cap covers the scan matrix
+        itself."""
         env = os.environ.get("TPUCLIP_INDEX_HBM_GB")
-        if env is None:
+        if env is None and self.device.type != "cuda":
             return True
         try:
-            cap = float(env)
+            cap = float(env) if env is not None else _INDEX_HBM_GB_DEFAULT
         except ValueError:
             log(f"  [WARNING] ignoring malformed TPUCLIP_INDEX_HBM_GB={env!r}")
-            return True
+            cap = _INDEX_HBM_GB_DEFAULT
         itemsize = 1 if self.precision == "int8" else torch.finfo(self.matrix_dtype).bits // 8
         return n_rows * self.store.embedding_dim * itemsize / 1e9 <= cap
 

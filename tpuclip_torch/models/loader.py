@@ -22,6 +22,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from tpuclip_torch.device import DeviceLike, resolve_device
 from tpuclip_torch.utils.logging import log
 from tpuclip_torch.models import convert
 from tpuclip_torch.models.configs import (
@@ -71,13 +72,15 @@ def load_checkpoint_dir(
 def load_model(
     model_name: str = DEFAULT_MODEL,
     model_cache_dir: Optional[str] = None,
-    device: torch.device = torch.device("cpu"),
+    device: DeviceLike = None,
     dtype: torch.dtype = torch.float32,
     allow_random: Optional[bool] = None,
     seed: int = 0,
 ) -> Tuple[SiglipConfig, SiglipModel]:
-    """Resolve and load a model onto ``device`` in ``dtype``: local cache
-    first, then error (or random init)."""
+    """Resolve and load a model onto ``device`` (``resolve_device``: the
+    card unless the caller names the CPU) in ``dtype``: local cache first,
+    then error (or random init)."""
+    device = resolve_device(device)
     local = find_local_checkpoint(model_name, model_cache_dir)
     if local is not None:
         log(f"  Loading from local cache: {local}")

@@ -3,7 +3,8 @@
 ``nvcc`` compiles each source into its own plain-C shared library at first
 use, all sources at once in parallel; ctypes loads them. The libraries land
 in ``build/tpuclip_torch/`` at the checkout root beside one stamp of every
-source's hash and the flags, and are all rebuilt when any of those changes.
+source's and header's (``csrc/*.cuh``) hash and the flags, and are all
+rebuilt when any of those changes.
 Without ``nvcc`` the build raises: a CUDA tensor is never served by anything
 but the kernel.
 """
@@ -23,6 +24,7 @@ from typing import List, Optional
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = sorted((_PKG / "csrc").glob("*.cu"))
+HEADERS = sorted((_PKG / "csrc").glob("*.cuh"))
 BUILD_DIR = _PKG.parent / "build" / "tpuclip_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -69,7 +71,7 @@ def library_path(source: Path) -> Path:
 
 def _stamp() -> str:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for source in SOURCES:
+    for source in SOURCES + HEADERS:
         digest.update(source.name.encode())
         digest.update(source.read_bytes())
     return digest.hexdigest()

@@ -20,7 +20,6 @@ import torch
 
 # float32(1 / 127.5): tpuclip's kernel multiplies by this constant.
 _INV_127_5 = 1.0 / 127.5
-_K_SLICE = 64  # the kernel's K step: the K-major weight copy is padded to it
 
 
 def patches_from_images_u8(pixel_values_u8: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -72,8 +71,11 @@ def patch_embed_fused(
     """(R, P*P*C) uint8 patch rows x (P*P*C, D) ``kernel`` + (D,) ``bias``
     → (R, D) ``out_dtype``: ``x = u8 * f32(1/127.5) - 1`` rounded to the
     kernel's dtype, fp32 accumulation, the bias added in fp32. On CUDA the
-    kernel must be bf16, P*P*C a multiple of 4 and ``out_dtype`` bf16 or
-    f32."""
+    kernel must be bf16, P*P*C a multiple of 4, D a multiple of 8 and
+    ``out_dtype`` bf16 or f32; the kernel reads the weights as (P*P*C, D)
+    row-major and the bias in f32 or bf16, so a row-major bf16 ``kernel``
+    and such a ``bias`` are used as they are (another layout is copied
+    once per call)."""
     _check_args(patches_u8, kernel, bias)
     if patches_u8.device.type == "cpu":
         return _patch_embed_plain(patches_u8, kernel, bias, out_dtype)
@@ -85,26 +87,23 @@ def patch_embed_fused(
         raise TypeError(f"the CUDA kernel writes bf16 or f32, got {out_dtype}")
     rows, k = patches_u8.shape
     d = kernel.shape[1]
-    if k % 4 or d % 2:
-        raise ValueError(f"the CUDA kernel takes P*P*C % 4 == 0 and D % 2 == 0, got {k}, {d}")
+    if k % 4 or d % 8:
+        raise ValueError(f"the CUDA kernel takes P*P*C % 4 == 0 and D % 8 == 0, got {k}, {d}")
     from tpuclip_torch.ops._build import library
 
     x = patches_u8.contiguous()
-    if x.data_ptr() % 4:
-        raise ValueError("the CUDA kernel takes 4-byte aligned patch rows")
+    if x.data_ptr() % 16:  # a view into a larger tensor: the kernel loads 16 bytes a lane
+        x = x.clone()
+    w = kernel.contiguous()
+    b = bias.contiguous() if bias.dtype in (torch.float32, torch.bfloat16) else bias.float()
     out = torch.empty((rows, d), dtype=out_dtype, device=x.device)
     if rows == 0:
         return out
-    # One K-major copy of the weights, zero past K (the kernel reads whole
-    # 64-element slices of it).
-    k_pad = -(-k // _K_SLICE) * _K_SLICE
-    wt = torch.zeros((d, k_pad), dtype=torch.bfloat16, device=x.device)
-    wt[:, :k] = kernel.t()
-    b32 = bias.float().contiguous()
     with torch.cuda.device(x.device):
         rc = library().tpuclip_patch_embed(
-            x.data_ptr(), wt.data_ptr(), b32.data_ptr(), out.data_ptr(), rows, k, k_pad, d,
-            int(out_dtype == torch.float32), torch.cuda.current_stream().cuda_stream,
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), rows, k, d,
+            int(out_dtype == torch.float32), int(b.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"patch_embed kernel launch failed: cudaError {rc}")

@@ -31,7 +31,7 @@ import torch
 from tpuclip_torch.ops.topk_int8 import _INT32_MAX, _NEG_INF, _check_cuda_args, _final_merge
 
 DEFAULT_TILE_N = 2048
-# The tile top-k is a max-and-mask loop; larger k takes topk_plain.
+# Largest k of the tile top-k (tpuclip's bound); larger k takes topk_plain.
 MAX_TILE_K = 128
 
 _CHUNK_ROWS = 65536  # bounds the transient memory of the chunked plain scores
