@@ -82,7 +82,28 @@ Phases, each printing its own lines; any failure exits non-zero:
    counters must rise in this phase;
 7. the library entry point ``tpuclip_torch.ops.patch_embed_fused`` on 64 of
    the JPEGs with the vision tower's own patch weights, loosely equal to
-   the tower's patch embedding; kernel 8's launch counter must rise.
+   the tower's patch embedding; kernel 8's launch counter must rise;
+8. the fused query programs (``text_topk_fused``, ``image_topk_fused``,
+   ``mixed_topk_fused``) at SO400M width over phase 3's 1M resident rows,
+   k = 20, each captured as a CUDA graph by the index's runner
+   (``tpuclip_torch.ops.graphs``): text buckets 1, 4, 16, 64, the lone
+   image, mixed (1, 1), (4, 4), (16, 16). Graph replay bit-equal to the
+   eager program, ids identical to the two-stage route (tower, the
+   embedding to the host and back, the fused search) with scores within
+   1e-6; the CUDA-event p50 of 20 replays and of the eager program, the
+   host-to-host wall p50 of the three routes, capture seconds and the
+   shared pool's bytes; the text tower alone, graph against eager, at
+   batch 1 and 4. Kernels 1 and 2 must count exactly the programs' runs;
+9. ``serve`` end to end on phase 4's database, the rerank rows forced on:
+   ``warm_programs`` must make 24 calls (21 graphs); /health, /stats, a
+   text and a mini-language /search, an image_b64 /search, a 4-text
+   /search_batch, /embed and /classify, then 4 texts + 4 uploads behind a
+   barrier (one mixed window at least), every answer 200 and equal to the
+   two-stage route at the same batch shapes (paths identical, scores
+   within 1e-6); 50 sequential text /search (wall p50, p99) and where a
+   request's time goes; two text /search after a forced re-upload, which
+   drops every graph (the first captures its program again); a clean
+   shutdown. Kernels 1 and 2 must rise.
    Neither jax nor the JAX package (tpuclip) may ever have been imported.
 
 The last two lines are the kernels' JSON record and then
@@ -93,7 +114,10 @@ the larger of the bytes it must move (each input read once, each output
 written once) over 3.35 TB/s and its operations over the peak rate of
 their type (int8 1,979 TOP/s, bf16 989 TFLOP/s, kernel 5's popcounts 16
 per SM per clock at 1.98 GHz, kernels 6 and 7's b1 AND + add at the rate
-phase 2 measures), at the recorded case's shapes; ``library_ms`` is null
+phase 2 measures), at the recorded case's shapes; ``launches`` counts
+phase 4's path for kernels 1 and 2, and their ``launches_fused`` and
+``launches_serve`` phases 8's and 9's, each zeroed just before its path
+runs. ``library_ms`` is null
 (no single PyTorch call computes any of these functions) and
 ``nearest_ms`` times the nearest route of PyTorch calls, where there is
 one. Kernels 4 and 8 also carry ``kernel_ms``, the kernel's own launch
@@ -278,7 +302,8 @@ def ordered(scores, rows):
 
 
 def phase_kernels(mods, gpu, variants):
-    """Phase 3, the dense kernels: returns {kernel name: its record}."""
+    """Phase 3, the dense kernels: returns ({kernel name: its record}, the
+    resident (bf16 rows, int8 matrix, scales), which phase 8 searches)."""
     ops, tops, _ = mods
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -419,7 +444,7 @@ def phase_kernels(mods, gpu, variants):
         ms = p50_ms(lambda: tops.topk_plain(q, rows, 200, N_ROWS), 10)
         print(f"[kernels] topk_plain (bf16 route, k > 128) Q={q_count} k=200: max score diff {err:.2e} "
               f"from the float64 reference, p50 {ms:.4f} ms  ({gpu})", flush=True)
-    return record
+    return record, (rows, m, scales)
 
 
 def phase_int8_candidates(mods, gpu, m, scales, queries):
@@ -1078,8 +1103,12 @@ def phase_end_to_end(mods, gpu, work):
 
     q_vecs = engine.embed_texts(texts)
     check(np.abs(np.linalg.norm(q_vecs, axis=1) - 1).max() <= 1e-3, "text embeddings off unit norm")
+    check(engine.index._graphs is not None and len(engine.index._graphs) == 1,
+          "search_texts did not run the fused program's CUDA graph")
     with plain_kernels(mods):
-        batch_plain = engine.search_texts(texts, K)
+        # The batch ran as one captured graph of the kernels; the plain
+        # route is the two-stage one, on the same batch-4 embeddings.
+        batch_plain = engine.index.search_batch(q_vecs, K)
     for qi, (results, plain) in enumerate(zip(batch, batch_plain)):
         check(len(results) == K, f"search_texts query {qi}: {len(results)} results")
         got_rows = [row_of[p] for p, _ in results]
@@ -1092,8 +1121,8 @@ def phase_end_to_end(mods, gpu, work):
         err = np.abs(got_scores - np.array([s for _, s in plain])).max()
         check(err <= 1e-6, f"search_texts query {qi}: scores off the plain route by {err}")
     print(f"[e2e] CLI search: {len(captured[0])} results, equal to a brute-force rescore of all "
-          f"{N_IMAGES} rows; search_texts x{len(texts)}: ordered, equal to the plain route; "
-          f"embeddings unit-norm", flush=True)
+          f"{N_IMAGES} rows; search_texts x{len(texts)} (the fused program, one CUDA graph): ordered, "
+          f"equal to the two-stage plain route; embeddings unit-norm", flush=True)
     return launches, db, cache, engine
 
 
@@ -1383,6 +1412,386 @@ def phase_patch_embed_library(pops, gpu, work, engine):
     return launches
 
 
+def wall_p50_ms(fn, reps):
+    """Median host-clock time of ``fn`` (which ends on the host) over
+    ``reps`` calls, after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+FUSED_PROGRAMS = [("text", b, 0) for b in (1, 4, 16, 64)] + [("image", 0, 1)] + [
+    ("mixed", b, b) for b in (1, 4, 16)
+]
+
+
+def phase_fused_programs(mods, gpu, resident, engine):
+    """Phase 8: the fused query programs at SO400M width over phase 3's
+    1,000,000 resident rows, through the graph runner the index uses;
+    returns the launches of kernels 1 and 2 in this phase."""
+    ops = mods[0]
+    from tpuclip_torch.ops.graphs import FusedGraphs
+
+    rows, m, scales = resident
+    model = engine.model
+    texts = [f"{TEXTS[i % len(TEXTS)]}, photo {i}" for i in range(64)]
+    rng = np.random.default_rng(8)
+    size = engine.image_size
+    tail = (m, scales, rows, K, N_ROWS)
+
+    def program_of(kind, method):
+        if kind == "text":
+            return lambda i, a: ops.text_topk_fused(model, i, a, *tail, shortlist_method=method)
+        if kind == "image":
+            return lambda p: ops.image_topk_fused(model, p, *tail, shortlist_method=method)
+        return lambda i, a, p: ops.mixed_topk_fused(model, i, a, p, *tail, shortlist_method=method)
+
+    graphs = FusedGraphs("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    cases, expected = [], {"int8_scores": 0, "int8_candidates_packed": 0}
+    ops.int8_scores.launches = 0
+    ops.int8_candidates_packed.launches = 0
+    for kind, nt, ni in FUSED_PROGRAMS:
+        host = list(engine._tokenize_bucketed(texts[:nt])) if nt else []
+        if ni:
+            host.append(rng.integers(0, 256, (ni, size, size, 3), dtype=np.uint8))
+        method = ops.resolve_shortlist_method(nt + ni)
+        key = (kind, nt, ni, K, method)
+        program = program_of(kind, method)
+        before = graphs.capture_seconds
+        out = graphs.run(key, program, host)  # the warm-up run, the capture, one replay
+        # A run of the program launches its shortlist kernel once: here the
+        # warm-up and the replay.
+        expected["int8_scores" if method == "exact" else "int8_candidates_packed"] += 2
+        cases.append((kind, nt, ni, key, program, host, out, graphs.capture_seconds - before))
+    torch.cuda.synchronize()
+    launches = {"int8_scores": ops.int8_scores.launches,
+                "int8_candidates_packed": ops.int8_candidates_packed.launches}
+    print(f"[fused] kernel launches in this phase: {launches} (expected {expected})", flush=True)
+    check(launches == expected, f"the graphs' launches {launches} are not the programs' runs {expected}")
+    pool_bytes = graphs.pool_bytes()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved() - reserved0
+
+    report = []
+    for kind, nt, ni, key, program, host, (s_g, r_g), capture_s in cases:
+        name = f"{kind} {nt}+{ni}" if kind == "mixed" else f"{kind} {max(nt, ni)}"
+        dev = [torch.from_numpy(x).cuda() for x in host]
+
+        def eager():
+            s, r = program(*[torch.from_numpy(x).cuda() for x in host])
+            return s.cpu().numpy(), r.cpu().numpy()
+
+        def two_stage():
+            # Tower(s), the embeddings to the host, back up, then the search.
+            parts = []
+            if nt:
+                parts.append(model.get_text_features(*[torch.from_numpy(x).cuda() for x in host[:2]]).cpu())
+            if ni:
+                parts.append(model.get_image_features(torch.from_numpy(host[-1]).cuda()).cpu())
+            s, r = ops.topk_int8_rerank_fused_auto(torch.cat(parts).cuda(), m, scales, rows, K, n_valid=N_ROWS)
+            return s.cpu().numpy(), r.cpu().numpy()
+
+        s_e, r_e = eager()
+        s_2, r_2 = two_stage()
+        check(np.array_equal(r_g, r_e) and np.array_equal(r_g, r_2),
+              f"fused {name}: graph, eager and two-stage ids differ")
+        check(np.array_equal(s_g, s_e), f"fused {name}: graph scores are not bit-equal to eager")
+        err = float(np.abs(s_g - s_2).max())
+        check(err <= 1e-6 and np.isfinite(s_g).all() and s_g.shape == (nt + ni, K),
+              f"fused {name}: scores off the two-stage route by {err}, or shape {s_g.shape}")
+        graph = graphs._graphs[key].graph  # the replay alone, for its device time
+        graph_ms = p50_ms(graph.replay, 20)
+        eager_ms = p50_ms(lambda: program(*dev), 20)
+        walls = {
+            "graph": wall_p50_ms(lambda: graphs.run(key, program, host), 20),
+            "eager": wall_p50_ms(eager, 20),
+            "two_stage": wall_p50_ms(two_stage, 20),
+        }
+        report.append({"program": name, "method": key[-1], "graph_ms": graph_ms, "eager_ms": eager_ms,
+                       "wall_ms": walls, "capture_s": capture_s, "max_err_two_stage": err})
+        print(f"[fused] {name} ({key[-1]}): ids identical (graph, eager, two-stage), graph bit-equal "
+              f"to eager, max diff {err:.2e} to two-stage; device p50 graph {graph_ms:.4f} ms vs eager "
+              f"{eager_ms:.4f} ms; host-to-host p50 graph {walls['graph']:.4f} ms, eager "
+              f"{walls['eager']:.4f} ms, two-stage {walls['two_stage']:.4f} ms; capture {capture_s:.3f} s  "
+              f"({gpu})", flush=True)
+    print(f"[fused] {len(graphs)} graphs captured in {graphs.capture_seconds:.3f} s; their shared pool "
+          f"holds {pool_bytes:,} bytes (reserved memory grew by {reserved:,})  ({gpu})", flush=True)
+
+    # The text tower alone, graph against eager.
+    towers = FusedGraphs("cuda")
+    tower_report = {}
+    for b in (1, 4):
+        host = list(engine._tokenize_bucketed(texts[:b]))
+        dev = [torch.from_numpy(x).cuda() for x in host]
+        (emb_g,) = towers.run(("tower", b), lambda i, a: (model.get_text_features(i, a),), host)
+        check(np.array_equal(emb_g, model.get_text_features(*dev).cpu().numpy()),
+              f"text tower batch {b}: graph differs from eager")
+        graph_ms = p50_ms(towers._graphs[("tower", b)].graph.replay, 20)
+        eager_ms = p50_ms(lambda: model.get_text_features(*dev), 20)
+        tower_report[b] = {"graph_ms": graph_ms, "eager_ms": eager_ms}
+        print(f"[fused] text tower alone, batch {b}: graph p50 {graph_ms:.4f} ms vs eager "
+              f"{eager_ms:.4f} ms (bit-equal)  ({gpu})", flush=True)
+    print("[phase8-json] " + json.dumps({"gpu": gpu, "programs": report, "text_tower": tower_report,
+                                         "capture_s": graphs.capture_seconds, "pool_bytes": pool_bytes,
+                                         "reserved_growth_bytes": reserved}), flush=True)
+    return launches
+
+
+def phase_serve(mods, gpu, work, db):
+    """Phase 9: ``SearchServer`` end to end on phase 4's database, the
+    rerank rows forced on; returns the launches of kernels 1 and 2 in this
+    phase."""
+    import base64
+    import threading
+    import urllib.request
+
+    from tpuclip_torch.engine import ImageDatabase
+    from tpuclip_torch.index.dedup import filter_duplicates
+    from tpuclip_torch.io.decode import load_image_bytes
+    from tpuclip_torch.pipelines.classify import classify_pil
+    from tpuclip_torch.serve import SearchServer, warm_programs
+
+    from tpuclip_torch import cli
+
+    ops = mods[0]
+    cache = str(work / "models")
+    files = sorted((work / "images").rglob("*.jpg"))
+    os.environ["TPUCLIP_DEVICE_RERANK"] = "1"
+    try:
+        # The CLI's single-image query takes the fused branch of the search
+        # pipeline, whose errors read as "no results": it must return some.
+        captured, fused_calls = [], []
+        original_gallery, original_fused = ImageDatabase.generate_html_gallery, ImageDatabase._search_image_fused
+
+        def fused_spy(self, *args):
+            fused_calls.append(args)
+            return original_fused(self, *args)
+
+        ImageDatabase.generate_html_gallery = lambda self, results, *a, **kw: captured.append(list(results))
+        ImageDatabase._search_image_fused = fused_spy
+        try:
+            cli.main(["search", str(files[7]), "--image", "-k", str(K), "--db", db, "--model-cache", cache,
+                      "--no-session"])
+        finally:
+            ImageDatabase.generate_html_gallery = original_gallery
+            ImageDatabase._search_image_fused = original_fused
+        engine = ImageDatabase(db, cache, inference_batch_size=64)
+    finally:
+        os.environ.pop("TPUCLIP_DEVICE_RERANK", None)
+    check(len(fused_calls) == 1 and len(captured) == 1 and captured[0],
+          f"search --image: {len(fused_calls)} fused calls, results {captured}")
+    want = filter_duplicates(engine.store, engine.index.search(engine._get_image_embedding(str(files[7])), K))
+    check([p for p, _ in captured[0]] == [p for p, _ in want] and captured[0][0][0] == str(files[7])
+          and max(abs(s - w) for (_, s), (_, w) in zip(captured[0], want)) <= 1e-6,
+          "search --image differs from the two-stage route, or does not find its own image first")
+    print(f"[serve] search --image (the fused single-image branch): {len(captured[0])} results, its own "
+          f"image first, equal to the two-stage route", flush=True)
+    b64 = [base64.b64encode(f.read_bytes()).decode() for f in files[:5]]
+    labels = ["a red car", "a photo of noise", "a city at night"]
+    statuses = []
+
+    def call(path, payload=None):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}{path}", method="POST" if payload is not None else "GET",
+            data=None if payload is None else json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"},
+        )
+        with urllib.request.urlopen(req, timeout=300) as r:
+            statuses.append(r.status)
+            return json.loads(r.read())
+
+    ops.int8_scores.launches = 0
+    ops.int8_candidates_packed.launches = 0
+    srv = SearchServer(engine, host="127.0.0.1", port=0)
+    t0 = time.perf_counter()
+    warmed = warm_programs(engine)
+    warm_s = time.perf_counter() - t0
+    graphs = engine.index._graphs
+    check(warmed == 24 and len(graphs) == 21,
+          f"warm_programs made {warmed} calls and {len(graphs or ())} graphs, expected 24 and 21")
+    pool_bytes = graphs.pool_bytes()
+    print(f"[serve] warm_programs: {warmed} calls, {len(graphs)} graphs captured, in {warm_s:.3f} s "
+          f"(capture {graphs.capture_seconds:.3f} s); shared pool {pool_bytes:,} bytes  ({gpu})", flush=True)
+    thread = srv.start_background()
+    health = call("/health")
+    stats = call("/stats")
+    text = call("/search", {"query": "a yellow taxi", "k": K})
+    algebra = call("/search", {"query": "a red car + blue sky - night", "k": K})
+    upload = call("/search", {"image_b64": b64[0], "k": K})
+    batch = call("/search_batch", {"queries": TEXTS, "k": K})
+    embed = call("/embed", {"texts": TEXTS[:2], "images_b64": b64[:1]})
+    classify = call("/classify", {"image_b64": b64[0], "labels": labels})
+
+    # The burst: the batcher's calls into the engine are recorded, for
+    # references at the same batch shapes.
+    engine_calls = []
+    for name in ("_search_texts_fused", "_search_image_fused", "_search_mixed_fused", "embed_pils"):
+        def spy(*args, _name=name, _fn=getattr(engine, name)):
+            engine_calls.append((_name, args))
+            return _fn(*args)
+        setattr(engine, name, spy)
+    try:
+        mixed_before = srv.batcher.stats()["mixed_windows"]
+        srv.batcher.window_s = 0.2  # the burst lands in one window
+        burst_payloads = [{"query": q, "k": K} for q in TEXTS] + [{"image_b64": b, "k": K} for b in b64[1:5]]
+        burst = [None] * len(burst_payloads)
+        barrier = threading.Barrier(len(burst_payloads))
+
+        def fire(i):
+            barrier.wait(timeout=60)
+            burst[i] = call("/search", burst_payloads[i])
+
+        workers = [threading.Thread(target=fire, args=(i,)) for i in range(len(burst_payloads))]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=300)
+        srv.batcher.window_s = 0.002
+        torch.cuda.synchronize()
+        launches = {"int8_scores": ops.int8_scores.launches,
+                    "int8_candidates_packed": ops.int8_candidates_packed.launches}
+        mixed = srv.batcher.stats()["mixed_windows"] - mixed_before
+    finally:
+        for name in ("_search_texts_fused", "_search_image_fused", "_search_mixed_fused", "embed_pils"):
+            engine.__dict__.pop(name, None)
+    print(f"[serve] kernel launches in this phase: {launches}; mixed windows in the burst: {mixed}", flush=True)
+    check(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
+    check(all(b is not None for b in burst), "a burst request got no answer")
+    check(mixed >= 1, "the burst of texts and uploads formed no mixed window")
+    check(health == {"status": "ok", "model": engine.model_name}, f"/health answered {health}")
+    check(stats["images"] == N_IMAGES and stats["search_precision"] == "int8", f"/stats answered {stats}")
+
+    # The two-stage references: the towers at the same batch shapes, the
+    # embeddings on the host, then index.search_batch, dedup as the server.
+    index = engine.index
+
+    def pil(b):
+        return load_image_bytes(base64.b64decode(b), "<bytes>")
+
+    def image_embs(images):
+        pixels = torch.from_numpy(engine._pixels_bucketed(images)).cuda()
+        return engine.model.get_image_features(pixels)[: len(images)].cpu().numpy()
+
+    by_text, by_image = {}, {}
+    for name, args in engine_calls:
+        if name == "_search_texts_fused":
+            texts, k = args
+            for t, res in zip(texts, index.search_batch(engine.embed_texts(texts), k)):
+                by_text[t] = res
+        elif name == "_search_mixed_fused":
+            texts, images, k = args
+            res = index.search_batch(np.concatenate([engine.embed_texts(texts), image_embs(images)]), k)
+            by_text.update(zip(texts, res[: len(texts)]))
+            by_image.update((np.asarray(im).tobytes(), r) for im, r in zip(images, res[len(texts):]))
+        else:
+            images = [args[0]] if name == "_search_image_fused" else list(args[0])
+            res = index.search_batch(engine.embed_pils(images), K)
+            by_image.update((np.asarray(im).tobytes(), r) for im, r in zip(images, res))
+
+    def same(body, want, what, dedup=True):
+        want = filter_duplicates(engine.store, want) if dedup and want else want
+        got = [(r["path"], r["similarity"]) for r in body]
+        check(len(got) > 0 and [p for p, _ in got] == [p for p, _ in want],
+              f"{what}: paths differ from the two-stage route")
+        err = max(abs(s - w) for (_, s), (_, w) in zip(got, want))
+        check(err <= 1e-6, f"{what}: scores off the two-stage route by {err}")
+        return err
+
+    errs = [same(text["results"], index.search_batch(engine.embed_texts(["a yellow taxi"]), K)[0], "text /search")]
+    want = engine.search("a red car", k=K, query2="blue sky", negative_query="night")
+    errs.append(same(algebra["results"], want, "mini-language /search", dedup=False))
+    want = index.search_batch(engine.embed_pils([pil(b64[0])]), K)[0]
+    errs.append(same(upload["results"], want, "image_b64 /search"))
+    for q, body, want in zip(TEXTS, batch["results"], index.search_batch(engine.embed_texts(TEXTS), K)):
+        errs.append(same(body, want, f"/search_batch {q!r}", dedup=False))
+    for payload, body in zip(burst_payloads, burst):
+        if "query" in payload:
+            errs.append(same(body["results"], by_text[payload["query"]], f"burst text {payload['query']!r}"))
+        else:
+            key = np.asarray(pil(payload["image_b64"])).tobytes()
+            errs.append(same(body["results"], by_image[key], "burst upload"))
+    emb_err = max(
+        float(np.abs(np.asarray(embed["text_embeddings"]) - engine.embed_texts(TEXTS[:2])).max()),
+        float(np.abs(np.asarray(embed["image_b64_embeddings"][0]) - engine._embed_pil(pil(b64[0]))).max()),
+    )
+    check(emb_err <= 1e-6, f"/embed off the engine's embeddings by {emb_err}")
+    want = classify_pil(engine, pil(b64[0]), labels)
+    check([r["label"] for r in classify["labels"]] == [l for l, _, _ in want]
+          and all(abs(r["prob"] - p) <= 1e-6 for r, (_, p, _) in zip(classify["labels"], want)),
+          f"/classify differs from classify_pil: {classify['labels']} vs {want}")
+
+    latencies = []
+    before = srv.batcher.stats()
+    for i in range(50):
+        t0 = time.perf_counter()
+        body = call("/search", {"query": f"a photo number {i}", "k": K})
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        check(len(body["results"]) > 0, "a sequential /search returned no results")
+    p50, p99 = np.percentile(latencies, 50), np.percentile(latencies, 99)
+    after = srv.batcher.stats()
+    window_ms = (after["process_s"] - before["process_s"]) / (after["windows"] - before["windows"]) * 1e3
+    # A re-upload (a write to the database, here forced) drops every graph:
+    # the next request of each shape pays a warm-up run and a capture.
+    index.refresh(force=True)
+    reupload_ms = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        body = call("/search", {"query": f"after a re-upload {i}", "k": K})
+        reupload_ms.append((time.perf_counter() - t0) * 1e3)
+        check(len(body["results"]) > 0, "a /search after a re-upload returned no results")
+    check(len(index._graphs) == 1, f"{len(index._graphs)} graphs after a re-upload and one program shape")
+    print(f"[serve] after a re-upload: the first text /search {reupload_ms[0]:.3f} ms wall (capture "
+          f"inside its window), the second {reupload_ms[1]:.3f} ms  ({gpu})", flush=True)
+    check(all(code == 200 for code in statuses), f"statuses other than 200: {statuses}")
+    srv.shutdown()
+    thread.join(timeout=30)
+    check(not thread.is_alive() and not srv.batcher._thread.is_alive(), "the server did not shut down")
+    # Where a sequential request's time goes: the batcher's window (its
+    # processing, lock wait included), and its steps alone on this thread.
+    res = engine._search_texts_fused(["a photo number 0"], K)[0]
+
+    def time_steps(out):
+        out.update({
+            "refresh": wall_p50_ms(engine.index.refresh, 20),
+            "fingerprint": wall_p50_ms(engine.index._current_fingerprint, 20),
+            "tokenize": wall_p50_ms(lambda: engine._tokenize_bucketed(["a photo number 0"]), 20),
+            "fused_search": wall_p50_ms(lambda: engine._search_texts_fused(["a photo number 0"], K), 20),
+            "map_results": wall_p50_ms(lambda: index._map_batch_results(
+                np.zeros((1, K), np.float32), np.arange(K)[None], 1), 20),
+            "dedup": wall_p50_ms(lambda: filter_duplicates(engine.store, res), 20),
+        })
+        return out
+
+    steps = time_steps({})
+    steps_thread = {}  # the same on a thread of its own, as the batcher runs them
+    worker = threading.Thread(target=time_steps, args=(steps_thread,))
+    worker.start()
+    worker.join(timeout=300)
+    for where, timed in (("this thread", steps), ("another thread", steps_thread)):
+        print(f"[serve] a sequential /search: batcher window mean {window_ms:.3f} ms of the "
+              f"{p50:.3f} ms wall; its steps alone on {where}, host p50 ms: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in timed.items()) + f"  ({gpu})", flush=True)
+    print(f"[serve] /health, /stats, text /search, mini-language /search, image_b64 /search, 4-text "
+          f"/search_batch, /embed, /classify and a burst of {len(burst_payloads)} (4 texts + 4 uploads): "
+          f"{len(statuses)} responses, all 200, equal to the two-stage route (max score diff "
+          f"{max(errs):.2e}); 50 sequential text /search: p50 {p50:.3f} ms, p99 {p99:.3f} ms wall "
+          f"({gpu}); shut down cleanly", flush=True)
+    print("[phase9-json] " + json.dumps({"gpu": gpu, "warm_calls": warmed, "warm_s": warm_s,
+                                         "capture_s": graphs.capture_seconds, "pool_bytes": pool_bytes,
+                                         "search_p50_ms": p50, "search_p99_ms": p99,
+                                         "after_reupload_ms": reupload_ms, "window_mean_ms": window_ms, "steps_p50_ms": steps,
+                                         "steps_other_thread_p50_ms": steps_thread,
+                                         "mixed_windows": mixed, "launches": launches}), flush=True)
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ab", action="append", default=[], metavar="LABEL:PATH",
@@ -1419,7 +1828,7 @@ def main():
     measure_b1_rate(b1_build, gpu)
     variants = build_variants(args.ab, hops) if args.ab else {}
 
-    record = phase_kernels(mods, gpu, variants)
+    record, resident = phase_kernels(mods, gpu, variants)
     torch.cuda.empty_cache()
     phase_int8_4m(ops, gpu, variants.get("int8_scan.cu"))
     torch.cuda.empty_cache()
@@ -1432,6 +1841,10 @@ def main():
         launches.update(phase_search_modes(mods, gpu, Path(tmp), db, cache))
         launches["int8_candidates"] = phase_filters(mods, gpu, Path(tmp), db, cache)
         launches["patch_embed_fused"] = phase_patch_embed_library(pops, gpu, Path(tmp), engine)
+        # Kernels 1 and 2 also run in phases 8 and 9: each path's counts under its own key.
+        fused = phase_fused_programs(mods, gpu, resident, engine)
+        served = phase_serve(mods, gpu, Path(tmp), db)
+        paths = {name: {"launches_fused": n, "launches_serve": served[name]} for name, n in fused.items()}
 
     sources = {
         "int8_scores": ("tpuclip_torch/csrc/int8_scan.cu", "tpuclip/ops/topk_int8.py:340"),
@@ -1447,7 +1860,7 @@ def main():
     launches["binary_topk_batched_q16"] = launches["binary_topk_batched"]  # one kernel, two cases
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches[name], **record[name]}
+         "launches": launches[name], **paths.get(name, {}), **record[name]}
         for name, (source, replaces) in sources.items()
     ]
     check("jax" not in sys.modules, "the port loaded jax")

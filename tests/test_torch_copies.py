@@ -329,3 +329,46 @@ def test_logging_and_profiling_print_the_same(capsys, monkeypatch):
     monkeypatch.setenv("TPUCLIP_QUIET", "1")
     pt_logging.log("hidden")
     assert capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("name", ["serve_ui", "client"])
+def test_serving_copies_differ_only_in_imports(name):
+    """``serve_ui.py`` and ``client.py`` are tpuclip's with the package name
+    in their imports (and the client's usage line) changed, nothing else."""
+    repo = Path(__file__).resolve().parents[1]
+    original = (repo / "tpuclip" / f"{name}.py").read_text().splitlines()
+    copy = (repo / "tpuclip_torch" / f"{name}.py").read_text().splitlines()
+    assert len(copy) == len(original)
+    changed = [(a, b) for a, b in zip(original, copy) if a != b]
+    assert changed and all(
+        b == a.replace("from tpuclip.", "from tpuclip_torch.") and "import" in a for a, b in changed
+    ), changed
+
+
+def test_serve_ui_serves_the_same_page_and_images(tmp_path):
+    """The UI page, and ``serve_image``'s answers for an indexed image, a
+    thumbnail size, an unknown path and a matching ETag."""
+    import types
+
+    import tpuclip.serve_ui as jx_ui
+    import tpuclip_torch.serve_ui as pt_ui
+
+    assert pt_ui.UI_HTML == jx_ui.UI_HTML
+    src = tmp_path / "a.png"
+    Image.fromarray(np.random.default_rng(2).integers(0, 256, (80, 120, 3), dtype=np.uint8)).save(src)
+    answers = []
+    for ui, store_mod, thumbs in ((pt_ui, pt_store, pt_thumbnails), (jx_ui, jx_store, jx_thumbnails)):
+        store = store_mod.MetadataStore(str(tmp_path / f"{ui.__name__}.db"), embedding_dim=DIM)
+        store.init_schema()
+        conn = sqlite3.connect(store.db_path)
+        conn.execute("INSERT INTO images (file_path, last_modified, file_hash) VALUES (?, ?, ?)",
+                     (str(src), src.stat().st_mtime, "h" * 64))
+        conn.commit()
+        conn.close()
+        engine = types.SimpleNamespace(store=store, thumbnailer=thumbs.Thumbnailer(str(tmp_path / ui.__name__)))
+        got = [ui.serve_image(engine, str(src)), ui.serve_image(engine, str(src), size=32),
+               ui.serve_image(engine, str(tmp_path / "missing.png"))]
+        etag = (got[0][3] or {}).get("ETag")
+        got.append(ui.serve_image(engine, str(src), if_none_match=etag))
+        answers.append(got)
+    assert answers[0] == answers[1]

@@ -224,3 +224,21 @@ def test_random_init_is_seeded_and_scaled():
     assert abs(w.std().item() * np.sqrt(cfg.vision.intermediate_size) - 1.0) < 0.1
     assert torch.all(a.vision.encoder.layers[0].ln1.weight == 1)
     assert abs(a.text.token_embedding.weight.std().item() - 0.02) < 0.002
+
+
+def test_serving_modules_import_neither_tpuclip_nor_jax():
+    """The server, its UI and client, the classify pipeline and the CUDA
+    graph runner, each in a fresh process."""
+    for name in ("serve", "serve_ui", "client", "pipelines.classify", "ops.graphs"):
+        code = (
+            "import sys\n"
+            f"import tpuclip_torch.{name}\n"
+            "bad = sorted(m for m in sys.modules if m in ('tpuclip', 'jax')\n"
+            "             or m.startswith(('tpuclip.', 'jax.')))\n"
+            "assert not bad, bad\n"
+        )
+        proc = subprocess.run(
+            [sys.executable, "-c", code], cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+            capture_output=True, text=True, timeout=120,
+        )
+        assert proc.returncode == 0, (name, proc.stderr)

@@ -11,10 +11,12 @@ original by a test. Environment variables, the SQLite schema, the
 matrix-cache files and the cache paths are the same, so a database written
 by one package opens in the other.
 
-Ported so far: ``scan`` and ``search`` (int8 with an exact rescore, bf16,
-binary-only, the cascade, folder filters) on the SigLIP towers, with every
-Pallas kernel of tpuclip in CUDA (``csrc/``); IVF, serving, NaFlex,
-training and multi-GPU are still to come (ROADMAP Queue 1).
+Ported so far: ``scan``, ``search`` (int8 with an exact rescore, bf16,
+binary-only, the cascade, folder filters) and ``serve`` on the SigLIP
+towers, with tpuclip's fused query programs as CUDA graphs
+(``ops/graphs.py``) and every Pallas kernel of tpuclip in CUDA
+(``csrc/``); IVF, NaFlex, training and multi-GPU are still to come
+(ROADMAP Queue 1).
 """
 
 __version__ = "0.1.0"

@@ -1,12 +1,15 @@
-"""Command-line interface of the PyTorch port: ``scan`` and ``search``.
+"""Command-line interface of the PyTorch port: ``scan``, ``search`` and
+``serve``.
 
-Same flags as ``tpuclip scan`` / ``tpuclip search`` (tpuclip/cli.py), plus
-``--device {cuda,cpu}`` (default ``cuda``; the CPU only when named). The
-interactive session and the other subcommands are not ported yet (ROADMAP
-Queue 1 item 3). Usage::
+Same flags as ``tpuclip scan`` / ``search`` / ``serve`` (tpuclip/cli.py),
+plus ``--device {cuda,cpu}`` (default ``cuda``; the CPU only when named).
+The REPL's line grammar (``parse_interactive_line``) is here, for serve's
+query mini-language; the interactive session and the other subcommands are
+not ported yet (ROADMAP Queue 1 item 3). Usage::
 
     python -m tpuclip_torch.cli scan DIR --db photos.db
     python -m tpuclip_torch.cli search "a red car" -k 20 --db photos.db --no-session
+    python -m tpuclip_torch.cli serve --db photos.db --port 8000 --warm
 """
 
 from __future__ import annotations
@@ -14,11 +17,160 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+from dataclasses import dataclass
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 from tpuclip_torch.config import default_paths, list_db_files, resolve_db_path
 from tpuclip_torch.utils.logging import log
+
+
+# =============================================================================
+# Interactive-line grammar (pure)
+# =============================================================================
+
+
+@dataclass
+class SearchSpec:
+    query: str
+    is_image: bool = False
+    query2: Optional[str] = None
+    is_image2: bool = False
+    negative_query: Optional[str] = None
+    negative_is_image: bool = False
+    negative_queries: Optional[List[str]] = None
+    negative_is_images: Optional[List[bool]] = None
+    negative_weights: Optional[List[float]] = None
+
+
+@dataclass
+class ReplCommand:
+    kind: str  # quit | empty | set_k | folder | folder_clear | duplicates | search | error
+    k: Optional[int] = None
+    folder: Optional[str] = None
+    show_duplicates: Optional[bool] = None
+    search: Optional[SearchSpec] = None
+    message: str = ""
+
+
+def _strip_image_prefix(part: str) -> Tuple[str, bool]:
+    if part.lower().startswith("image:"):
+        return part.split(":", 1)[1].strip(), True
+    return part, False
+
+
+def parse_interactive_line(
+    line: str,
+    default_negative_weight: float = 0.5,
+    preset: Optional[SearchSpec] = None,
+) -> ReplCommand:
+    """Parse one REPL line into a command (image_database.py:2105-2239).
+
+    ``preset`` carries CLI-provided fields for the *first* session query
+    (image_database.py:2072-2087): a CLI ``--negative`` suppresses ``' - '``
+    parsing and a CLI ``--query2`` suppresses ``'+'``/``image:`` parsing —
+    exactly the reference's "if not already set from command line" guards
+    (:2157, :2193).
+    """
+    query = line.strip()
+    if not query:
+        return ReplCommand("empty")
+    if query.lower() in ("quit", "exit", "q"):
+        return ReplCommand("quit")
+    if query.lower().startswith("k:"):
+        try:
+            k = int(query.split(":", 1)[1].strip())
+        except ValueError:
+            return ReplCommand("error", message="Invalid number. Usage: k:20")
+        if k < 1:
+            # The reference accepts 0/negatives (its SQL LIMIT just returns
+            # nothing); here a negative k would error the device top-k on
+            # every subsequent search — reject it upfront.
+            return ReplCommand("error", message="k must be >= 1. Usage: k:20")
+        return ReplCommand("set_k", k=k)
+    if query.lower().startswith("folder:"):
+        folder_path = query.split(":", 1)[1].strip()
+        if folder_path.lower() == "clear":
+            return ReplCommand("folder_clear")
+        return ReplCommand("folder", folder=folder_path)
+    if query.lower().startswith("duplicates:"):
+        setting = query.split(":", 1)[1].strip().lower()
+        if setting == "show":
+            return ReplCommand("duplicates", show_duplicates=True)
+        if setting == "hide":
+            return ReplCommand("duplicates", show_duplicates=False)
+        return ReplCommand(
+            "error", message="Invalid option. Use 'duplicates:show' or 'duplicates:hide'"
+        )
+
+    if preset is not None:
+        spec = SearchSpec(
+            query=query,
+            is_image=preset.is_image,
+            query2=preset.query2,
+            is_image2=preset.is_image2,
+            negative_query=preset.negative_query,
+            negative_is_image=preset.negative_is_image,
+        )
+    else:
+        spec = SearchSpec(query=query)
+
+    # Negatives: "<query> - <neg1> - <neg2> ..." (split precedes '+' parsing,
+    # image_database.py:2156-2190); skipped when the CLI already set one.
+    if spec.negative_query is None and not spec.is_image and " - " in spec.query:
+        head, negative_str = spec.query.split(" - ", 1)
+        spec.query = head.strip()
+        negative_parts = [p.strip() for p in negative_str.strip().split(" - ")]
+        if len(negative_parts) == 1:
+            neg, is_img = _strip_image_prefix(negative_parts[0])
+            spec.negative_query = neg
+            spec.negative_is_image = is_img
+        else:
+            qs, flags = [], []
+            for part in negative_parts:
+                neg, is_img = _strip_image_prefix(part)
+                qs.append(neg)
+                flags.append(is_img)
+            spec.negative_queries = qs
+            spec.negative_is_images = flags
+            spec.negative_weights = [default_negative_weight] * len(qs)
+
+    # Combined: "q1 + q2" (split on '+', image_database.py:2192-2213);
+    # skipped when the CLI already set --query2, or marked the query as an
+    # image path with --image (a path must not be split or prefix-stripped).
+    if spec.query2 is None and not spec.is_image:
+        query_parts = [q.strip() for q in spec.query.split("+", 1)]
+        if len(query_parts) == 2:
+            q1, is1 = _strip_image_prefix(query_parts[0])
+            q2, is2 = _strip_image_prefix(query_parts[1])
+            spec.query, spec.is_image = q1, is1
+            spec.query2, spec.is_image2 = q2, is2
+        else:
+            q1, is1 = _strip_image_prefix(spec.query)
+            if is1:
+                spec.query, spec.is_image = q1, is1
+            # No prefix found: keep spec.is_image as-is so a CLI --image
+            # preset is not clobbered (plain lines default to False anyway).
+
+    return ReplCommand("search", search=spec)
+
+
+def display_query_string(spec: SearchSpec) -> str:
+    """Query string shown in galleries (image_database.py:2270-2277)."""
+    display = spec.query
+    if spec.query2:
+        display += f" + {spec.query2}"
+    if spec.negative_queries:
+        display += " - " + " - ".join(spec.negative_queries)
+    elif spec.negative_query:
+        display += f" - {spec.negative_query}"
+    return display
+
+
+
+# =============================================================================
+# Argument parser
+# =============================================================================
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -84,7 +236,20 @@ def build_parser() -> argparse.ArgumentParser:
     search_parser.add_argument("--precision", choices=["bf16", "int8"], default=None, help="Search precision: int8 quantized scan with exact re-rank (the default) or the plain bf16 scan")
     search_parser.add_argument("--mode", dest="search_mode", choices=["exact", "ivf", "cascade"], default=None, help="Search mode: exact scan (default), or cascade (packed-binary prefilter + exact fp32 rescore from the host; no flat matrix on the device); ivf is not ported yet")
 
-    for sub in (scan_parser, search_parser):
+    serve_parser = subparsers.add_parser(
+        "serve", help="HTTP search server (resident model + device index)"
+    )
+    serve_parser.add_argument("--db", default=None, help="Database path")
+    serve_parser.add_argument("--db-name", default=None, help=f"Database filename in {paths.db_dir}")
+    serve_parser.add_argument("--host", default="127.0.0.1", help="Bind host")
+    serve_parser.add_argument("--port", type=int, default=8000, help="Bind port")
+    serve_parser.add_argument("--model", default=None, help="Model preset name")
+    serve_parser.add_argument("--model-cache", default=paths.model_cache_dir, help="Model cache directory")
+    serve_parser.add_argument("--precision", choices=["bf16", "int8"], default=None, help="Search precision")
+    serve_parser.add_argument("--mode", dest="search_mode", choices=["exact", "ivf", "cascade"], default=None, help="Search mode (see search --mode)")
+    serve_parser.add_argument("--warm", action="store_true", help="Capture the full serving program matrix (every batch-bucket combination, one CUDA graph each) before accepting traffic, so no live window pays a capture")
+
+    for sub in (scan_parser, search_parser, serve_parser):
         sub.add_argument("--device", choices=["cuda", "cpu"], default="cuda", help="Device for the towers and the index (default: cuda)")
     return parser
 
@@ -301,6 +466,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         _run_scan(args, paths)
     elif args.mode == "search":
         _run_search(args, paths)
+    elif args.mode == "serve":
+        from tpuclip_torch.serve import run_serve
+
+        run_serve(args, paths)
     else:
         parser.print_help()
 

@@ -4,9 +4,11 @@ Port of ``tpuclip/engine.py``'s ``ImageDatabase``: the SigLIP towers live
 on the device (bf16 on CUDA, fp32 on the CPU), batches are padded to fixed
 shapes (one image or ``inference_batch_size`` images; texts on the
 {1, 4, 16, 64} ladder), and the SQLite store, matrix cache, tokenizer and
-thumbnailer are tpuclip's own. ``search_texts`` is embed + ``search_batch``
-(tpuclip's non-fused branch); the fused tower + scan programs are not
-ported yet (ROADMAP Queue 1 item 1).
+thumbnailer are tpuclip's own. Text, single-image and mixed searches take
+the fused tower + scan programs when the index allows them (int8, rerank
+rows resident, no folder filter, k <= 128): one CUDA graph per ladder
+bucket on the card (``tpuclip_torch.ops.graphs``), eager on the CPU;
+otherwise embed, then search.
 """
 
 from __future__ import annotations
@@ -156,11 +158,61 @@ class ImageDatabase:
         return out
 
     def search_texts(self, texts: List[str], k: int, filter_folders=None) -> List[List[tuple]]:
-        """Batch text search: embed (cached) + one ``search_batch`` pass."""
+        """Batch text search: tokenize → text tower → int8 scan → rescore as
+        one fused program when the index is eligible; embed (cached) + one
+        ``search_batch`` pass otherwise."""
         if not texts:
             return []
+        if self.index.can_fuse_text_search(k, filter_folders):
+            return self._search_texts_fused(texts, k)
         vecs = self.embed_texts_cached(texts)
         return self.index.search_batch(vecs, k, filter_folders=filter_folders)
+
+    def _search_texts_fused(self, texts: List[str], k: int) -> List[List[tuple]]:
+        """Fused body of :meth:`search_texts`; the caller has checked
+        ``can_fuse_text_search`` (the serve micro-batcher decides it once
+        per group)."""
+        ids, mask = self._tokenize_bucketed(texts)
+        return self.index.search_texts_fused(self.model, ids, mask, k, len(texts))
+
+    def _pixels_bucketed(self, images) -> np.ndarray:
+        """Decoded images → (ladder bucket, S, S, 3) uint8, zero pad rows."""
+        from tpuclip_torch.io.preprocess import resize_to_uint8
+
+        if self.is_naflex:
+            raise NotImplementedError("NaFlex models are not ported yet (ROADMAP Queue 1 item 7)")
+        pixels = np.stack([resize_to_uint8(img, self.image_size) for img in images])
+        bucket = batch_bucket(len(images))
+        if bucket > len(images):
+            pixels = np.concatenate(
+                [pixels, np.zeros((bucket - len(images),) + pixels.shape[1:], np.uint8)]
+            )
+        return pixels
+
+    def _search_mixed_fused(self, texts: List[str], images: List, k: int):
+        """Texts and images through both towers and ONE shared int8 scan, one
+        program per (text bucket, image bucket); returns (text results,
+        image results) aligned to the inputs. The caller has checked
+        ``can_fuse_text_search``."""
+        ids, mask = self._tokenize_bucketed(texts)
+        res = self.index.search_mixed_fused(
+            self.model, ids, mask, self._pixels_bucketed(images), k,
+            n_texts=len(texts), n_images=len(images),
+        )
+        return res[: len(texts)], res[len(texts):]
+
+    def search_image_pil(self, img, k: int, filter_folders=None) -> List[tuple]:
+        """Single decoded-image search: vision tower → scan → rescore as one
+        fused program when the index is eligible; embed + ``index.search``
+        otherwise."""
+        if self.index.can_fuse_image_search(k, filter_folders):
+            return self._search_image_fused(img, k)
+        return self.index.search(self._embed_pil(img), k, filter_folders=filter_folders)
+
+    def _search_image_fused(self, img, k: int) -> List[tuple]:
+        """Fused body of :meth:`search_image_pil` (one image, batch 1); the
+        caller has checked ``can_fuse_image_search``."""
+        return self.index.search_images_fused(self.model, self._pixels_bucketed([img]), k, 1)[0]
 
     def _embed_pil(self, img) -> np.ndarray:
         if self.is_naflex:
@@ -208,6 +260,40 @@ class ImageDatabase:
         from tpuclip_torch.pipelines.search import search_by_embedding
 
         return search_by_embedding(self, embedding, k, **kwargs)
+
+    def embed_image_bytes(self, data: bytes) -> Optional[np.ndarray]:
+        """L2-normalized embedding of in-memory raster bytes; None when they
+        do not decode (the containment of path decodes)."""
+        try:
+            from tpuclip_torch.io.decode import load_image_bytes
+
+            img = load_image_bytes(data, "<bytes>")
+            if img is None:
+                return None
+            return self._embed_pil(img)
+        except Exception as e:  # noqa: BLE001 - containment, as in tpuclip
+            safe_print_path("Error processing ", "<image bytes>", e)
+            return None
+
+    def search_image_bytes(self, data: bytes, k: int = 10, filter_folders=None, show_duplicates: bool = False):
+        """Decode, then the fused single-image program when the index is
+        eligible (embed + search otherwise). None when the bytes do not
+        decode to an image."""
+        from tpuclip_torch.io.decode import load_image_bytes
+
+        img = load_image_bytes(data, "<bytes>")
+        if img is None:
+            return None
+        if self.index.can_fuse_image_search(k, filter_folders):
+            results = self._search_image_fused(img, k)
+            if not show_duplicates and results:
+                from tpuclip_torch.index.dedup import filter_duplicates
+
+                results = filter_duplicates(self.store, results)
+            return results
+        return self.search_by_embedding(
+            self._embed_pil(img), k, filter_folders=filter_folders, show_duplicates=show_duplicates
+        )
 
     def generate_html_gallery(self, results, output_file="results.html", query=None):
         from tpuclip_torch.gallery.html import generate_html_gallery

@@ -37,10 +37,18 @@ needs; every search then runs on the device. What is ported:
 - ``TPUCLIP_INDEX_HBM_GB`` caps the flat matrix: on CUDA always (12 GB by
   default, as tpuclip on the TPU), on the CPU only when it is set; an index
   over the cap serves from its binary rows.
+- **fused query programs** (:meth:`DeviceIndex.search_texts_fused`,
+  :meth:`~DeviceIndex.search_images_fused`,
+  :meth:`~DeviceIndex.search_mixed_fused`): token ids and / or pixels go
+  through the towers and the fused int8 search without the embedding
+  leaving the device, under :meth:`~DeviceIndex.can_fuse_text_search`. On
+  CUDA each program shape is one captured CUDA graph
+  (:class:`~tpuclip_torch.ops.graphs.FusedGraphs`), dropped whenever
+  ``refresh`` re-uploads; on the CPU they run eager.
 
 Not ported yet, each raising ``NotImplementedError`` instead of running a
-slower path: the ``ivf`` mode (ROADMAP Queue 1 item 8) and mesh sharding
-(item 10).
+slower path: the ``ivf`` mode (ROADMAP Queue 1 item 8), mesh sharding
+(item 10) and NaFlex towers (item 7).
 """
 
 from __future__ import annotations
@@ -64,13 +72,18 @@ from tpuclip_torch.ops.hamming import (
     pack_bits_to_words,
     pad_words,
 )
+from tpuclip_torch.ops.graphs import FusedGraphs
 from tpuclip_torch.ops.topk import DEFAULT_TILE_N, cosine_topk
 from tpuclip_torch.ops.topk_int8 import (
     INT8_TILE_N,
     derive_int8_matrix,
+    image_topk_fused,
+    mixed_topk_fused,
     quantize_matrix,
     quantize_queries,
     quantize_query,
+    resolve_shortlist_method,
+    text_topk_fused,
     topk_int8,
     topk_int8_rerank_fused_auto,
     topk_int8_scores,
@@ -132,6 +145,8 @@ class DeviceIndex:
         self._mask_cache: Dict[tuple, torch.Tensor] = {}
         # Searches per shortlist method (exact_searches / extract_searches).
         self.shortlist_stats: dict = {}
+        # The fused programs' CUDA graphs; made at first use, dropped by refresh().
+        self._graphs: Optional[FusedGraphs] = None
 
     # ---------------------------------------------------------------- loading
 
@@ -160,6 +175,12 @@ class DeviceIndex:
         self._host_vectors = vectors if len(ids) else None
         self._rows_device = self._matrix = self._scales = self._bin_matrix = None
         self._n_valid = 0
+        # The graphs hold the old tensors' pointers and n_valid, so each
+        # program shape is captured again at its next call (tpuclip passes
+        # both to its jitted programs as arguments and recompiles nothing).
+        if self._graphs:
+            log(f"  [index] re-upload dropped {len(self._graphs)} CUDA graphs")
+        self._graphs = None
         # Cascade gate: the binary rows must be exactly the full rows (both
         # caches are image_id-ordered); then no flat matrix is uploaded.
         self._cascade = False
@@ -309,16 +330,16 @@ class DeviceIndex:
         filter_folders: Optional[Sequence[str]] = None,
     ) -> List[List[Tuple[str, float]]]:
         """Top-k for Q queries in one pass over the matrix. On the flat
-        matrix the query count is padded to the {1, 4, 16, 64} ladder with
-        zero rows, sliced off before result mapping."""
+        matrix and in the cascade the query count is padded to the {1, 4,
+        16, 64} ladder with zero rows, sliced off before result mapping
+        (tpuclip's cascade returns ahead of its bucketing)."""
         self.refresh()
         if len(queries) == 0:
             return []
         q_real = len(queries)
         q_host = np.asarray(queries, np.float32).reshape(q_real, -1)
-        if self._cascade_ready():
-            return self._search_cascade(q_host, k, filter_folders)
-        if self._matrix is None:
+        cascade = self._cascade_ready()
+        if self._matrix is None and not cascade:
             if self._bin_matrix is not None:
                 return self._search_binary(q_host, k, filter_folders)
             return [[] for _ in range(q_real)]
@@ -327,6 +348,8 @@ class DeviceIndex:
             q_host = np.concatenate(
                 [q_host, np.zeros((bucket - q_real, q_host.shape[1]), np.float32)]
             )
+        if cascade:
+            return self._search_cascade(q_host, k, filter_folders, q_real)
         scores, rows = self._search_dense(q_host, k, filter_folders)
         return self._map_batch_results(scores[:q_real], rows[:q_real], q_real)
 
@@ -408,6 +431,109 @@ class DeviceIndex:
                 ]
             )
         return out
+
+    # ----------------------------------------------------------------- fused
+
+    def can_fuse_text_search(self, k: int, filter_folders, assume_fresh: bool = False) -> bool:
+        """True when tower → int8 scan → exact rescore can run as one fused
+        program for this index state: int8 precision, the int8 matrix and
+        the rerank rows resident, no folder filter, k <= 128 (tpuclip's
+        gate; the port has no mesh). ``assume_fresh`` skips the implicit
+        refresh, for a caller that just refreshed under the same lock."""
+        if not assume_fresh:
+            self.refresh()
+        return (
+            not filter_folders
+            and self.precision == "int8"
+            and self._matrix is not None
+            and self._rows_device is not None
+            and k <= _FUSED_MAX_K
+        )
+
+    # Fusion is a property of the index state, not of the tower feeding it.
+    can_fuse_image_search = can_fuse_text_search
+
+    def _program(self, key: tuple, program, host_inputs):
+        """Runs one fused program through the index's CUDA graphs (eager on
+        the CPU): host arrays in, host ((Q, k) scores, (Q, k) rows) out."""
+        if self._graphs is None:
+            self._graphs = FusedGraphs(self.device)
+        return self._graphs.run(key, program, host_inputs)
+
+    def _search_args(self):
+        """The resident tensors a fused program reads, bound at call time."""
+        return self._matrix, self._scales, self._rows_device, self._n_valid
+
+    def _run_fused(self, run_fused, q_batch: int, k: int, q_count: int, row_sel=None):
+        """Shared tail of the fused searches: the shortlist method for the
+        program's query block (``exact`` for one row, ``extract`` for more;
+        tpuclip's ``verified`` branch is not ported), ``run_fused(method)``,
+        then the result mapping of the real rows only: the first
+        ``q_count``, or ``row_sel`` where the block holds interior padding
+        (the mixed layout pads each span to its bucket)."""
+        method = resolve_shortlist_method(q_batch)
+        self.shortlist_stats[f"{method}_searches"] = self.shortlist_stats.get(f"{method}_searches", 0) + 1
+        scores, rows = run_fused(method)
+        if row_sel is not None:
+            scores, rows = scores[row_sel], rows[row_sel]
+            q_count = len(row_sel)
+        else:
+            scores, rows = scores[:q_count], rows[:q_count]
+        return self._map_batch_results(scores, rows, q_count)
+
+    def search_texts_fused(self, model, ids: np.ndarray, mask: np.ndarray, k: int, q_count: int):
+        """Tokenized (ladder-padded) text queries → ranked results through
+        :func:`~tpuclip_torch.ops.topk_int8.text_topk_fused`, one program.
+        Caller must have checked :meth:`can_fuse_text_search`."""
+        m, sc, rows, n_valid = self._search_args()
+
+        def run(method):
+            return self._program(
+                ("text", len(ids), 0, k, method),
+                lambda i, a: text_topk_fused(model, i, a, m, sc, rows, k, n_valid, shortlist_method=method),
+                (ids, mask),
+            )
+
+        return self._run_fused(run, len(ids), k, q_count)
+
+    def search_images_fused(self, model, pixels: np.ndarray, k: int, q_count: int):
+        """uint8 query pixels → ranked results through
+        :func:`~tpuclip_torch.ops.topk_int8.image_topk_fused`. Caller must
+        have checked :meth:`can_fuse_image_search`."""
+        m, sc, rows, n_valid = self._search_args()
+
+        def run(method):
+            return self._program(
+                ("image", 0, len(pixels), k, method),
+                lambda p: image_topk_fused(model, p, m, sc, rows, k, n_valid, shortlist_method=method),
+                (pixels,),
+            )
+
+        return self._run_fused(run, len(pixels), k, q_count)
+
+    def search_mixed_fused(
+        self, model, ids: np.ndarray, mask: np.ndarray, pixels: np.ndarray, k: int,
+        n_texts: int, n_images: int,
+    ):
+        """A mixed text + image block through ONE program
+        (:func:`~tpuclip_torch.ops.topk_int8.mixed_topk_fused`): results for
+        the real queries only, texts first, then images (the block holds
+        texts at [0, Tb), images at [Tb, Tb + Ib)). Caller must have checked
+        :meth:`can_fuse_text_search`."""
+        m, sc, rows, n_valid = self._search_args()
+        tb, total = len(ids), len(ids) + len(pixels)
+        row_sel = list(range(n_texts)) + list(range(tb, tb + n_images))
+
+        def run(method):
+            return self._program(
+                ("mixed", tb, len(pixels), k, method),
+                lambda i, a, p: mixed_topk_fused(
+                    model, i, a, p, m, sc, rows, k, n_valid, shortlist_method=method
+                ),
+                (ids, mask, pixels),
+            )
+
+        return self._run_fused(run, total, k, total, row_sel=row_sel)
 
     # ---------------------------------------------------------------- binary
 
@@ -493,11 +619,17 @@ class DeviceIndex:
         matches[matches <= _INT32_MIN + 1] = -np.inf
         return matches, rows.cpu().numpy()
 
-    def _search_cascade(self, queries_2d: np.ndarray, k: int, filter_folders) -> List[List[Tuple[str, float]]]:
-        """Packed-binary prefilter + exact fp32 rescore from the host memmap,
-        (Q, k) results."""
+    def _search_cascade(
+        self, queries_2d: np.ndarray, k: int, filter_folders, q_count: Optional[int] = None
+    ) -> List[List[Tuple[str, float]]]:
+        """Packed-binary prefilter + exact fp32 rescore from the host memmap:
+        results for the first ``q_count`` queries (all by default; the rest
+        are ladder pad rows, dropped before the rescore)."""
+        q_count = len(queries_2d) if q_count is None else q_count
         matches, rows = self._cascade_prefilter(
             self._query_words(queries_2d), self._cascade_depth(k), self._binary_mask(filter_folders)
         )
-        scores, out_rows = self._exact_rerank_batch(queries_2d, matches, rows, k)
-        return self._map_batch_results(scores, out_rows, len(queries_2d))
+        scores, out_rows = self._exact_rerank_batch(
+            queries_2d[:q_count], matches[:q_count], rows[:q_count], k
+        )
+        return self._map_batch_results(scores, out_rows, q_count)

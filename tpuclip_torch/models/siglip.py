@@ -142,11 +142,12 @@ class Encoder(nn.Module):
 def normalize_pixels(pixel_values: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """uint8 [0,255] NHWC → x/127.5 - 1 in ``dtype``; float inputs pass
     through. The constants are rounded to ``dtype`` first, as the JAX
-    tower's are."""
+    tower's are; they are filled on the device (no host copy), so the
+    tower can be captured in a CUDA graph."""
     if pixel_values.dtype == torch.uint8:
         x = pixel_values.to(dtype)
         one = torch.ones((), dtype=dtype, device=x.device)
-        return x * torch.tensor(1.0 / 127.5, dtype=dtype, device=x.device) - one
+        return x * torch.full((), 1.0 / 127.5, dtype=dtype, device=x.device) - one
     return pixel_values.to(dtype)
 
 

@@ -37,6 +37,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from tpuclip_torch.ops._counters import counted
 from tpuclip_torch.ops.topk import _final_merge
 
 # Rows a kernel block stages at once, and the unit rows are padded to.
@@ -130,6 +131,7 @@ def _binary_scores_plain(qwords, words, n_valid) -> torch.Tensor:
     return out
 
 
+@counted
 def binary_scores(qwords: torch.Tensor, words: torch.Tensor, n_valid: Optional[int] = None) -> torch.Tensor:
     """(1, W) packed query x (N_pad, W) words → (1, N_pad) f32 match counts,
     -inf for rows at or past ``n_valid``."""
@@ -158,9 +160,6 @@ def binary_scores(qwords: torch.Tensor, words: torch.Tensor, n_valid: Optional[i
         raise RuntimeError(f"binary_scores kernel launch failed: cudaError {rc}")
     binary_scores.launches += 1
     return out
-
-
-binary_scores.launches = 0
 
 
 def binary_shortlist_q1(
@@ -245,6 +244,7 @@ def _binary_topk_cuda(entry: str, qwords, words, k, n_valid):
     return out_m, out_r
 
 
+@counted
 def binary_topk_q1(
     qwords: torch.Tensor, words: torch.Tensor, k: int, n_valid: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -264,9 +264,7 @@ def binary_topk_q1(
     return out
 
 
-binary_topk_q1.launches = 0
-
-
+@counted
 def binary_topk_batched(
     qwords: torch.Tensor, words: torch.Tensor, k: int, n_valid: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -282,9 +280,6 @@ def binary_topk_batched(
     out = _binary_topk_cuda("tpuclip_binary_topk", qwords, words, k, n_valid)
     binary_topk_batched.launches += 1
     return out
-
-
-binary_topk_batched.launches = 0
 
 
 def binary_topk(

@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from tpuclip_torch.ops._counters import counted
+
 # float32(1 / 127.5): tpuclip's kernel multiplies by this constant.
 _INV_127_5 = 1.0 / 127.5
 
@@ -62,6 +64,7 @@ def _patch_embed_plain(patches_u8, kernel, bias, out_dtype=torch.bfloat16) -> to
     return (acc + bias.float()).to(out_dtype)
 
 
+@counted
 def patch_embed_fused(
     patches_u8: torch.Tensor,
     kernel: torch.Tensor,
@@ -109,6 +112,3 @@ def patch_embed_fused(
         raise RuntimeError(f"patch_embed kernel launch failed: cudaError {rc}")
     patch_embed_fused.launches += 1
     return out
-
-
-patch_embed_fused.launches = 0

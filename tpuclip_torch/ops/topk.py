@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from tpuclip_torch.ops._counters import counted
 from tpuclip_torch.ops.topk_int8 import _INT32_MAX, _NEG_INF, _check_cuda_args, _final_merge
 
 DEFAULT_TILE_N = 2048
@@ -122,6 +123,7 @@ def _topk_tiles_plain(
     return _select(_scores_plain(queries, matrix, n_valid), k)
 
 
+@counted
 def topk_tiles(
     queries: torch.Tensor, matrix: torch.Tensor, k: int, n_valid: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -163,9 +165,6 @@ def topk_tiles(
         raise RuntimeError(f"topk_tiles kernel launch failed: cudaError {rc}")
     topk_tiles.launches += 1
     return _invalid_to_sentinel(*_final_merge(cand_s, cand_i, k_eff))
-
-
-topk_tiles.launches = 0
 
 
 def cosine_topk(

@@ -23,6 +23,11 @@ Without the resident rows the int8 matrix comes from the fp32 originals
 (:func:`quantize_matrix`) and one query is quantized on the host
 (:func:`quantize_query`), as tpuclip does.
 
+:func:`text_topk_fused`, :func:`image_topk_fused` and
+:func:`mixed_topk_fused` put a tower in front of
+:func:`topk_int8_rerank_fused`: tpuclip's fused query programs, which the
+index runs as CUDA graphs (``tpuclip_torch.ops.graphs``).
+
 Each wrapper dispatches on its tensors' device: CPU tensors go to the plain
 PyTorch version beside it (same signature, same bits); CUDA tensors go to
 the kernel, which runs or raises. Each wrapper counts its kernel launches
@@ -39,6 +44,8 @@ from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from tpuclip_torch.ops._counters import counted
 
 _NEG_INF = float("-inf")
 _INT32_MIN = -(2**31)
@@ -207,6 +214,7 @@ def _int8_scores_plain(q_int8, m_int8, scales, n_valid) -> torch.Tensor:
     return out
 
 
+@counted
 def int8_scores(
     q_int8: torch.Tensor, m_int8: torch.Tensor, scales: torch.Tensor, n_valid: int
 ) -> torch.Tensor:
@@ -234,9 +242,6 @@ def int8_scores(
         raise RuntimeError(f"int8_scores kernel launch failed: cudaError {rc}")
     int8_scores.launches += 1
     return out
-
-
-int8_scores.launches = 0
 
 
 # =============================================================================
@@ -268,6 +273,7 @@ def _int8_candidates_packed_plain(q_int8, m_int8, scales, k_tile, n_valid, tile)
     return out.view(q_count, tiles * k_pad)
 
 
+@counted
 def int8_candidates_packed(
     q_int8: torch.Tensor,
     m_int8: torch.Tensor,
@@ -311,9 +317,6 @@ def int8_candidates_packed(
     return out
 
 
-int8_candidates_packed.launches = 0
-
-
 # =============================================================================
 # Kernel 3: per-tile top-k (score, row) candidates
 # =============================================================================
@@ -336,6 +339,7 @@ def _int8_candidates_plain(q_int8, m_int8, scales, k_tile, n_valid, tile):
     return out_s.view(q_count, tiles * k_pad), out_i.view(q_count, tiles * k_pad)
 
 
+@counted
 def int8_candidates(
     q_int8: torch.Tensor,
     m_int8: torch.Tensor,
@@ -379,9 +383,6 @@ def int8_candidates(
         raise RuntimeError(f"int8_candidates kernel launch failed: cudaError {rc}")
     int8_candidates.launches += 1
     return out_s, out_i
-
-
-int8_candidates.launches = 0
 
 
 def _empty_topk(q_count: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -559,4 +560,89 @@ def topk_int8_rerank_fused_auto(
     return topk_int8_rerank_fused(
         q_f32, m_int8, scales, rows_full, k, shortlist=shortlist, n_valid=n_valid,
         shortlist_method=method,
+    )
+
+
+# =============================================================================
+# Tower → scan → rescore programs
+# =============================================================================
+#
+# tpuclip's fused programs (``text_topk_fused`` & co.) jit the tower and the
+# search into one XLA program. Here each is a plain function of the port's
+# ``SiglipModel``: eager on the CPU, and on CUDA captured once per shape as a
+# CUDA graph (``tpuclip_torch.ops.graphs``), which is the port's counterpart
+# of one compiled program. There is no ``keep_scores`` and no fifth output:
+# tpuclip keeps the score matrix and the embedding only for its ``verified``
+# shortlist, which rests on the TPU's approximate top-k and which the port
+# refuses (:func:`resolve_shortlist_method`).
+
+
+@torch.inference_mode()
+def text_topk_fused(
+    model,
+    ids: torch.Tensor,
+    attn_mask: torch.Tensor,
+    m_int8: torch.Tensor,
+    scales: torch.Tensor,
+    rows_full: torch.Tensor,
+    k: int,
+    n_valid: Optional[int] = None,
+    shortlist: int = 512,
+    shortlist_method: str = "extract",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, 64) token ids + mask → text tower → :func:`topk_int8_rerank_fused`:
+    ((B, k) f32 scores, (B, k) int64 rows). The embedding never leaves the
+    device; results equal embed-then-search on the same batch. No
+    ``keep_scores`` and no fifth output: those serve only tpuclip's
+    ``verified`` shortlist, which the port refuses."""
+    emb = model.get_text_features(ids, attn_mask)
+    return topk_int8_rerank_fused(
+        emb, m_int8, scales, rows_full, k, shortlist=shortlist, n_valid=n_valid,
+        shortlist_method=shortlist_method,
+    )
+
+
+@torch.inference_mode()
+def image_topk_fused(
+    model,
+    pixels: torch.Tensor,
+    m_int8: torch.Tensor,
+    scales: torch.Tensor,
+    rows_full: torch.Tensor,
+    k: int,
+    n_valid: Optional[int] = None,
+    shortlist: int = 512,
+    shortlist_method: str = "extract",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, S, 3) uint8 pixels → vision tower → the same search as
+    :func:`text_topk_fused` (no ``keep_scores`` either)."""
+    emb = model.get_image_features(pixels)
+    return topk_int8_rerank_fused(
+        emb, m_int8, scales, rows_full, k, shortlist=shortlist, n_valid=n_valid,
+        shortlist_method=shortlist_method,
+    )
+
+
+@torch.inference_mode()
+def mixed_topk_fused(
+    model,
+    ids: torch.Tensor,
+    attn_mask: torch.Tensor,
+    pixels: torch.Tensor,
+    m_int8: torch.Tensor,
+    scales: torch.Tensor,
+    rows_full: torch.Tensor,
+    k: int,
+    n_valid: Optional[int] = None,
+    shortlist: int = 512,
+    shortlist_method: str = "extract",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both towers, then ONE search over the (Tb + Ib, D) query block, texts
+    first: output rows [0, Tb) answer the texts, [Tb, Tb + Ib) the images.
+    A mixed serve window reads the int8 matrix once instead of twice. No
+    ``keep_scores`` (see :func:`text_topk_fused`)."""
+    emb = torch.cat([model.get_text_features(ids, attn_mask), model.get_image_features(pixels)])
+    return topk_int8_rerank_fused(
+        emb, m_int8, scales, rows_full, k, shortlist=shortlist, n_valid=n_valid,
+        shortlist_method=shortlist_method,
     )

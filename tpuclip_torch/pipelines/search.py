@@ -1,9 +1,8 @@
 """Search pipeline: query algebra + device top-k + duplicate filtering.
 
 PyTorch port of ``tpuclip/pipelines/search.py``; the query algebra is
-unchanged. tpuclip's fused single-image branch (one tower + scan program)
-is the two-stage embed-then-search path here, with identical results by
-construction; the fused programs come later (ROADMAP Queue 1 item 1).
+unchanged. A plain single-image query on an eligible index takes the fused
+vision tower + scan program (``engine._search_image_fused``), as in tpuclip.
 
 Mirrors ``ImageDatabase.search`` (image_database.py:1308-1658):
 - first/second query embeddings (text or image), weighted blend with weight
@@ -222,6 +221,41 @@ def search(
 ) -> List[Tuple[str, float]]:
     """Full search: returns [(file_path, similarity)] descending."""
     timings = Timings()
+
+    # Plain single-image query (no blend, no negatives) on an eligible
+    # index: decode → ONE fused vision tower + scan + rescore program.
+    # Query algebra stays two-stage (it mixes host-side vectors).
+    if (
+        is_image_path
+        and query2 is None
+        and negative_query is None
+        and not negative_queries
+        and engine.index.can_fuse_image_search(k, filter_folders)
+    ):
+        if not os.path.exists(query):
+            log(f"Error: Image file {query} does not exist")
+            return []
+        log(f"Processing image query: {query}")
+        from tpuclip_torch.io.decode import load_image
+
+        with timings.track("fused_image_search"):
+            img = load_image(query)
+            if img is None:
+                log(f"Error: Could not decode image file {query}")
+                return []
+            try:
+                results = engine._search_image_fused(img, k)
+            except NotImplementedError:
+                raise  # a mode the port lacks must not read as "no results"
+            except Exception as e:  # noqa: BLE001 - same containment as below
+                log(f"Error during search: {e}")
+                return []
+        if not show_duplicates and results:
+            with timings.track("filter_duplicates"):
+                results = filter_duplicates(engine.store, results)
+        if profile:
+            timings.report()
+        return results
 
     embedding = build_query_vector(
         engine, query, is_image_path, query2, is_image_path2, weights,
