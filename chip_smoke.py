@@ -103,7 +103,22 @@ Phases, each printing its own lines; any failure exits non-zero:
    within 1e-6); 50 sequential text /search (wall p50, p99) and where a
    request's time goes; two text /search after a forced re-upload, which
    drops every graph (the first captures its program again); a clean
-   shutdown. Kernels 1 and 2 must rise.
+   shutdown. Kernels 1 and 2 must rise;
+10. the CLI and the interactive session on phase 4's database: ``search
+   --interactive`` driven by a scripted stdin (``k:``, a text query, a
+   ``folder:`` filter, ``folder:clear``, three negatives, ``image: + text``,
+   ``duplicates:show``, ``quit``), each printed list id-identical to the
+   engine's single search with the same arguments (scores equal to the
+   printed 4 decimals), the towers loaded once, the index uploaded once and
+   kernel 1 launched once per search line; the walls of the first and the
+   later session queries, and of a ``search`` process from start to exit,
+   with ``--no-session`` and as a session on a non-tty stdin (which must
+   exit 0); ``selftest --e2e-only --device cuda`` all PASS; on a copy of
+   the database ``info``, ``check``, ``export`` (npz), ``duplicates``,
+   ``prune --dry-run``, ``migrate --dry-run`` and ``migrate`` (on a copy
+   rewritten to the reference's vec0 layout), ``merge`` and ``gc
+   --dry-run`` each exit 0, and the exported, migrated and merged rows equal
+   the SQLite rows read directly.
    Neither jax nor the JAX package (tpuclip) may ever have been imported.
 
 The last two lines are the kernels' JSON record and then
@@ -116,8 +131,9 @@ their type (int8 1,979 TOP/s, bf16 989 TFLOP/s, kernel 5's popcounts 16
 per SM per clock at 1.98 GHz, kernels 6 and 7's b1 AND + add at the rate
 phase 2 measures), at the recorded case's shapes; ``launches`` counts
 phase 4's path for kernels 1 and 2, and their ``launches_fused`` and
-``launches_serve`` phases 8's and 9's, each zeroed just before its path
-runs. ``library_ms`` is null
+``launches_serve`` phases 8's and 9's; every kernel's ``launches_session``
+counts phase 10's session (0 where the session does not run it); each count
+is zeroed just before its path runs. ``library_ms`` is null
 (no single PyTorch call computes any of these functions) and
 ``nearest_ms`` times the nearest route of PyTorch calls, where there is
 one. Kernels 4 and 8 also carry ``kernel_ms``, the kernel's own launch
@@ -1792,6 +1808,222 @@ def phase_serve(mods, gpu, work, db):
     return launches
 
 
+def to_reference_layout(src, dst, chunk=64):
+    """A copy of ``src`` as droon/CLIP-database leaves a database on disk:
+    its fp32 vectors in sqlite-vec's vec0 shadow tables (chunks of ``chunk``
+    rows with validity bitmaps and rowid blobs) with the ``image_embeddings``
+    rowid map, and no ``embeddings`` rows, for ``migrate``."""
+    import shutil
+    import struct
+
+    shutil.copyfile(src, dst)
+    conn = sqlite3.connect(dst)
+    try:
+        rows = conn.execute("SELECT image_id, vector FROM embeddings ORDER BY image_id").fetchall()
+        conn.executescript(
+            "CREATE TABLE image_embeddings (rowid INTEGER PRIMARY KEY, image_id INTEGER);"
+            "CREATE TABLE vec0_chunks (chunk_id INTEGER PRIMARY KEY AUTOINCREMENT, size INTEGER NOT NULL,"
+            " validity BLOB NOT NULL, rowids BLOB NOT NULL);"
+            "CREATE TABLE vec0_rowids (rowid INTEGER PRIMARY KEY AUTOINCREMENT, id, chunk_id INTEGER,"
+            " chunk_offset INTEGER);"
+            "CREATE TABLE vec0_vector_chunks00 (rowid INTEGER PRIMARY KEY AUTOINCREMENT, vectors BLOB NOT NULL);"
+            "DELETE FROM embeddings;"
+        )
+        for c in range(-(-len(rows) // chunk)):
+            validity, rowids = bytearray(chunk // 8), bytearray(chunk * 8)
+            block = bytearray(chunk * DIM * 4)
+            for off, (image_id, vector) in enumerate(rows[c * chunk:(c + 1) * chunk]):
+                vec_rowid = c * chunk + off + 1
+                validity[off >> 3] |= 1 << (off & 7)
+                struct.pack_into("<q", rowids, off * 8, vec_rowid)
+                block[off * DIM * 4:(off + 1) * DIM * 4] = vector
+                conn.execute("INSERT INTO image_embeddings (rowid, image_id) VALUES (?, ?)", (vec_rowid, image_id))
+                conn.execute("INSERT INTO vec0_rowids (rowid, id, chunk_id, chunk_offset) VALUES (?, NULL, ?, ?)",
+                             (vec_rowid, c + 1, off))
+            conn.execute("INSERT INTO vec0_chunks (chunk_id, size, validity, rowids) VALUES (?, ?, ?, ?)",
+                         (c + 1, chunk, bytes(validity), bytes(rowids)))
+            conn.execute("INSERT INTO vec0_vector_chunks00 (rowid, vectors) VALUES (?, ?)", (c + 1, bytes(block)))
+        conn.commit()
+    finally:
+        conn.close()
+
+
+def table_rows(db, sql):
+    conn = sqlite3.connect(db)
+    try:
+        return conn.execute(sql).fetchall()
+    finally:
+        conn.close()
+
+
+def run_cli(cli, *argv):
+    """``cli.main(argv)``; a non-zero exit fails the phase with its command."""
+    try:
+        cli.main(list(argv))
+    except SystemExit as e:
+        check(e.code in (0, None), f"{' '.join(argv[:1])} exited with status {e.code}")
+
+
+def phase_cli(gpu, work, db):
+    """Phase 10: the interactive session, ``selftest --e2e-only`` and the
+    database subcommands through ``tpuclip_torch.cli`` on phase 4's
+    database; returns every counted kernel's launches in the session."""
+    import builtins
+    import shutil
+
+    from tpuclip_torch import cli
+    from tpuclip_torch import engine as engine_module
+    from tpuclip_torch import selftest
+    from tpuclip_torch.engine import ImageDatabase
+    from tpuclip_torch.index.search import DeviceIndex
+    from tpuclip_torch.ops._counters import COUNTED
+
+    cache = str(work / "models")
+    folder = str(work / "images" / "set_1")
+    image = str(sorted((work / "images").rglob("*.jpg"))[7])
+    query = "a red car"
+    script = [f"k:{K}", query, f"folder:{folder}", query, "folder:clear", "a red car - blue sky - night - city",
+              f"image:{image} + a bright photo", "duplicates:show", query, "quit"]
+    n_searches = 5  # the lines that search, one query each
+    pending = list(script)
+    loads, uploads, engines, printed, calls = [], [], [], [], []
+    saved = (engine_module.load_model, DeviceIndex.refresh, ImageDatabase.search, cli._make_engine,
+             cli._print_results, cli.is_tty, builtins.input)
+
+    def load_spy(*args, **kwargs):
+        loads.append(args[0])
+        return saved[0](*args, **kwargs)
+
+    def refresh_spy(self, force=False):
+        before = self._fingerprint
+        saved[1](self, force)
+        if self._fingerprint is not before:  # a new upload
+            uploads.append(self._n_valid)
+
+    def search_spy(self, q, **kwargs):
+        t0 = time.perf_counter()
+        out = saved[2](self, q, **kwargs)
+        torch.cuda.synchronize()
+        calls.append((q, kwargs, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    def engine_spy(*args):
+        engines.append(saved[3](*args))
+        return engines[-1]
+
+    def print_spy(results):
+        printed.append(list(results))
+        saved[4](results)
+
+    engine_module.load_model, DeviceIndex.refresh, ImageDatabase.search = load_spy, refresh_spy, search_spy
+    cli._make_engine, cli._print_results, cli.is_tty = engine_spy, print_spy, lambda: True
+    builtins.input = lambda prompt="": pending.pop(0)
+    try:
+        for wrapper in COUNTED:
+            wrapper.launches = 0
+        run_cli(cli, "search", "--interactive", "--db", db, "--model-cache", cache)
+        torch.cuda.synchronize()
+        launches = {wrapper.__name__: wrapper.launches for wrapper in COUNTED}
+    finally:
+        (engine_module.load_model, DeviceIndex.refresh, ImageDatabase.search, cli._make_engine,
+         cli._print_results, cli.is_tty, builtins.input) = saved
+    print(f"[cli] session kernel launches: {launches}", flush=True)
+    check(not pending, f"the session left lines unread: {pending}")
+    check(len(loads) == 1 and len(engines) == 1, f"the towers loaded {len(loads)} times in the session")
+    check(uploads == [N_IMAGES], f"the index uploaded {len(uploads)} times in the session: {uploads}")
+    check(len(calls) == len(printed) == n_searches, f"{len(calls)} searches, {len(printed)} printed lists")
+    check(launches["int8_scores"] == n_searches,
+          f"kernel 1 launched {launches['int8_scores']} times for {n_searches} single-query lines")
+    # Each printed list against the engine's single search with the same arguments.
+    for (q, kwargs, _), got in zip(calls, printed):
+        want = saved[2](engines[0], q, **kwargs)
+        check(kwargs["k"] == K and got and [p for p, _ in got] == [p for p, _ in want],
+              f"session search {q!r} {kwargs}: ids differ from the engine's single search")
+        check([f"{s:.4f}" for _, s in got] == [f"{s:.4f}" for _, s in want],
+              f"session search {q!r}: printed scores differ from the engine's single search")
+    check(all(p.startswith(folder + "/") for p, _ in printed[1]), "the folder-filtered line left set_1")
+    check(calls[2][1]["negative_queries"] == ["blue sky", "night", "city"] and calls[3][1]["is_image_path"]
+          and calls[4][1]["show_duplicates"], "the session's lines did not reach the engine as parsed")
+    first_ms, later = calls[0][2], [ms for _, _, ms in calls[1:]]
+
+    # The same query from a fresh process: --no-session, and the session on
+    # a non-tty stdin (runs the query and exits 0), wall from start to exit.
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    walls = {}
+    for name, flags in (("--no-session", ["--no-session"]), ("session, non-tty stdin", [])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpuclip_torch.cli", "search", query, "-k", str(K), "--db", db,
+             "--model-cache", cache, *flags],
+            env=env, stdin=subprocess.DEVNULL, capture_output=True, text=True, timeout=600,
+        )
+        walls[name] = time.perf_counter() - t0
+        check(proc.returncode == 0 and "Results saved to" in proc.stdout,
+              f"search {name} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    check("Interactive Search Session" in proc.stdout, "search without --no-session did not open the session")
+    print(f"[cli] interactive session, {n_searches} single-query lines (k = {K}, SO400M random weights, "
+          f"{N_IMAGES} rows): first query {first_ms:.3f} ms wall, later queries p50 "
+          f"{statistics.median(later):.3f} ms (min {min(later):.3f}, max {max(later):.3f}); towers loaded "
+          f"once, index uploaded once; every printed list id-identical to the engine's single search  ({gpu})",
+          flush=True)
+    print(f"[cli] a search process from start to exit: --no-session {walls['--no-session']:.3f} s, the "
+          f"session on a non-tty stdin {walls['session, non-tty stdin']:.3f} s  ({gpu})", flush=True)
+
+    # selftest --e2e-only on the card: the bundled tree at SO400M width.
+    reports = []
+    original_e2e = selftest.run_e2e_selftest
+    selftest.run_e2e_selftest = lambda *a, **kw: reports.append(original_e2e(*a, **kw)) or reports[-1]
+    try:
+        t0 = time.perf_counter()
+        run_cli(cli, "selftest", "--e2e-only", "--device", "cuda")
+        selftest_s = time.perf_counter() - t0
+    finally:
+        selftest.run_e2e_selftest = original_e2e
+    steps = [(s.name, s.status) for s in reports[0].steps]
+    check(len(steps) == 7 and all(status == "PASS" for _, status in steps), f"selftest --e2e-only: {steps}")
+    print(f"[cli] selftest --e2e-only --device cuda: {len(steps)} steps, all PASS, in {selftest_s:.3f} s  "
+          f"({gpu})", flush=True)
+
+    # The database subcommands on a copy of the database.
+    out = work / "cli"
+    out.mkdir()
+    lib = str(out / "lib.db")
+    shutil.copyfile(db, lib)
+    to_reference_layout(lib, str(out / "ref.db"))
+    t0 = time.perf_counter()
+    run_cli(cli, "info", "--db", lib)
+    run_cli(cli, "check", "--db", lib)
+    run_cli(cli, "export", str(out / "out.npz"), "--db", lib, "--binary")
+    run_cli(cli, "duplicates", "--db", lib)
+    run_cli(cli, "prune", "--db", lib, "--dry-run")
+    run_cli(cli, "migrate", "--db", str(out / "ref.db"), "--dry-run")
+    run_cli(cli, "migrate", "--db", str(out / "ref.db"))
+    run_cli(cli, "merge", str(out / "merged.db"), lib)
+    run_cli(cli, "gc", "--dry-run", "--db", lib)
+    commands_s = time.perf_counter() - t0
+    paths, vectors = read_rows(lib, "embeddings", "vector", np.float32)
+    bin_paths, bits = read_rows(lib, "binary_embeddings", "embedding", np.uint8)
+    with np.load(out / "out.npz") as z:
+        check(list(z["file_paths"]) == paths and np.array_equal(z["vectors"], vectors)
+              and np.array_equal(z["binary"][np.argsort(z["binary_image_ids"])], bits),
+              "export: the arrays differ from the SQLite rows")
+    for name in ("merged.db", "ref.db"):
+        got_paths, got = read_rows(str(out / name), "embeddings", "vector", np.float32)
+        check(got_paths == paths and np.array_equal(got, vectors), f"{name}: the vectors differ from the copy's")
+    images = "SELECT file_path, last_modified, file_hash FROM images ORDER BY file_path"
+    check(table_rows(str(out / "merged.db"), images) == table_rows(lib, images)
+          and read_rows(str(out / "merged.db"), "binary_embeddings", "embedding", np.uint8)[1].tolist()
+          == bits.tolist() and bin_paths == paths, "merge: the merged database's rows differ")
+    print(f"[cli] info, check, export (npz), duplicates, prune --dry-run, migrate --dry-run and migrate (a "
+          f"reference vec0 copy), merge, gc --dry-run: all exit 0 in {commands_s:.3f} s; the export, the "
+          f"migrated and the merged rows equal the database's {len(paths)} rows  ({gpu})", flush=True)
+    print("[phase10-json] " + json.dumps({
+        "gpu": gpu, "session_first_ms": first_ms, "session_later_ms": later,
+        "session_later_p50_ms": statistics.median(later), "process_wall_s": walls,
+        "selftest_e2e_s": selftest_s, "commands_s": commands_s, "launches": launches}), flush=True)
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ab", action="append", default=[], metavar="LABEL:PATH",
@@ -1845,6 +2077,7 @@ def main():
         fused = phase_fused_programs(mods, gpu, resident, engine)
         served = phase_serve(mods, gpu, Path(tmp), db)
         paths = {name: {"launches_fused": n, "launches_serve": served[name]} for name, n in fused.items()}
+        session = phase_cli(gpu, Path(tmp), db)
 
     sources = {
         "int8_scores": ("tpuclip_torch/csrc/int8_scan.cu", "tpuclip/ops/topk_int8.py:340"),
@@ -1860,7 +2093,8 @@ def main():
     launches["binary_topk_batched_q16"] = launches["binary_topk_batched"]  # one kernel, two cases
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches[name], **paths.get(name, {}), **record[name]}
+         "launches": launches[name], **paths.get(name, {}),
+         "launches_session": session[name.removesuffix("_q16")], **record[name]}
         for name, (source, replaces) in sources.items()
     ]
     check("jax" not in sys.modules, "the port loaded jax")

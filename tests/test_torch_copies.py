@@ -1,10 +1,11 @@
 """The framework-neutral modules the port carries as copies
-(``tpuclip_torch/{config,index/store,index/cache,io/*,text/*,utils/*,
-gallery/html}.py``) against tpuclip's originals, on the same seeded inputs:
-path resolution, the SQLite schema and the matrix-cache files (a database
-written by either package opens in the other), decoded and resized bytes,
-the walker's census, file hashes, tokenizer ids, the gallery's HTML, and
-what the logging and profiling helpers print."""
+(``tpuclip_torch/{config,index/store,index/cache,index/migrate,io/*,text/*,
+utils/*,gallery/html,pipelines/{check,prune,export,merge}}.py``) against
+tpuclip's originals, on the same seeded inputs: path resolution, the SQLite
+schema and the matrix-cache files (a database written by either package
+opens in the other), decoded and resized bytes, the walker's census, file
+hashes, tokenizer ids, the gallery's HTML, what the logging and profiling
+helpers print, and what the CLI's pipelines return and leave on disk."""
 
 import dataclasses
 import hashlib
@@ -372,3 +373,96 @@ def test_serve_ui_serves_the_same_page_and_images(tmp_path):
         got.append(ui.serve_image(engine, str(src), if_none_match=etag))
         answers.append(got)
     assert answers[0] == answers[1]
+
+
+# The CLI's framework-neutral pipelines: copies changed only in imports.
+PIPELINE_COPIES = ["index/migrate", "pipelines/check", "pipelines/prune", "pipelines/export", "pipelines/merge"]
+
+
+@pytest.mark.parametrize("name", PIPELINE_COPIES)
+def test_pipeline_copies_differ_only_in_imports(name):
+    repo = Path(__file__).resolve().parents[1]
+    original = (repo / "tpuclip" / f"{name}.py").read_text().splitlines()
+    copy = (repo / "tpuclip_torch" / f"{name}.py").read_text().splitlines()
+    assert len(copy) == len(original)
+    changed = [(a, b) for a, b in zip(original, copy) if a != b]
+    assert changed and all(
+        b == a.replace("from tpuclip.", "from tpuclip_torch.") and "import" in a for a, b in changed
+    ), changed
+
+
+def _tables(path):
+    conn = sqlite3.connect(path)
+    try:
+        names = [r[0] for r in conn.execute("SELECT name FROM sqlite_master WHERE type = 'table' "
+                                              "AND sql NOT LIKE 'CREATE VIRTUAL%' ORDER BY name")]
+        out = {}
+        for t in names:
+            cols = [c[1] for c in conn.execute(f'PRAGMA table_info("{t}")') if c[1] != "created_at"]
+            out[t] = sorted(conn.execute(f'SELECT {", ".join(cols)} FROM "{t}"').fetchall(), key=repr)
+        return out
+    finally:
+        conn.close()
+
+
+def _run_copy(name, module_name, work, vecs, tmp_path):
+    """One pipeline of one package on its own copy of the seeded input;
+    returns (its result, what it left on disk)."""
+    import importlib
+
+    mod = importlib.import_module(f"{'tpuclip_torch' if name == 'port' else 'tpuclip'}.{module_name.replace('/', '.')}")
+    store_mod = PACKAGES[name][0]
+    db = work / "d.db"
+    if module_name == "index/migrate":
+        from test_migrate import _make_reference_db
+
+        _make_reference_db(str(db), vecs)
+        return dataclasses.asdict(mod.migrate_reference_db(str(db))), _tables(db)
+    rows = [(str(tmp_path / ("here.jpg" if i % 3 else f"gone_{i}.jpg")), float(i), f"h{i}", vecs[i])
+            for i in range(len(vecs))]
+    store = store_mod.MetadataStore(str(db), embedding_dim=DIM)
+    store.init_schema(verbose=False)
+    conn = sqlite3.connect(db)
+    store.commit_with_retry(conn.cursor(), conn, rows, save_full_embeddings=True)
+    conn.close()
+    if module_name == "pipelines/check":
+        conn = sqlite3.connect(db)
+        conn.execute("DELETE FROM images WHERE id = 2")
+        conn.execute("UPDATE embeddings SET vector = X'0011' WHERE image_id = 4")
+        conn.commit()
+        conn.close()
+        found = dataclasses.asdict(mod.check_database(str(db), verbose=False))
+        return (found, dataclasses.asdict(mod.check_database(str(db), fix=True, verbose=False))), _tables(db)
+    if module_name == "pipelines/prune":
+        return dataclasses.asdict(mod.prune_missing(str(db), verbose=False)), _tables(db)
+    if module_name == "pipelines/export":
+        n = mod.export_embeddings(str(db), str(work / "e.npz"), include_binary=True)
+        with np.load(work / "e.npz") as z:
+            return n, {k: z[k].tolist() for k in z.files}
+    other = work / "o.db"
+    store = store_mod.MetadataStore(str(other), embedding_dim=DIM)
+    store.init_schema(verbose=False)
+    conn = sqlite3.connect(other)
+    store.commit_with_retry(conn.cursor(), conn, [("/o/x.jpg", 1.0, "hx", vecs[0]), (rows[1][0], 50.0, "hn", vecs[2])],
+                            save_full_embeddings=True)
+    conn.close()
+    mod.merge_databases(str(work / "m.db"), [str(db), str(other)])
+    return None, _tables(work / "m.db")
+
+
+@pytest.mark.parametrize("module_name", PIPELINE_COPIES)
+def test_pipeline_copies_behave_as_the_original(tmp_path, module_name):
+    """migrate (a reference vec0 database), check and check --fix (an
+    orphan and a torn vector blob), prune (rows whose files are gone),
+    export (npz with the binary rows) and merge (a new row and a newer
+    copy): the same result and the same tables or arrays."""
+    (tmp_path / "here.jpg").touch()
+    rng = np.random.default_rng(9)
+    vecs = rng.standard_normal((11, DIM)).astype(np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    got = {}
+    for name in PACKAGES:
+        (tmp_path / name).mkdir()
+        got[name] = _run_copy(name, module_name, tmp_path / name, vecs, tmp_path)
+    assert got["port"] == got["tpuclip"]
+    assert got["port"][1]

@@ -186,6 +186,23 @@ def test_tpuclip_checkpoint_loads_in_port(tmp_path):
     _tree_equal(pt_params, params)
 
 
+def test_port_checkpoint_loads_in_tpuclip(tmp_path):
+    """A checkpoint written by the port's ``save_checkpoint`` loads in
+    tpuclip with equal parameters, and its files equal tpuclip's own."""
+    from tpuclip.models.checkpoint import load_checkpoint as jx_load_checkpoint
+    from tpuclip_torch.models.checkpoint import save_checkpoint as pt_save_checkpoint
+
+    cfg = jx_configs.get_config("tpuclip/test-tiny")
+    params = jax.tree.map(np.asarray, init_params(jax.random.PRNGKey(2), cfg))
+    pt_save_checkpoint(str(tmp_path / "port"), params, pt_configs.get_config("tpuclip/test-tiny"))
+    save_checkpoint(str(tmp_path / "tpuclip"), params, cfg)
+    got_cfg, got = jx_load_checkpoint(str(tmp_path / "port"))
+    assert dataclasses.asdict(got_cfg) == dataclasses.asdict(cfg)
+    _tree_equal(got, params)
+    for name in ("tpuclip.json", "model.safetensors"):
+        assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "tpuclip" / name).read_bytes()
+
+
 def test_params_from_state_dict_equals_original():
     transformers = pytest.importorskip("transformers")
     hf_cfg = transformers.SiglipConfig(
@@ -227,18 +244,23 @@ def test_random_init_is_seeded_and_scaled():
 
 
 def test_serving_modules_import_neither_tpuclip_nor_jax():
-    """The server, its UI and client, the classify pipeline and the CUDA
-    graph runner, each in a fresh process."""
-    for name in ("serve", "serve_ui", "client", "pipelines.classify", "ops.graphs"):
-        code = (
-            "import sys\n"
-            f"import tpuclip_torch.{name}\n"
-            "bad = sorted(m for m in sys.modules if m in ('tpuclip', 'jax')\n"
-            "             or m.startswith(('tpuclip.', 'jax.')))\n"
-            "assert not bad, bad\n"
-        )
-        proc = subprocess.run(
-            [sys.executable, "-c", code], cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
-            capture_output=True, text=True, timeout=120,
-        )
-        assert proc.returncode == 0, (name, proc.stderr)
+    """The server, its UI and client, the classify pipeline, the CUDA graph
+    runner, the CLI, selftest, the duplicate finder, the checkpoint writer
+    and the CLI's copied pipelines, imported one by one in a fresh process,
+    checked after each."""
+    names = ("serve", "serve_ui", "client", "pipelines.classify", "ops.graphs", "cli", "selftest",
+             "pipelines.duplicates", "models.checkpoint", "index.migrate", "pipelines.check",
+             "pipelines.prune", "pipelines.export", "pipelines.merge")
+    code = (
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module('tpuclip_torch.' + name)\n"
+        "    bad = sorted(m for m in sys.modules if m in ('tpuclip', 'jax')\n"
+        "                 or m.startswith(('tpuclip.', 'jax.')))\n"
+        "    assert not bad, (name, bad)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr

@@ -116,8 +116,11 @@ def test_cli_refuses_what_is_not_ported(world, monkeypatch):
     db = str(tmp_path / "t.db")
     common = ["--db", db, "--model", MODEL, "--model-cache", str(cache), "--device", "cpu"]
     torch_cli.main(["scan", str(root / "a"), *common])
-    with pytest.raises(SystemExit):  # the interactive session
-        torch_cli.main(["search", "a red car", *common])
+    # The session is ported: on a non-tty stdin it runs the query and returns.
+    torch_cli.main(["search", "a red car", *common])
+    with pytest.raises(SystemExit) as exc:  # training is not
+        torch_cli.main(["train", str(root), "--output", str(tmp_path / "out")])
+    assert exc.value.code == 2
     monkeypatch.setenv("TPUCLIP_SEARCH_MODE", "exact")  # the CLI sets it; restored afterwards
     with pytest.raises(NotImplementedError, match="ivf"):
         torch_cli.main(["search", "a red car", "--no-session", "--mode", "ivf", *common])

@@ -1,15 +1,18 @@
-"""Command-line interface of the PyTorch port: ``scan``, ``search`` and
-``serve``.
+"""Command-line interface of the PyTorch port.
 
-Same flags as ``tpuclip scan`` / ``search`` / ``serve`` (tpuclip/cli.py),
-plus ``--device {cuda,cpu}`` (default ``cuda``; the CPU only when named).
-The REPL's line grammar (``parse_interactive_line``) is here, for serve's
-query mini-language; the interactive session and the other subcommands are
-not ported yet (ROADMAP Queue 1 item 3). Usage::
+Every subcommand of ``tpuclip`` (tpuclip/cli.py) with the same flags,
+messages and exit codes: ``scan``, ``search`` (a single query, or the
+interactive session and its mini-language), ``serve``, ``info``, ``gc``,
+``check``, ``prune``, ``migrate``, ``export``, ``merge``, ``duplicates``,
+``convert``, ``classify`` and ``selftest``. Those that load a model take
+``--device {cuda,cpu}`` (default ``cuda``; the CPU only when named).
+``train`` is not ported (ROADMAP Queue 1 item 9) and exits with status 2.
+Usage::
 
     python -m tpuclip_torch.cli scan DIR --db photos.db
-    python -m tpuclip_torch.cli search "a red car" -k 20 --db photos.db --no-session
+    python -m tpuclip_torch.cli search "a red car" -k 20 --db photos.db
     python -m tpuclip_torch.cli serve --db photos.db --port 8000 --warm
+    python -m tpuclip_torch.cli info --db photos.db
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from pathlib import Path
 from typing import List, Optional, Tuple
 
 from tpuclip_torch.config import default_paths, list_db_files, resolve_db_path
-from tpuclip_torch.utils.logging import log
+from tpuclip_torch.utils.logging import is_tty, log
 
 
 # =============================================================================
@@ -167,7 +170,6 @@ def display_query_string(spec: SearchSpec) -> str:
     return display
 
 
-
 # =============================================================================
 # Argument parser
 # =============================================================================
@@ -227,7 +229,7 @@ def build_parser() -> argparse.ArgumentParser:
     search_parser.add_argument("--db-name", default=None, help=f"Database filename in {paths.db_dir} (e.g. photos_database.db)")
     search_parser.add_argument("--model-cache", default=paths.model_cache_dir, help="Model cache directory")
     search_parser.add_argument("--output", default=None, help="Output HTML file (default: derived from the query under the results dir)")
-    search_parser.add_argument("--interactive", "-i", action="store_true", help="Interactive session mode (not ported yet: pass --no-session)")
+    search_parser.add_argument("--interactive", "-i", action="store_true", help="Interactive session mode (default when query provided)")
     search_parser.add_argument("--no-session", action="store_true", help="Exit after processing query instead of keeping session open")
     search_parser.add_argument("--folder", action="append", help="Filter results to images in this folder (repeatable)")
     search_parser.add_argument("--profile", action="store_true", help="Show performance profiling information for search")
@@ -235,6 +237,29 @@ def build_parser() -> argparse.ArgumentParser:
     search_parser.add_argument("--model", default=None, help="Model preset name (default: google/siglip2-so400m-patch14-224)")
     search_parser.add_argument("--precision", choices=["bf16", "int8"], default=None, help="Search precision: int8 quantized scan with exact re-rank (the default) or the plain bf16 scan")
     search_parser.add_argument("--mode", dest="search_mode", choices=["exact", "ivf", "cascade"], default=None, help="Search mode: exact scan (default), or cascade (packed-binary prefilter + exact fp32 rescore from the host; no flat matrix on the device); ivf is not ported yet")
+
+    # Beyond the reference surface: checkpoint conversion + fine-tuning.
+    convert_parser = subparsers.add_parser(
+        "convert", help="Convert an HF-layout checkpoint to the tpuclip-native format"
+    )
+    convert_parser.add_argument("src", help="Source checkpoint directory (HF layout) or model name in the cache")
+    convert_parser.add_argument("dst", help="Destination directory for the tpuclip checkpoint")
+    convert_parser.add_argument("--model-cache", default=paths.model_cache_dir, help="Model cache directory for name lookups")
+
+    # Parsed with tpuclip's flags, then refused: training is not ported.
+    train_parser = subparsers.add_parser(
+        "train", help="Contrastive fine-tuning on (image, sidecar-caption) pairs (not ported yet)"
+    )
+    train_parser.add_argument("data", help="Directory of images with sidecar .txt captions")
+    train_parser.add_argument("--output", required=True, help="Output directory for checkpoints")
+    train_parser.add_argument("--model", default=None, help="Model preset name")
+    train_parser.add_argument("--model-cache", default=paths.model_cache_dir, help="Model cache directory")
+    train_parser.add_argument("--steps", type=int, default=100, help="Training steps")
+    train_parser.add_argument("--batch-size", type=int, default=16, help="Global batch size")
+    train_parser.add_argument("--lr", type=float, default=1e-5, help="Learning rate")
+    train_parser.add_argument("--resume", default=None, help="Train-state directory to resume from")
+    train_parser.add_argument("--seed", type=int, default=0, help="Shuffle seed")
+    train_parser.add_argument("--optimizer", choices=["auto", "adamw", "adafactor"], default="auto", help="auto = AdamW, switching to Adafactor when the AdamW state would not fit the device")
 
     serve_parser = subparsers.add_parser(
         "serve", help="HTTP search server (resident model + device index)"
@@ -249,7 +274,105 @@ def build_parser() -> argparse.ArgumentParser:
     serve_parser.add_argument("--mode", dest="search_mode", choices=["exact", "ivf", "cascade"], default=None, help="Search mode (see search --mode)")
     serve_parser.add_argument("--warm", action="store_true", help="Capture the full serving program matrix (every batch-bucket combination, one CUDA graph each) before accepting traffic, so no live window pays a capture")
 
-    for sub in (scan_parser, search_parser, serve_parser):
+    merge_parser = subparsers.add_parser(
+        "merge", help="Merge shard databases (from sharded scans) into one"
+    )
+    merge_parser.add_argument("dst", help="Destination database path")
+    merge_parser.add_argument("srcs", nargs="+", help="Source shard database paths")
+
+    dup_parser = subparsers.add_parser(
+        "duplicates", help="Find all near-duplicate clusters in a database"
+    )
+    dup_parser.add_argument("--db", default=None, help="Database path")
+    dup_parser.add_argument("--db-name", default=None, help=f"Database filename in {paths.db_dir}")
+    dup_parser.add_argument("--tolerance", type=int, default=2, help="Hamming tolerance in bits (default: 2)")
+
+    classify_parser = subparsers.add_parser(
+        "classify", help="Zero-shot classification of one image against labels"
+    )
+    classify_parser.add_argument("image", help="Image file path")
+    classify_parser.add_argument("--labels", required=True, help="Comma-separated label list")
+    classify_parser.add_argument("--model", default=None, help="Model preset name")
+    classify_parser.add_argument("--model-cache", default=paths.model_cache_dir, help="Model cache directory")
+
+    info_parser = subparsers.add_parser("info", help="Show database summary (no model load)")
+    info_parser.add_argument("--db", default=None, help="Database path")
+    info_parser.add_argument("--db-name", default=None, help=f"Database filename in {paths.db_dir}")
+
+    gc_parser = subparsers.add_parser(
+        "gc", help="Remove orphaned thumbnails (hashes no database references)"
+    )
+    gc_parser.add_argument("--db", action="append", default=None, help="Database path to keep referenced (repeatable; default: every .db in the databases dir)")
+    gc_parser.add_argument("--dry-run", action="store_true", help="Report what would be removed without deleting")
+    gc_parser.add_argument("--decode-cache", default=None, metavar="DIR", help="Also bound the decode cache at DIR (default: $TPUCLIP_DECODE_CACHE when set)")
+    gc_parser.add_argument("--decode-cache-max-gb", type=float, default=None, help="Evict oldest decode-cache entries until under this size (omit to just report the size)")
+
+    check_parser = subparsers.add_parser(
+        "check",
+        help="Verify database integrity: orphans, blob shapes, bad vectors "
+        "(no model load); exits 1 on problems",
+    )
+    check_parser.add_argument("--db", default=None, help="Database path")
+    check_parser.add_argument("--db-name", default=None, help=f"Database filename in {paths.db_dir}")
+    check_parser.add_argument("--fix", action="store_true", help="Delete rows a rescan can rebuild (orphaned/undecodable embeddings); never touches the images table")
+
+    prune_parser = subparsers.add_parser(
+        "prune",
+        help="Remove rows whose files no longer exist on disk (no model load)",
+    )
+    prune_parser.add_argument("--db", default=None, help="Database path")
+    prune_parser.add_argument("--db-name", default=None, help=f"Database filename in {paths.db_dir}")
+    prune_parser.add_argument("--folder", action="append", default=None, help="Only check paths under this directory (repeatable)")
+    prune_parser.add_argument("--dry-run", action="store_true", help="Report what would be removed without deleting")
+
+    migrate_parser = subparsers.add_parser(
+        "migrate",
+        help="Migrate a reference-built DB (sqlite-vec vec0) to tpuclip's "
+        "embedding layout, in place",
+    )
+    migrate_parser.add_argument("--db", default=None, help="Database path")
+    migrate_parser.add_argument("--db-name", default=None, help=f"Database filename in {paths.db_dir}")
+    migrate_parser.add_argument("--dry-run", action="store_true", help="Report what would be migrated without writing")
+
+    selftest_parser = subparsers.add_parser(
+        "selftest",
+        help="Real-checkpoint bring-up drill: locate/download, convert, "
+        "load, tokenizer golden check, HF parity spot check (exit 1 on any "
+        "failure)",
+    )
+    selftest_parser.add_argument(
+        "--real-checkpoint", action="store_true",
+        help="Run against the real pretrained checkpoint (the flag documents "
+        "intent; checkpoint steps run by default)",
+    )
+    selftest_parser.add_argument(
+        "--e2e", action="store_true",
+        help="Also run the full product smoke: scan a bundled ~20-image tree "
+        "into a temp DB, text + image: searches (self-retrieval), duplicate "
+        "filter, gallery, and DB integrity check",
+    )
+    selftest_parser.add_argument(
+        "--e2e-only", action="store_true",
+        help="Run only the product smoke (skip the checkpoint bring-up steps)",
+    )
+    selftest_parser.add_argument("--model", default=None, help="Model name (default: the engine default model)")
+    selftest_parser.add_argument("--source", default=None, help="Local HF-layout checkpoint directory (skips cache lookup and download)")
+    selftest_parser.add_argument("--model-cache", default=paths.model_cache_dir, help="Model cache directory")
+    selftest_parser.add_argument("--no-download", action="store_true", help="Never attempt a network download")
+    selftest_parser.add_argument("--parity-bound", type=float, default=None, help="Min acceptable cosine vs the HF oracle (default 0.999)")
+    selftest_parser.add_argument("--skip-parity", action="store_true", help="Skip the HF/PyTorch forward parity step")
+    selftest_parser.add_argument("--convert-to", default=None, help="Directory for the converted tpuclip-native checkpoint (default: <model-cache>/tpuclip--<name>)")
+
+    export_parser = subparsers.add_parser(
+        "export", help="Export embeddings to npz/npy/jsonl for external tooling (no model load)"
+    )
+    export_parser.add_argument("output", help="Output file path")
+    export_parser.add_argument("--db", default=None, help="Database path")
+    export_parser.add_argument("--db-name", default=None, help=f"Database filename in {paths.db_dir}")
+    export_parser.add_argument("--format", default=None, choices=["npz", "npy", "jsonl"], help="Output format (default: inferred from the output extension, else npz)")
+    export_parser.add_argument("--binary", action="store_true", help="Also export the binary (sign-bit) embeddings (npz only)")
+
+    for sub in (scan_parser, search_parser, serve_parser, classify_parser, selftest_parser):
         sub.add_argument("--device", choices=["cuda", "cpu"], default="cuda", help="Device for the towers and the index (default: cuda)")
     return parser
 
@@ -273,9 +396,23 @@ def _require_db_path(args, paths) -> str:
         sys.exit(2)
 
 
+def _require_existing_db_path(args, paths) -> str:
+    """_require_db_path + existence check with the shared error contract."""
+    db_path = _require_db_path(args, paths)
+    if not os.path.exists(db_path):
+        log(f"[X] Error: Database file does not exist: {db_path}")
+        sys.exit(2)
+    return db_path
+
+
+def _model_name(args) -> str:
+    from tpuclip_torch.models.configs import DEFAULT_MODEL
+
+    return args.model or os.environ.get("TPUCLIP_MODEL", DEFAULT_MODEL)
+
+
 def _make_engine(db_path: str, args):
     from tpuclip_torch.engine import ImageDatabase
-    from tpuclip_torch.models.configs import DEFAULT_MODEL
 
     if getattr(args, "precision", None):
         os.environ["TPUCLIP_SEARCH_PRECISION"] = args.precision
@@ -285,7 +422,7 @@ def _make_engine(db_path: str, args):
     return ImageDatabase(
         db_path,
         args.model_cache or None,
-        model_name=args.model or os.environ.get("TPUCLIP_MODEL", DEFAULT_MODEL),
+        model_name=_model_name(args),
         inference_batch_size=getattr(args, "inference_batch_size", 16),
         device=args.device,
     )
@@ -357,6 +494,12 @@ def _run_scan(args, paths) -> None:
             return
 
 
+def _print_results(results) -> None:
+    log(f"\nFound {len(results)} results:")
+    for i, (file_path, similarity) in enumerate(results, 1):
+        log(f"  {i:2d}. {similarity:.4f}: {file_path}")
+
+
 def _run_search(args, paths) -> None:
     from tpuclip_torch.gallery.html import (
         combined_output_filename,
@@ -395,19 +538,16 @@ def _run_search(args, paths) -> None:
         log(f"\n[X] Error: Could not verify database schema: {e}")
         sys.exit(2)
 
-    if args.interactive or (args.query is not None and not args.no_session):
-        log(
-            "Error: the interactive session is not ported to tpuclip_torch yet "
-            "(ROADMAP Queue 1 item 3); pass --no-session for a single query."
-        )
-        sys.exit(2)
-
     log("Initializing database connection and loading model...")
     db = _make_engine(db_path, args)
 
+    if args.interactive or (args.query is not None and not args.no_session):
+        _interactive_session(db, args)
+        return
+
     # Single-shot mode (image_database.py:2300-2362)
     if not args.query:
-        log("Error: Query required")
+        log("Error: Query required (or use --interactive for session mode)")
         return
 
     if args.query2:
@@ -449,13 +589,177 @@ def _run_search(args, paths) -> None:
     else:
         output_file = args.output
 
-    display_query = args.query
-    if args.query2:
-        display_query += f" + {args.query2}"
-    if args.negative:
-        display_query += f" - {args.negative}"
+    display_query = display_query_string(
+        SearchSpec(query=args.query, query2=args.query2, negative_query=args.negative)
+    )
     db.generate_html_gallery(results, output_file, query=display_query)
     log(f"\nResults saved to {output_file}")
+
+
+def _interactive_session(db, args) -> None:
+    """The search session (image_database.py:2026-2299): one engine, so the
+    towers load once and the index uploads once unless the database
+    changes. On a non-tty stdin it runs the CLI query and returns."""
+    from tpuclip_torch.gallery.html import generate_output_filename
+
+    log("\n" + "=" * 60)
+    log("Interactive Search Session")
+    log("=" * 60)
+    if args.query:
+        log("Processing initial query, then session will remain open for more queries...")
+    else:
+        log("Model loaded and ready! Enter queries below.")
+    log("Commands:")
+    log("  - Enter a text query to search")
+    log("  - Type 'image:<path>' to search by image")
+    log("  - Type 'image:<path1> + image:<path2>' for combined image search")
+    log("  - Type 'image:<path> + <text>' or '<text> + image:<path>' for image+text search")
+    log("  - Type '<query> - <negative>' to exclude concepts")
+    log("  - Type '<query> - <neg1> - <neg2>' for multiple negatives")
+    log("  - Type 'k:<number>' to change number of results (default: 10)")
+    log("  - Type 'folder:<path>' to filter results to a folder (can use multiple times)")
+    log("  - Type 'folder:clear' to clear folder filters")
+    log("  - Type 'duplicates:show' to show duplicate images (default: hidden)")
+    log("  - Type 'duplicates:hide' to hide duplicate images (default)")
+    log("  - Type 'quit' or 'exit' to end session")
+    log("=" * 60 + "\n")
+
+    current_k = args.k
+    weights = tuple(args.weights)
+    filter_folders: List[str] = list(args.folder) if args.folder else []
+    show_duplicates = args.show_duplicates
+    negative_weight = args.negative_weight
+    interactive = is_tty()
+
+    first_cli_query = args.query
+    # An explicit --output applies to the CLI-provided query's gallery;
+    # subsequent interactive queries derive their own filenames.
+    cli_output: Optional[str] = args.output if args.query else None
+
+    while True:
+        try:
+            output_override = None
+            if first_cli_query is not None:
+                # The first iteration takes the CLI query and its modifiers;
+                # the mini-language still applies to what the CLI did not set.
+                preset = SearchSpec(
+                    query=first_cli_query,
+                    is_image=args.image,
+                    query2=args.query2,
+                    is_image2=args.image2,
+                    negative_query=args.negative,
+                    negative_is_image=args.negative_image,
+                )
+                cmd = parse_interactive_line(first_cli_query, negative_weight, preset=preset)
+                first_cli_query = None
+                if cmd.kind == "search":
+                    # --output belongs to this query only: a first query that
+                    # fails must not hand it to a later interactive query.
+                    output_override, cli_output = cli_output, None
+            else:
+                if not interactive:
+                    break
+                line = input("Query> ")
+                cmd = parse_interactive_line(line, negative_weight)
+            # Session commands apply to the CLI-provided first line too.
+            if cmd.kind == "empty":
+                continue
+            if cmd.kind == "quit":
+                log("Ending session. Goodbye!")
+                break
+            if cmd.kind == "error":
+                log(cmd.message)
+                continue
+            if cmd.kind == "set_k":
+                current_k = cmd.k
+                log(f"Number of results set to {current_k}")
+                continue
+            if cmd.kind == "folder_clear":
+                filter_folders = []
+                log("Folder filters cleared")
+                continue
+            if cmd.kind == "folder":
+                folder_abs = os.path.abspath(cmd.folder)
+                if os.path.isdir(folder_abs):
+                    if folder_abs not in filter_folders:
+                        filter_folders.append(folder_abs)
+                        log(f"Added folder filter: {folder_abs}")
+                    else:
+                        log(f"Folder already in filter list: {folder_abs}")
+                else:
+                    log(f"Warning: Folder does not exist: {folder_abs}")
+                if filter_folders:
+                    log(f"Current folder filters ({len(filter_folders)}):")
+                    for f in filter_folders:
+                        log(f"  - {f}")
+                continue
+            if cmd.kind == "duplicates":
+                show_duplicates = cmd.show_duplicates
+                log(
+                    "Duplicate images will be shown"
+                    if show_duplicates
+                    else "Duplicate images will be hidden (default)"
+                )
+                continue
+            spec = cmd.search
+
+            # Echo the parsed query (image_database.py:2215-2250)
+            if spec.query2:
+                log("\nCombined search:")
+                log(f"  Query 1: {spec.query} ({'image' if spec.is_image else 'text'})")
+                log(f"  Query 2: {spec.query2} ({'image' if spec.is_image2 else 'text'})")
+                log(f"  Weights: {weights[0]:.1f} / {weights[1]:.1f}")
+            else:
+                log(f"\nSearching for: {spec.query}")
+            if spec.negative_queries:
+                log(f"  Negatives ({len(spec.negative_queries)}): {', '.join(spec.negative_queries)}")
+            elif spec.negative_query:
+                log(f"  Negative: {spec.negative_query} ({'image' if spec.negative_is_image else 'text'})")
+            log(f"  Number of results: {current_k}")
+
+            results = db.search(
+                spec.query, k=current_k, is_image_path=spec.is_image,
+                query2=spec.query2, is_image_path2=spec.is_image2,
+                weights=weights,
+                negative_query=spec.negative_query,
+                negative_is_image=spec.negative_is_image,
+                negative_weight=negative_weight,
+                negative_queries=spec.negative_queries,
+                negative_is_images=spec.negative_is_images,
+                negative_weights=spec.negative_weights,
+                filter_folders=filter_folders if filter_folders else None,
+                profile=args.profile,
+                show_duplicates=show_duplicates,
+            )
+
+            if results:
+                _print_results(results)
+                if output_override:
+                    output_file = output_override
+                else:
+                    output_file = generate_output_filename(
+                        spec.query, spec.is_image, results_dir=Path(db.results_dir)
+                    )
+                db.generate_html_gallery(
+                    results, output_file, query=display_query_string(spec)
+                )
+                log(f"\nResults saved to {output_file}")
+            else:
+                log("No results found.")
+
+            if not interactive:
+                break
+            log("")
+        except KeyboardInterrupt:
+            log("\n\nInterrupted. Ending session.")
+            break
+        except EOFError:
+            if interactive:
+                log("\nEnding session. Goodbye!")
+            break
+        except Exception as e:  # noqa: BLE001 - the session must survive errors
+            log(f"Error: {e}")
+            continue
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -466,12 +770,245 @@ def main(argv: Optional[List[str]] = None) -> None:
         _run_scan(args, paths)
     elif args.mode == "search":
         _run_search(args, paths)
+    elif args.mode == "convert":
+        _run_convert(args)
     elif args.mode == "serve":
         from tpuclip_torch.serve import run_serve
 
         run_serve(args, paths)
+    elif args.mode == "merge":
+        from tpuclip_torch.pipelines.merge import merge_databases
+
+        merge_databases(args.dst, args.srcs)
+    elif args.mode == "classify":
+        from tpuclip_torch.pipelines.classify import run_classify
+
+        labels = [l.strip() for l in args.labels.split(",") if l.strip()]
+        if not labels:
+            log("[X] Error: --labels must contain at least one label")
+            sys.exit(2)
+        run_classify(
+            args.image, labels,
+            model_name=_model_name(args),
+            model_cache_dir=args.model_cache or None,
+            device=args.device,
+        )
+    elif args.mode == "selftest":
+        from tpuclip_torch.selftest import (
+            DEFAULT_PARITY_BOUND,
+            SelftestReport,
+            run_e2e_selftest,
+            run_selftest,
+        )
+
+        model_name = _model_name(args)
+        cache = args.model_cache or None
+        report = SelftestReport()
+        if not args.e2e_only:
+            report = run_selftest(
+                model_name=model_name,
+                model_cache_dir=cache,
+                source=args.source,
+                allow_download=not args.no_download,
+                parity_bound=(
+                    args.parity_bound if args.parity_bound is not None
+                    else DEFAULT_PARITY_BOUND
+                ),
+                skip_parity=args.skip_parity,
+                convert_dst=args.convert_to,
+                device=args.device,
+            )
+        if args.e2e or args.e2e_only:
+            run_e2e_selftest(model_name, cache, report=report, source=args.source,
+                             device=args.device)
+        if not report.ok:
+            sys.exit(1)
+    elif args.mode == "info":
+        _run_info(args, paths)
+    elif args.mode == "gc":
+        _run_gc(args, paths)
+    elif args.mode == "check":
+        from tpuclip_torch.pipelines.check import check_database
+
+        db_path = _require_existing_db_path(args, paths)
+        result = check_database(db_path, fix=args.fix)
+        if not result.ok:
+            if args.fix and result.fixed:
+                # Deletions applied: the exit code reflects the DB's state
+                # now, so `check --fix && scan` scripts work.
+                if check_database(db_path, verbose=False).ok:
+                    log("Database OK after fix.")
+                else:
+                    log("[X] Problems remain after fix.")
+                    sys.exit(1)
+            else:
+                sys.exit(1)
+    elif args.mode == "prune":
+        from tpuclip_torch.pipelines.prune import prune_missing
+
+        db_path = _require_existing_db_path(args, paths)
+        prune_missing(db_path, folders=args.folder, dry_run=args.dry_run)
+    elif args.mode == "migrate":
+        import sqlite3
+
+        from tpuclip_torch.index.migrate import migrate_reference_db
+
+        db_path = _require_existing_db_path(args, paths)
+        try:
+            migrate_reference_db(db_path, dry_run=args.dry_run)
+        except (ValueError, sqlite3.DatabaseError) as e:
+            # DatabaseError: --db pointed at a non-sqlite file.
+            log(f"[X] Error: {e}")
+            sys.exit(2)
+    elif args.mode == "export":
+        from tpuclip_torch.pipelines.export import export_embeddings
+
+        db_path = _require_existing_db_path(args, paths)
+        fmt = args.format
+        if fmt is None:
+            ext = os.path.splitext(args.output)[1].lower().lstrip(".")
+            fmt = ext if ext in ("npz", "npy", "jsonl") else "npz"
+        try:
+            export_embeddings(db_path, args.output, fmt=fmt, include_binary=args.binary)
+        except ValueError as e:
+            log(f"[X] Error: {e}")
+            sys.exit(2)
+    elif args.mode == "duplicates":
+        from tpuclip_torch.pipelines.duplicates import report_duplicates
+
+        db_path = _require_existing_db_path(args, paths)
+        report_duplicates(db_path, tolerance_bits=args.tolerance)
+    elif args.mode == "train":
+        log("[X] Error: train is not ported to tpuclip_torch yet (ROADMAP Queue 1 item 9).")
+        sys.exit(2)
     else:
         parser.print_help()
+
+
+def _run_info(args, paths) -> None:
+    """DB summary without loading the model (fast operator tool)."""
+    import sqlite3
+
+    from tpuclip_torch.index.store import MetadataStore
+
+    db_path = _require_existing_db_path(args, paths)
+    store = MetadataStore(db_path)
+    dim = store.stored_embedding_dim()
+    full, binary = store.count_embeddings()
+    images = store.count_images()
+    size_mb = os.path.getsize(db_path) / 1e6
+    log(f"Database: {db_path} ({size_mb:.1f} MB)")
+    log(f"  Images:            {images:,}")
+    log(f"  Full embeddings:   {full:,}")
+    log(f"  Binary embeddings: {binary:,}")
+    log(f"  Embedding dim:     {dim or 'unknown'}")
+    conn = sqlite3.connect(db_path)
+    try:
+        if dim and full:
+            names = {dim * 4: "fp32", dim * 2: "fp16", dim + 4: "int8"}
+            parts = [
+                f"{names.get(ln, f'{ln}B?')} x {n:,}"
+                for ln, n in conn.execute(
+                    "SELECT LENGTH(vector), COUNT(*) FROM embeddings "
+                    "GROUP BY LENGTH(vector) ORDER BY COUNT(*) DESC"
+                )
+            ]
+            log(f"  Vector storage:    {' + '.join(parts)}")
+        newest = conn.execute("SELECT MAX(created_at) FROM images").fetchone()[0]
+        log(f"  Last insert:       {newest or '-'}")
+    finally:
+        conn.close()
+    cache_dir = Path(str(db_path) + ".cache")
+    if cache_dir.exists():
+        cache_mb = sum(f.stat().st_size for f in cache_dir.iterdir()) / 1e6
+        log(f"  Matrix cache:      {cache_mb:.1f} MB ({cache_dir})")
+    else:
+        log("  Matrix cache:      not built (first search will build it)")
+    thumbs = Path(paths.thumbnails_dir)
+    if thumbs.is_dir():
+        files = [f for f in thumbs.iterdir() if f.suffix == ".jpg"]
+        thumb_mb = sum(f.stat().st_size for f in files) / 1e6
+        log(f"  Thumbnails:        {len(files):,} files, {thumb_mb:.1f} MB (reclaim orphans with `tpuclip gc`)")
+
+
+_NO_DATABASES = "No databases found; refusing to GC (every thumbnail would look orphaned)."
+
+
+def _run_gc(args, paths) -> None:
+    """Reclaim thumbnails whose content hash no database references, and
+    bound the decode cache. Keeps the hashes of every .db in the databases
+    dir unless ``--db`` names some. Where no named database exists, the
+    thumbnail GC is refused (exit 2) after the decode cache named by
+    ``--decode-cache`` is bounded; tpuclip exits before that bound."""
+    from tpuclip_torch.io.thumbnails import Thumbnailer, referenced_hashes_for_dbs
+
+    dbs = (
+        list(args.db)
+        if args.db
+        else [os.path.join(paths.db_dir, name) for name in list_db_files(paths.db_dir)]
+    )
+    dbs = [d for d in dbs if os.path.exists(d)]
+    verb = "Would remove" if args.dry_run else "Removed"
+    cache_only = args.decode_cache is not None and not args.db
+    refuse = not dbs and not cache_only
+    if refuse and args.decode_cache is None:
+        log(_NO_DATABASES)
+        sys.exit(2)
+    if dbs:
+        log(f"Scanning {len(dbs)} database(s) for referenced hashes...")
+        referenced = referenced_hashes_for_dbs(dbs)
+        log(f"  {len(referenced):,} referenced content hashes")
+        thumbnailer = Thumbnailer(paths.thumbnails_dir)
+        removed, reclaimed = thumbnailer.gc_orphans(referenced, dry_run=args.dry_run)
+        log(f"{verb} {removed:,} orphaned thumbnail(s), reclaiming {reclaimed / 1e6:.1f} MB")
+
+    # The decode cache (TPUCLIP_DECODE_CACHE) grows without bound otherwise.
+    cache_dir = args.decode_cache or os.environ.get("TPUCLIP_DECODE_CACHE")
+    if cache_dir and os.path.isdir(cache_dir):
+        from tpuclip_torch.io.prefetch import gc_decode_cache
+
+        max_bytes = (
+            int(args.decode_cache_max_gb * 1e9)
+            if args.decode_cache_max_gb is not None
+            else None
+        )
+        n, freed, kept = gc_decode_cache(cache_dir, max_bytes, dry_run=args.dry_run)
+        if max_bytes is None:
+            log(f"Decode cache: {kept / 1e9:.2f} GB at {cache_dir} "
+                "(bound it with --decode-cache-max-gb)")
+        else:
+            log(f"{verb} {n:,} decode-cache entr(ies), reclaiming "
+                f"{freed / 1e9:.2f} GB; {kept / 1e9:.2f} GB kept")
+    elif args.decode_cache is not None:
+        # An explicitly named dir that does not exist is an error, not a
+        # silent no-op.
+        log(f"[X] Error: --decode-cache {args.decode_cache} is not a directory")
+        sys.exit(2)
+    elif args.decode_cache_max_gb is not None:
+        log("[WARNING] --decode-cache-max-gb given but no decode cache dir "
+            "(pass --decode-cache DIR or set TPUCLIP_DECODE_CACHE); skipped.")
+    if refuse:
+        log(_NO_DATABASES)
+        sys.exit(2)
+
+
+def _run_convert(args) -> None:
+    """HF-layout (or tpuclip-native) checkpoint → tpuclip-native; no model
+    is built, the parameters stay numpy on the host."""
+    from tpuclip_torch.models.checkpoint import save_checkpoint
+    from tpuclip_torch.models.loader import find_local_checkpoint, load_checkpoint_dir
+
+    src = args.src
+    if not Path(src).is_dir():
+        located = find_local_checkpoint(src, args.model_cache)
+        if located is None:
+            log(f"[X] Error: {src} is neither a directory nor a cached model name")
+            sys.exit(2)
+        src = str(located)
+    log(f"Converting {src} ...")
+    cfg, params = load_checkpoint_dir(src, model_name=args.src if "/" in args.src else None)
+    save_checkpoint(args.dst, params, cfg)
+    log(f"[OK] Wrote tpuclip checkpoint: {args.dst} ({cfg.name})")
 
 
 if __name__ == "__main__":

@@ -38,7 +38,7 @@ def classify_image(
     pixels = decode_single(image_path, cfg.vision.image_size)
     if pixels is None:
         raise ValueError(f"Could not decode image: {image_path}")
-    img = model.get_image_features(torch.from_numpy(pixels[None]).to(device))[0].cpu().numpy()
+    img = model.get_image_features(torch.from_numpy(np.array(pixels[None])).to(device))[0].cpu().numpy()
 
     ids, mask = tokenizer.encode_batch_with_mask([build_prompt(t) for t in labels])
     txt = model.get_text_features(
