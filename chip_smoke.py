@@ -118,7 +118,24 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``prune --dry-run``, ``migrate --dry-run`` and ``migrate`` (on a copy
    rewritten to the reference's vec0 layout), ``merge`` and ``gc
    --dry-run`` each exit 0, and the exported, migrated and merged rows equal
-   the SQLite rows read directly.
+   the SQLite rows read directly;
+11. SigLIP2 NaFlex end to end, ``google/siglip2-so400m-patch16-naflex`` at
+   full width with random weights, bf16: 192 seeded JPEGs in six aspect
+   families (1:1, 3:1, 1:3, 8:1, 1:8 and a small 40 x 56, six patch
+   grids), ``scan`` into a new database, ``search "a red car"`` and
+   ``search --image`` through tpuclip_torch.cli against a brute force over
+   the stored rows (the query image first); stored rows unit-norm and
+   within 5e-3 (cosine >= 0.999) of the single-image path; the bf16 tower
+   against the same weights in fp32 (cosine >= 0.999); the fused NaFlex
+   programs (the lone image, mixed 1+1, 4+4, 16+16) over phase 3's 1M
+   resident rows as CUDA graphs, bit-equal to eager and id-identical to
+   the two-stage route (scores within 1e-6), with their device p50s,
+   capture seconds and pool bytes; ``serve`` on the NaFlex database
+   (``warm_programs`` 24 calls and 21 graphs, a text and an image_b64
+   /search, /search_batch, /embed, /classify and a 4 + 4 burst with a
+   mixed window, each equal to the two-stage route). Kernels 1 and 2 must
+   count exactly the fused search's runs in the phase (each run outside a
+   graph capture, and each graph replay), every other kernel 0.
    Neither jax nor the JAX package (tpuclip) may ever have been imported.
 
 The last two lines are the kernels' JSON record and then
@@ -132,8 +149,9 @@ per SM per clock at 1.98 GHz, kernels 6 and 7's b1 AND + add at the rate
 phase 2 measures), at the recorded case's shapes; ``launches`` counts
 phase 4's path for kernels 1 and 2, and their ``launches_fused`` and
 ``launches_serve`` phases 8's and 9's; every kernel's ``launches_session``
-counts phase 10's session (0 where the session does not run it); each count
-is zeroed just before its path runs. ``library_ms`` is null
+counts phase 10's session (0 where the session does not run it) and its
+``launches_naflex`` phase 11's NaFlex path; each count is zeroed just
+before its path runs. ``library_ms`` is null
 (no single PyTorch call computes any of these functions) and
 ``nearest_ms`` times the nearest route of PyTorch calls, where there is
 one. Kernels 4 and 8 also carry ``kernel_ms``, the kernel's own launch
@@ -142,6 +160,7 @@ one. Kernels 4 and 8 also carry ``kernel_ms``, the kernel's own launch
 
 import argparse
 import ctypes
+import functools
 import json
 import os
 import sqlite3
@@ -1026,6 +1045,18 @@ def brute_force(rows_bf16, q, k):
     return order, scores[order]
 
 
+def check_brute_force(results, q, rows_bf16, row_of, what):
+    """CLI results (duplicates filtered) in the brute-force order over the
+    stored rows, scores within 1e-5."""
+    want_rows, want_scores = brute_force(rows_bf16, q, K)
+    got_rows = [row_of[p] for p, _ in results]
+    check(len(got_rows) > 0 and got_rows == [r for r in want_rows if r in set(got_rows)],
+          f"{what}: results are not the brute-force order")
+    want_of = dict(zip(want_rows.tolist(), want_scores.tolist()))
+    err = max(abs(s - want_of[r]) for r, (_, s) in zip(got_rows, results))
+    check(err <= 1e-5, f"{what}: scores off brute force by {err}")
+
+
 def phase_end_to_end(mods, gpu, work):
     """Phase 4: returns (launches of kernels 1 and 2, database, model cache,
     engine)."""
@@ -1107,15 +1138,7 @@ def phase_end_to_end(mods, gpu, work):
     check(len(captured) == 1 and captured[0], "the CLI search returned no results")
     # The CLI's single query takes the exact shortlist over every row, so its
     # results are the brute-force order (less duplicates, which it filters).
-    q_cli = engine.embed_texts(["a red car"])[0]
-    want_rows, want_scores = brute_force(rows_bf16, q_cli, K)
-    cli_rows = [row_of[p] for p, _ in captured[0]]
-    check(cli_rows == [r for r in want_rows if r in set(cli_rows)],
-          "CLI search results are not the brute-force order")
-    cli_scores = np.array([s for _, s in captured[0]])
-    want_of = dict(zip(want_rows.tolist(), want_scores.tolist()))
-    err = max(abs(s - want_of[r]) for r, s in zip(cli_rows, cli_scores))
-    check(err <= 1e-5, f"CLI search scores off brute force by {err}")
+    check_brute_force(captured[0], engine.embed_texts(["a red car"])[0], rows_bf16, row_of, "CLI search")
 
     q_vecs = engine.embed_texts(texts)
     check(np.abs(np.linalg.norm(q_vecs, axis=1) - 1).max() <= 1e-3, "text embeddings off unit norm")
@@ -1560,6 +1583,144 @@ def phase_fused_programs(mods, gpu, resident, engine):
     return launches
 
 
+def http_call(srv, statuses, path, payload=None):
+    """GET ``path`` of ``srv`` (POST ``payload`` as JSON); the status goes
+    to ``statuses``, the parsed body is returned."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{srv.port}{path}", method="POST" if payload is not None else "GET",
+        data=None if payload is None else json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"},
+    )
+    with urllib.request.urlopen(req, timeout=300) as r:
+        statuses.append(r.status)
+        return json.loads(r.read())
+
+
+def serve_burst(srv, engine, call, payloads):
+    """``payloads`` to /search at once behind a barrier, in one batcher
+    window: returns (the answers, the mixed windows among them, the
+    batcher's calls into the engine, for references at the same batch
+    shapes)."""
+    import threading
+
+    engine_calls = []
+    names = ("_search_texts_fused", "_search_image_fused", "_search_mixed_fused", "embed_pils")
+    for name in names:
+        def spy(*args, _name=name, _fn=getattr(engine, name)):
+            engine_calls.append((_name, args))
+            return _fn(*args)
+        setattr(engine, name, spy)
+    answers = [None] * len(payloads)
+    barrier = threading.Barrier(len(payloads))
+
+    def fire(i):
+        barrier.wait(timeout=60)
+        answers[i] = call("/search", payloads[i])
+
+    try:
+        mixed_before = srv.batcher.stats()["mixed_windows"]
+        srv.batcher.window_s = 0.2  # the burst lands in one window
+        workers = [threading.Thread(target=fire, args=(i,)) for i in range(len(payloads))]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=300)
+        srv.batcher.window_s = 0.002
+        mixed = srv.batcher.stats()["mixed_windows"] - mixed_before
+    finally:
+        for name in names:
+            engine.__dict__.pop(name, None)
+    check(all(a is not None for a in answers), "a burst request got no answer")
+    check(mixed >= 1, "the burst of texts and uploads formed no mixed window")
+    return answers, mixed, engine_calls
+
+
+def bucketed_image_embs(engine, images):
+    """The vision tower on ``images`` padded to their ladder bucket, as a
+    fused mixed program runs it; the real rows, on the host."""
+    from tpuclip_torch.utils.bucketing import batch_bucket
+
+    rows = batch_bucket(len(images))
+    if engine.is_naflex:
+        inputs = [torch.from_numpy(x).cuda() for x in engine._naflex_inputs(images, rows)]
+        out = engine.model.get_image_features_naflex(*inputs)
+    else:
+        out = engine.model.get_image_features(torch.from_numpy(engine._pixels_bucketed(images)).cuda())
+    return out[: len(images)].cpu().numpy()
+
+
+def same_served(engine, body, want, what, dedup=True):
+    """A served result list against the two-stage route's (deduplicated as
+    the server does): the same paths, scores within 1e-6; returns the
+    largest score difference."""
+    from tpuclip_torch.index.dedup import filter_duplicates
+
+    want = filter_duplicates(engine.store, want) if dedup and want else want
+    got = [(r["path"], r["similarity"]) for r in body]
+    check(len(got) > 0 and [p for p, _ in got] == [p for p, _ in want],
+          f"{what}: paths differ from the two-stage route")
+    err = max(abs(s - w) for (_, s), (_, w) in zip(got, want))
+    check(err <= 1e-6, f"{what}: scores off the two-stage route by {err}")
+    return err
+
+
+def check_served(engine, b64, upload, batch, embed, labels, classify, burst_payloads, burst, engine_calls):
+    """The answers of an upload /search (``b64``), a /search_batch of
+    TEXTS, /embed (TEXTS[:2] and ``b64``), /classify (``b64``, ``labels``)
+    and a burst against the two-stage route: the towers at the same batch
+    shapes, the embeddings on the host, then ``index.search_batch``;
+    returns the score differences."""
+    import base64
+
+    from tpuclip_torch.io.decode import load_image_bytes
+    from tpuclip_torch.pipelines.classify import classify_pil
+
+    index = engine.index
+    same = functools.partial(same_served, engine)
+
+    def pil(b):
+        return load_image_bytes(base64.b64decode(b), "<bytes>")
+
+    by_text, by_image = {}, {}
+    for name, args in engine_calls:
+        if name == "_search_texts_fused":
+            texts, k = args
+            for t, res in zip(texts, index.search_batch(engine.embed_texts(texts), k)):
+                by_text[t] = res
+        elif name == "_search_mixed_fused":
+            texts, images, k = args
+            embs = np.concatenate([engine.embed_texts(texts), bucketed_image_embs(engine, images)])
+            res = index.search_batch(embs, k)
+            by_text.update(zip(texts, res[: len(texts)]))
+            by_image.update((np.asarray(im).tobytes(), r) for im, r in zip(images, res[len(texts):]))
+        else:
+            images = [args[0]] if name == "_search_image_fused" else list(args[0])
+            res = index.search_batch(engine.embed_pils(images), K)
+            by_image.update((np.asarray(im).tobytes(), r) for im, r in zip(images, res))
+
+    errs = [same(upload["results"], index.search_batch(engine.embed_pils([pil(b64)]), K)[0], "image_b64 /search")]
+    for q, body, want in zip(TEXTS, batch["results"], index.search_batch(engine.embed_texts(TEXTS), K)):
+        errs.append(same(body, want, f"/search_batch {q!r}", dedup=False))
+    for payload, body in zip(burst_payloads, burst):
+        if "query" in payload:
+            errs.append(same(body["results"], by_text[payload["query"]], f"burst text {payload['query']!r}"))
+        else:
+            key = np.asarray(pil(payload["image_b64"])).tobytes()
+            errs.append(same(body["results"], by_image[key], "burst upload"))
+    emb_err = max(
+        float(np.abs(np.asarray(embed["text_embeddings"]) - engine.embed_texts(TEXTS[:2])).max()),
+        float(np.abs(np.asarray(embed["image_b64_embeddings"][0]) - engine._embed_pil(pil(b64))).max()),
+    )
+    check(emb_err <= 1e-6, f"/embed off the engine's embeddings by {emb_err}")
+    want = classify_pil(engine, pil(b64), labels)
+    check([r["label"] for r in classify["labels"]] == [l for l, _, _ in want]
+          and all(abs(r["prob"] - p) <= 1e-6 for r, (_, p, _) in zip(classify["labels"], want)),
+          f"/classify differs from classify_pil: {classify['labels']} vs {want}")
+    return errs
+
+
 def phase_serve(mods, gpu, work, db):
     """Phase 9: ``SearchServer`` end to end on phase 4's database, the
     rerank rows forced on; returns the launches of kernels 1 and 2 in this
@@ -1570,8 +1731,6 @@ def phase_serve(mods, gpu, work, db):
 
     from tpuclip_torch.engine import ImageDatabase
     from tpuclip_torch.index.dedup import filter_duplicates
-    from tpuclip_torch.io.decode import load_image_bytes
-    from tpuclip_torch.pipelines.classify import classify_pil
     from tpuclip_torch.serve import SearchServer, warm_programs
 
     from tpuclip_torch import cli
@@ -1613,19 +1772,10 @@ def phase_serve(mods, gpu, work, db):
     labels = ["a red car", "a photo of noise", "a city at night"]
     statuses = []
 
-    def call(path, payload=None):
-        req = urllib.request.Request(
-            f"http://127.0.0.1:{srv.port}{path}", method="POST" if payload is not None else "GET",
-            data=None if payload is None else json.dumps(payload).encode(),
-            headers={"Content-Type": "application/json"},
-        )
-        with urllib.request.urlopen(req, timeout=300) as r:
-            statuses.append(r.status)
-            return json.loads(r.read())
-
     ops.int8_scores.launches = 0
     ops.int8_candidates_packed.launches = 0
     srv = SearchServer(engine, host="127.0.0.1", port=0)
+    call = functools.partial(http_call, srv, statuses)
     t0 = time.perf_counter()
     warmed = warm_programs(engine)
     warm_s = time.perf_counter() - t0
@@ -1645,103 +1795,22 @@ def phase_serve(mods, gpu, work, db):
     embed = call("/embed", {"texts": TEXTS[:2], "images_b64": b64[:1]})
     classify = call("/classify", {"image_b64": b64[0], "labels": labels})
 
-    # The burst: the batcher's calls into the engine are recorded, for
-    # references at the same batch shapes.
-    engine_calls = []
-    for name in ("_search_texts_fused", "_search_image_fused", "_search_mixed_fused", "embed_pils"):
-        def spy(*args, _name=name, _fn=getattr(engine, name)):
-            engine_calls.append((_name, args))
-            return _fn(*args)
-        setattr(engine, name, spy)
-    try:
-        mixed_before = srv.batcher.stats()["mixed_windows"]
-        srv.batcher.window_s = 0.2  # the burst lands in one window
-        burst_payloads = [{"query": q, "k": K} for q in TEXTS] + [{"image_b64": b, "k": K} for b in b64[1:5]]
-        burst = [None] * len(burst_payloads)
-        barrier = threading.Barrier(len(burst_payloads))
-
-        def fire(i):
-            barrier.wait(timeout=60)
-            burst[i] = call("/search", burst_payloads[i])
-
-        workers = [threading.Thread(target=fire, args=(i,)) for i in range(len(burst_payloads))]
-        for w in workers:
-            w.start()
-        for w in workers:
-            w.join(timeout=300)
-        srv.batcher.window_s = 0.002
-        torch.cuda.synchronize()
-        launches = {"int8_scores": ops.int8_scores.launches,
-                    "int8_candidates_packed": ops.int8_candidates_packed.launches}
-        mixed = srv.batcher.stats()["mixed_windows"] - mixed_before
-    finally:
-        for name in ("_search_texts_fused", "_search_image_fused", "_search_mixed_fused", "embed_pils"):
-            engine.__dict__.pop(name, None)
+    burst_payloads = [{"query": q, "k": K} for q in TEXTS] + [{"image_b64": b, "k": K} for b in b64[1:5]]
+    burst, mixed, engine_calls = serve_burst(srv, engine, call, burst_payloads)
+    torch.cuda.synchronize()
+    launches = {"int8_scores": ops.int8_scores.launches,
+                "int8_candidates_packed": ops.int8_candidates_packed.launches}
     print(f"[serve] kernel launches in this phase: {launches}; mixed windows in the burst: {mixed}", flush=True)
     check(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
-    check(all(b is not None for b in burst), "a burst request got no answer")
-    check(mixed >= 1, "the burst of texts and uploads formed no mixed window")
     check(health == {"status": "ok", "model": engine.model_name}, f"/health answered {health}")
     check(stats["images"] == N_IMAGES and stats["search_precision"] == "int8", f"/stats answered {stats}")
 
-    # The two-stage references: the towers at the same batch shapes, the
-    # embeddings on the host, then index.search_batch, dedup as the server.
     index = engine.index
-
-    def pil(b):
-        return load_image_bytes(base64.b64decode(b), "<bytes>")
-
-    def image_embs(images):
-        pixels = torch.from_numpy(engine._pixels_bucketed(images)).cuda()
-        return engine.model.get_image_features(pixels)[: len(images)].cpu().numpy()
-
-    by_text, by_image = {}, {}
-    for name, args in engine_calls:
-        if name == "_search_texts_fused":
-            texts, k = args
-            for t, res in zip(texts, index.search_batch(engine.embed_texts(texts), k)):
-                by_text[t] = res
-        elif name == "_search_mixed_fused":
-            texts, images, k = args
-            res = index.search_batch(np.concatenate([engine.embed_texts(texts), image_embs(images)]), k)
-            by_text.update(zip(texts, res[: len(texts)]))
-            by_image.update((np.asarray(im).tobytes(), r) for im, r in zip(images, res[len(texts):]))
-        else:
-            images = [args[0]] if name == "_search_image_fused" else list(args[0])
-            res = index.search_batch(engine.embed_pils(images), K)
-            by_image.update((np.asarray(im).tobytes(), r) for im, r in zip(images, res))
-
-    def same(body, want, what, dedup=True):
-        want = filter_duplicates(engine.store, want) if dedup and want else want
-        got = [(r["path"], r["similarity"]) for r in body]
-        check(len(got) > 0 and [p for p, _ in got] == [p for p, _ in want],
-              f"{what}: paths differ from the two-stage route")
-        err = max(abs(s - w) for (_, s), (_, w) in zip(got, want))
-        check(err <= 1e-6, f"{what}: scores off the two-stage route by {err}")
-        return err
-
+    same = functools.partial(same_served, engine)
     errs = [same(text["results"], index.search_batch(engine.embed_texts(["a yellow taxi"]), K)[0], "text /search")]
     want = engine.search("a red car", k=K, query2="blue sky", negative_query="night")
     errs.append(same(algebra["results"], want, "mini-language /search", dedup=False))
-    want = index.search_batch(engine.embed_pils([pil(b64[0])]), K)[0]
-    errs.append(same(upload["results"], want, "image_b64 /search"))
-    for q, body, want in zip(TEXTS, batch["results"], index.search_batch(engine.embed_texts(TEXTS), K)):
-        errs.append(same(body, want, f"/search_batch {q!r}", dedup=False))
-    for payload, body in zip(burst_payloads, burst):
-        if "query" in payload:
-            errs.append(same(body["results"], by_text[payload["query"]], f"burst text {payload['query']!r}"))
-        else:
-            key = np.asarray(pil(payload["image_b64"])).tobytes()
-            errs.append(same(body["results"], by_image[key], "burst upload"))
-    emb_err = max(
-        float(np.abs(np.asarray(embed["text_embeddings"]) - engine.embed_texts(TEXTS[:2])).max()),
-        float(np.abs(np.asarray(embed["image_b64_embeddings"][0]) - engine._embed_pil(pil(b64[0]))).max()),
-    )
-    check(emb_err <= 1e-6, f"/embed off the engine's embeddings by {emb_err}")
-    want = classify_pil(engine, pil(b64[0]), labels)
-    check([r["label"] for r in classify["labels"]] == [l for l, _, _ in want]
-          and all(abs(r["prob"] - p) <= 1e-6 for r, (_, p, _) in zip(classify["labels"], want)),
-          f"/classify differs from classify_pil: {classify['labels']} vs {want}")
+    errs += check_served(engine, b64[0], upload, batch, embed, labels, classify, burst_payloads, burst, engine_calls)
 
     latencies = []
     before = srv.batcher.stats()
@@ -2023,6 +2092,267 @@ def phase_cli(gpu, work, db):
         "selftest_e2e_s": selftest_s, "commands_s": commands_s, "launches": launches}), flush=True)
     return launches
 
+NAFLEX_MODEL = "google/siglip2-so400m-patch16-naflex"
+N_NAFLEX = 192
+# (height, width) of the six aspect families: square, landscape 3:1,
+# portrait 1:3, landscape 8:1, portrait 1:8, and a small 40 x 56.
+NAFLEX_SIZES = [(256, 256), (128, 384), (384, 128), (64, 512), (512, 64), (40, 56)]
+NAFLEX_PROGRAMS = [("naflex_image", 0, 1)] + [("naflex_mixed", b, b) for b in (1, 4, 16)]
+
+
+def write_naflex_jpegs(root):
+    """N_NAFLEX seeded JPEGs, the aspect families in turn, one folder each."""
+    from PIL import Image
+
+    rng = np.random.default_rng(11)
+    for i in range(N_NAFLEX):
+        h, w = NAFLEX_SIZES[i % len(NAFLEX_SIZES)]
+        folder = root / f"{h}x{w}"
+        folder.mkdir(parents=True, exist_ok=True)
+        arr = np.clip(rng.integers(0, 256, (1, 1, 3)) + rng.integers(-40, 40, (h, w, 3)), 0, 255)
+        Image.fromarray(arr.astype(np.uint8)).save(folder / f"img_{i:04d}.jpg", quality=90)
+
+
+@contextmanager
+def search_runs(ops):
+    """Counts, while open, the runs of the fused int8 search by the kernel
+    each runs once (the ``exact`` shortlist kernel 1, ``extract`` kernel 2;
+    k <= 128 here): every call of ``topk_int8_rerank_fused`` outside a CUDA
+    graph capture, and every replay of a graph by ``FusedGraphs.run``, under
+    its key's method."""
+    from tpuclip_torch.ops.graphs import FusedGraphs
+
+    kernel_of = {"exact": "int8_scores", "extract": "int8_candidates_packed"}
+    runs = dict.fromkeys(kernel_of.values(), 0)
+    search, run = ops.topk_int8_rerank_fused, FusedGraphs.run
+
+    def search_spy(*args, **kwargs):
+        if not torch.cuda.is_current_stream_capturing():
+            runs[kernel_of[kwargs.get("shortlist_method", "extract")]] += 1
+        return search(*args, **kwargs)
+
+    def run_spy(self, key, program, host_inputs):
+        out = run(self, key, program, host_inputs)
+        runs[kernel_of[key[-1]]] += 1
+        return out
+
+    ops.topk_int8_rerank_fused, FusedGraphs.run = search_spy, run_spy
+    try:
+        yield runs
+    finally:
+        ops.topk_int8_rerank_fused, FusedGraphs.run = search, run
+
+
+def phase_naflex(mods, gpu, work, resident):
+    """Phase 11: SigLIP2 so400m-patch16-naflex end to end; returns every
+    counted kernel's launches in the phase."""
+    import base64
+
+    from tpuclip_torch import cli
+    from tpuclip_torch.engine import ImageDatabase
+    from tpuclip_torch.io.decode import load_image
+    from tpuclip_torch.io.preprocess import naflex_target_size
+    from tpuclip_torch.models.siglip import build_model
+    from tpuclip_torch.ops._counters import COUNTED
+    from tpuclip_torch.ops.graphs import FusedGraphs
+    from tpuclip_torch.serve import SearchServer, warm_programs
+
+    ops = mods[0]
+    rows, m, scales = resident
+    root, db, cache = work / "naflex_images", str(work / "naflex.db"), str(work / "models")
+    write_naflex_jpegs(root)
+    files = sorted(root.rglob("*.jpg"))
+    grids = {f"{h}x{w}": "x".join(str(d // 16) for d in naflex_target_size(h, w, 16, 256))
+             for h, w in NAFLEX_SIZES}
+    check(len(set(grids.values())) == len(grids), f"two aspect families share a patch grid: {grids}")
+    print(f"[naflex] wrote {len(files)} JPEGs; image (h x w) -> patch grid (h x w): {grids}", flush=True)
+
+    env = {"TPUCLIP_SEARCH_PRECISION": "int8", "TPUCLIP_SEARCH_MODE": "exact", "TPUCLIP_DEVICE_RERANK": "1"}
+    saved_env = {key: os.environ.get(key) for key in env}
+    saved = (ImageDatabase.scan_directory, ImageDatabase.generate_html_gallery)
+    scan_seconds, galleries, statuses = [], [], []
+
+    def timed_scan(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = saved[0](self, *args, **kwargs)
+        torch.cuda.synchronize()
+        scan_seconds.append(time.perf_counter() - t0)
+        return out
+
+    query_file = files[7]
+    model_args = ["--db", db, "--model", NAFLEX_MODEL, "--model-cache", cache]
+    texts = [f"{TEXTS[i % len(TEXTS)]}, photo {i}" for i in range(16)]
+    spread = [load_image(str(f)) for f in files[::12]]  # 16 images, every family
+    b64 = [base64.b64encode(f.read_bytes()).decode() for f in files[3::37]]  # 5 uploads
+    labels = ["a red car", "a photo of noise", "a city at night"]
+    tail = (m, scales, rows, K, N_ROWS)
+    graphs = FusedGraphs("cuda")
+    cases = []
+    os.environ.update(env)
+    ImageDatabase.scan_directory = timed_scan
+    ImageDatabase.generate_html_gallery = lambda self, results, *a, **kw: galleries.append(list(results))
+    try:
+        with search_runs(ops) as runs:
+            for wrapper in COUNTED:
+                wrapper.launches = 0
+            cli.main(["scan", str(root), *model_args, "--inference-batch-size", "64"])
+            cli.main(["search", "a red car", "-k", str(K), *model_args, "--no-session"])
+            cli.main(["search", str(query_file), "--image", "-k", str(K), *model_args, "--no-session"])
+            engine = ImageDatabase(db, cache, model_name=NAFLEX_MODEL, inference_batch_size=64)
+            model = engine.model
+            # The fused NaFlex programs over phase 3's 1M resident rows,
+            # through a graph runner as the index's: warm-up, capture, replay.
+            for kind, nt, ni in NAFLEX_PROGRAMS:
+                host = list(engine._tokenize_bucketed(texts[:nt])) if nt else []
+                host += engine._naflex_inputs(spread[:ni], ni)
+                method = ops.resolve_shortlist_method(nt + ni)
+                key = (kind, nt, ni, K, method)
+                program = naflex_program(ops, model, kind, tail, method)
+                before = graphs.capture_seconds
+                out = graphs.run(key, program, host)
+                cases.append((key, program, host, out, graphs.capture_seconds - before))
+            # serve on the NaFlex database.
+            srv = SearchServer(engine, host="127.0.0.1", port=0)
+            call = functools.partial(http_call, srv, statuses)
+            t0 = time.perf_counter()
+            warmed = warm_programs(engine, k=K)  # the requests' k: each replays a warm graph
+            warm_s = time.perf_counter() - t0
+            serve_graphs, n_warm = engine.index._graphs, len(engine.index._graphs)
+            serve_pool = serve_graphs.pool_bytes()
+            thread = srv.start_background()
+            text = call("/search", {"query": "a yellow taxi", "k": K})
+            upload = call("/search", {"image_b64": b64[0], "k": K})
+            batch = call("/search_batch", {"queries": TEXTS, "k": K})
+            embed = call("/embed", {"texts": TEXTS[:2], "images_b64": b64[:1]})
+            classify = call("/classify", {"image_b64": b64[0], "labels": labels})
+            burst_payloads = [{"query": q, "k": K} for q in TEXTS] + [{"image_b64": b, "k": K} for b in b64[1:5]]
+            burst, mixed, engine_calls = serve_burst(srv, engine, call, burst_payloads)
+            srv.shutdown()
+            thread.join(timeout=30)
+            torch.cuda.synchronize()
+            launches = {wrapper.__name__: wrapper.launches for wrapper in COUNTED}
+    finally:
+        ImageDatabase.scan_directory, ImageDatabase.generate_html_gallery = saved
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    print(f"[naflex] kernel launches in this phase: {launches}; the fused search's runs: {runs}", flush=True)
+    check(all(launches[name] == n > 0 for name, n in runs.items()),
+          f"kernels 1 and 2 launched {launches}, not once per run of the search {runs}")
+    check(all(n == 0 for name, n in launches.items() if name not in runs),
+          f"a kernel off the NaFlex path was launched: {launches}")
+    check(not thread.is_alive() and not srv.batcher._thread.is_alive(), "the server did not shut down")
+    check(all(code == 200 for code in statuses), f"statuses other than 200: {statuses}")
+
+    # scan: every image stored, unit norm.
+    check(len(scan_seconds) == 1, "scan did not run")
+    rate = N_NAFLEX / scan_seconds[0]
+    ids, vectors = engine.index.cache.load()
+    vectors = np.array(vectors, np.float32)
+    check(len(ids) == N_NAFLEX, f"{len(ids)} rows indexed, expected {N_NAFLEX}")
+    norm_err = float(np.abs(np.linalg.norm(vectors, axis=1) - 1).max())
+    check(norm_err <= 1e-3, f"NaFlex embeddings off unit norm by {norm_err}")
+    paths = engine.store.fetch_paths_for_ids(ids)
+    row_of = {paths[int(i)]: r for r, i in enumerate(ids)}
+    pixels64 = [torch.from_numpy(x).cuda() for x in engine._naflex_inputs([load_image(str(f)) for f in files[:64]], 64)]
+    vision_ms = p50_ms(lambda: model.get_image_features_naflex(*pixels64), 5)
+    print(f"[naflex] scan: {N_NAFLEX} images in {scan_seconds[0]:.3f} s = {rate:.1f} images/s "
+          f"(scan_directory, batch 64, so400m-patch16-naflex bf16 random weights); NaFlex vision tower "
+          f"alone, batch 64 p50 {vision_ms:.2f} ms = {64e3 / vision_ms:.1f} images/s  ({gpu})", flush=True)
+
+    # Batch invariance: each stored row (batch 64, pad rows in the last
+    # batch) against the single-image path; bf16 on the card.
+    single = np.stack([engine._embed_pil(load_image(paths[int(i)])) for i in ids])
+    inv_err = float(np.abs(single - vectors).max())
+    inv_cos = float(np.min(np.sum(single * vectors, axis=1)))
+    check(inv_err <= 5e-3 and inv_cos >= 0.999,
+          f"stored rows off the single-image path: max diff {inv_err}, min cosine {inv_cos}")
+    # bf16 against the same weights in fp32 (TF32 off), at batch 64.
+    f32 = build_model(engine.config, torch.device("cuda"), torch.float32)
+    f32.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+    e16 = model.get_image_features_naflex(*pixels64).cpu().numpy()
+    e32 = f32.get_image_features_naflex(*pixels64).cpu().numpy()
+    del f32
+    torch.cuda.empty_cache()
+    f32_cos = float(np.min(np.sum(e16 * e32, axis=1)
+                           / (np.linalg.norm(e16, axis=1) * np.linalg.norm(e32, axis=1))))
+    check(f32_cos >= 0.999, f"the bf16 NaFlex tower against fp32: cosine {f32_cos} < 0.999")
+    print(f"[naflex] stored rows against the single-image path: max diff {inv_err:.2e}, min cosine "
+          f"{inv_cos:.6f}; bf16 tower against the same weights in fp32: min cosine {f32_cos:.6f}; "
+          f"embeddings unit-norm (max error {norm_err:.2e})", flush=True)
+
+    # CLI searches against a brute force over the stored rows.
+    check(len(galleries) == 2, f"the CLI searches produced {len(galleries)} galleries, expected 2")
+    rows_bf16 = torch.from_numpy(vectors).to(torch.bfloat16)
+    check_brute_force(galleries[0], engine.embed_texts(["a red car"])[0], rows_bf16, row_of, "CLI text search")
+    check_brute_force(galleries[1], engine._embed_pil(load_image(str(query_file))), rows_bf16, row_of,
+                      "CLI search --image")
+    check(galleries[1][0][0] == str(query_file), "search --image does not rank its own image first")
+    print(f"[naflex] CLI search (text) and search --image: {len(galleries[0])} and {len(galleries[1])} "
+          f"results in the brute-force order over the {N_NAFLEX} stored rows; the query image first",
+          flush=True)
+
+    # The fused programs: graph, eager and two-stage.
+    report = []
+    for key, program, host, (s_g, r_g), capture_s in cases:
+        kind, nt, ni, _, method = key
+        name = f"{kind} {nt}+{ni}" if nt else f"{kind} {ni}"
+        dev = [torch.from_numpy(x).cuda() for x in host]
+        s_e, r_e = (x.cpu().numpy() for x in program(*dev))
+        parts = [model.get_text_features(*dev[:2]).cpu()] if nt else []
+        parts.append(model.get_image_features_naflex(*dev[-3:]).cpu())
+        s_2, r_2 = (x.cpu().numpy() for x in ops.topk_int8_rerank_fused_auto(
+            torch.cat(parts).cuda(), m, scales, rows, K, n_valid=N_ROWS))
+        check(np.array_equal(r_g, r_e) and np.array_equal(r_g, r_2),
+              f"fused {name}: graph, eager and two-stage ids differ")
+        check(np.array_equal(s_g, s_e), f"fused {name}: graph scores are not bit-equal to eager")
+        err = float(np.abs(s_g - s_2).max())
+        check(err <= 1e-6 and np.isfinite(s_g).all() and s_g.shape == (nt + ni, K),
+              f"fused {name}: scores off the two-stage route by {err}, or shape {s_g.shape}")
+        graph_ms = p50_ms(graphs._graphs[key].graph.replay, 20)
+        eager_ms = p50_ms(lambda: program(*dev), 20)
+        report.append({"program": name, "method": method, "graph_ms": graph_ms, "eager_ms": eager_ms,
+                       "capture_s": capture_s, "max_err_two_stage": err})
+        print(f"[naflex] fused {name} ({method}): ids identical (graph, eager, two-stage), graph bit-equal "
+              f"to eager, max diff {err:.2e} to two-stage; device p50 graph {graph_ms:.4f} ms vs eager "
+              f"{eager_ms:.4f} ms; capture {capture_s:.3f} s  ({gpu})", flush=True)
+    pool_bytes = graphs.pool_bytes()
+    print(f"[naflex] {len(graphs)} graphs over {N_ROWS:,} rows captured in {graphs.capture_seconds:.3f} s; "
+          f"their pool holds {pool_bytes:,} bytes  ({gpu})", flush=True)
+    del graphs, cases
+
+    # serve: the warm matrix, then every answer against the two-stage route.
+    check(warmed == 24 and n_warm == 21,
+          f"warm_programs made {warmed} calls and {n_warm} graphs, expected 24 and 21")
+    check(len(serve_graphs) == 21, f"the requests captured {len(serve_graphs) - 21} graph(s) past the warm matrix")
+    errs = [same_served(engine, text["results"], engine.index.search_batch(engine.embed_texts(["a yellow taxi"]),
+                                                                          K)[0], "text /search")]
+    errs += check_served(engine, b64[0], upload, batch, embed, labels, classify, burst_payloads, burst, engine_calls)
+    print(f"[naflex] serve: warm_programs {warmed} calls, {len(serve_graphs)} graphs in {warm_s:.3f} s "
+          f"(capture {serve_graphs.capture_seconds:.3f} s), pool {serve_pool:,} bytes, each request a replay; "
+          f"text /search, "
+          f"image_b64 /search, 4-text /search_batch, /embed, /classify and a burst of 4 texts + 4 uploads "
+          f"({mixed} mixed window(s)): {len(statuses)} responses, all 200, equal to the two-stage route "
+          f"(max score diff {max(errs):.2e})  ({gpu})", flush=True)
+    print("[phase11-json] " + json.dumps({
+        "gpu": gpu, "grids": grids, "scan_images_per_s": rate, "scan_s": scan_seconds[0],
+        "vision_batch64_ms": vision_ms, "batch_invariance_max_diff": inv_err,
+        "batch_invariance_min_cos": inv_cos, "bf16_vs_fp32_min_cos": f32_cos, "programs": report,
+        "pool_bytes": pool_bytes, "warm_calls": warmed, "warm_s": warm_s,
+        "serve_capture_s": serve_graphs.capture_seconds, "serve_pool_bytes": serve_pool,
+        "mixed_windows": mixed, "launches": launches}), flush=True)
+    return launches
+
+
+def naflex_program(ops, model, kind, tail, method):
+    """The fused NaFlex program ``kind`` over the resident ``tail`` (m,
+    scales, rows, k, n_valid) as a function of its host inputs."""
+    if kind == "naflex_image":
+        return lambda p, pm, s: ops.naflex_image_topk_fused(model, p, pm, s, *tail, shortlist_method=method)
+    return lambda i, a, p, pm, s: ops.mixed_naflex_topk_fused(model, i, a, p, pm, s, *tail, shortlist_method=method)
+
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2078,6 +2408,8 @@ def main():
         served = phase_serve(mods, gpu, Path(tmp), db)
         paths = {name: {"launches_fused": n, "launches_serve": served[name]} for name, n in fused.items()}
         session = phase_cli(gpu, Path(tmp), db)
+        del engine
+        naflex = phase_naflex(mods, gpu, Path(tmp), resident)
 
     sources = {
         "int8_scores": ("tpuclip_torch/csrc/int8_scan.cu", "tpuclip/ops/topk_int8.py:340"),
@@ -2094,7 +2426,8 @@ def main():
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], **paths.get(name, {}),
-         "launches_session": session[name.removesuffix("_q16")], **record[name]}
+         "launches_session": session[name.removesuffix("_q16")],
+         "launches_naflex": naflex[name.removesuffix("_q16")], **record[name]}
         for name, (source, replaces) in sources.items()
     ]
     check("jax" not in sys.modules, "the port loaded jax")

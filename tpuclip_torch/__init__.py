@@ -12,11 +12,12 @@ matrix-cache files and the cache paths are the same, so a database written
 by one package opens in the other.
 
 Ported so far: ``scan``, ``search`` (int8 with an exact rescore, bf16,
-binary-only, the cascade, folder filters) and ``serve`` on the SigLIP
-towers, with tpuclip's fused query programs as CUDA graphs
+binary-only, the cascade, folder filters), ``serve`` and the rest of the
+CLI on the SigLIP towers and SigLIP2's NaFlex towers
+(``models/naflex.py``), with tpuclip's fused query programs as CUDA graphs
 (``ops/graphs.py``) and every Pallas kernel of tpuclip in CUDA
-(``csrc/``); IVF, NaFlex, training and multi-GPU are still to come
-(ROADMAP Queue 1).
+(``csrc/``); IVF, training and multi-GPU are still to come (ROADMAP
+Queue 1).
 """
 
 __version__ = "0.1.0"

@@ -4,7 +4,9 @@ Port of ``tpuclip/engine.py``'s ``ImageDatabase``: the SigLIP towers live
 on the device (bf16 on CUDA, fp32 on the CPU), batches are padded to fixed
 shapes (one image or ``inference_batch_size`` images; texts on the
 {1, 4, 16, 64} ladder), and the SQLite store, matrix cache, tokenizer and
-thumbnailer are tpuclip's own. Text, single-image and mixed searches take
+thumbnailer are tpuclip's own. NaFlex models (SigLIP2's variable-aspect
+towers) take uint8 patches, masks and patch grids in place of square
+pixels, with the same two shapes. Text, single-image and mixed searches take
 the fused tower + scan programs when the index allows them (int8, rerank
 rows resident, no folder filter, k <= 128): one CUDA graph per ladder
 bucket on the card (``tpuclip_torch.ops.graphs``), eager on the CPU;
@@ -96,22 +98,36 @@ class ImageDatabase:
 
     # ------------------------------------------------------------- embeddings
 
+    def _embed_two_shapes(self, features, arrays, pad_rows) -> np.ndarray:
+        """``features(*arrays)`` (a tower of the model) on row-aligned host
+        arrays: a single row runs at batch 1; anything else pads (each
+        array with its one-row ``pad_rows`` entry) or chunks to the
+        inference batch. The real rows' L2-normalized fp32, on the host."""
+        b, step = len(arrays[0]), self.inference_batch_size
+        if b > step:
+            return np.concatenate([
+                self._embed_two_shapes(features, [a[i : i + step] for a in arrays], pad_rows)
+                for i in range(0, b, step)
+            ])
+        target = 1 if b == 1 else step
+        if target > b:
+            arrays = [np.concatenate([a, np.repeat(p, target - b, axis=0)]) for a, p in zip(arrays, pad_rows)]
+        inputs = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in arrays]
+        return features(*inputs)[:b].cpu().numpy()
+
     def embed_images_uint8(self, batch_uint8: np.ndarray) -> np.ndarray:
         """uint8 (B, S, S, 3) → L2-normalized fp32 (B, D). A single image runs
         at batch 1; anything else pads (or chunks) to the inference batch."""
-        b = batch_uint8.shape[0]
-        if b > self.inference_batch_size:
-            step = self.inference_batch_size
-            return np.concatenate(
-                [self.embed_images_uint8(batch_uint8[i : i + step]) for i in range(0, b, step)]
-            )
-        target = 1 if b == 1 else self.inference_batch_size
-        if target > b:
-            batch_uint8 = np.concatenate(
-                [batch_uint8, np.zeros((target - b,) + batch_uint8.shape[1:], np.uint8)]
-            )
-        pixels = torch.from_numpy(np.ascontiguousarray(batch_uint8)).to(self.device)
-        return self.model.get_image_features(pixels)[:b].cpu().numpy()
+        pad = np.zeros((1,) + batch_uint8.shape[1:], np.uint8)
+        return self._embed_two_shapes(self.model.get_image_features, [batch_uint8], [pad])
+
+    def embed_patches_naflex(self, patches: np.ndarray, masks: np.ndarray, shapes: np.ndarray) -> np.ndarray:
+        """NaFlex: uint8 patches (B, L, P*P*C) + masks (B, L) + patch grids
+        (B, 2) → L2-normalized fp32 (B, D), under the two-shape policy of
+        :meth:`embed_images_uint8`; pad rows as :meth:`_naflex_inputs`'."""
+        return self._embed_two_shapes(
+            self.model.get_image_features_naflex, [patches, masks, shapes], self._naflex_inputs([], 1)
+        )
 
     def _tokenize_bucketed(self, texts: List[str]):
         """Prompt + tokenize, padded to the ladder batch size; pad rows are
@@ -176,11 +192,10 @@ class ImageDatabase:
         return self.index.search_texts_fused(self.model, ids, mask, k, len(texts))
 
     def _pixels_bucketed(self, images) -> np.ndarray:
-        """Decoded images → (ladder bucket, S, S, 3) uint8, zero pad rows."""
+        """Decoded images → (ladder bucket, S, S, 3) uint8, zero pad rows
+        (fixed-resolution towers)."""
         from tpuclip_torch.io.preprocess import resize_to_uint8
 
-        if self.is_naflex:
-            raise NotImplementedError("NaFlex models are not ported yet (ROADMAP Queue 1 item 7)")
         pixels = np.stack([resize_to_uint8(img, self.image_size) for img in images])
         bucket = batch_bucket(len(images))
         if bucket > len(images):
@@ -189,16 +204,38 @@ class ImageDatabase:
             )
         return pixels
 
+    def _naflex_inputs(self, images, rows: int):
+        """Decoded images → NaFlex (patches (rows, L, P*P*C) uint8, masks
+        (rows, L) int32, patch grids (rows, 2) int32), images first; the pad
+        rows keep slot 0 on a (1, 1) grid."""
+        from tpuclip_torch.io.preprocess import preprocess_naflex
+
+        v = self.config.vision
+        length = v.max_num_patches
+        patches = np.zeros((rows, length, v.patch_size**2 * v.num_channels), np.uint8)
+        masks = np.zeros((rows, length), np.int32)
+        masks[:, 0] = 1
+        shapes = np.ones((rows, 2), np.int32)
+        for i, img in enumerate(images):
+            patches[i], masks[i], shapes[i] = preprocess_naflex(img, v.patch_size, length)
+        return patches, masks, shapes
+
     def _search_mixed_fused(self, texts: List[str], images: List, k: int):
         """Texts and images through both towers and ONE shared int8 scan, one
         program per (text bucket, image bucket); returns (text results,
         image results) aligned to the inputs. The caller has checked
         ``can_fuse_text_search``."""
         ids, mask = self._tokenize_bucketed(texts)
-        res = self.index.search_mixed_fused(
-            self.model, ids, mask, self._pixels_bucketed(images), k,
-            n_texts=len(texts), n_images=len(images),
-        )
+        if self.is_naflex:
+            res = self.index.search_mixed_fused_naflex(
+                self.model, ids, mask, *self._naflex_inputs(images, batch_bucket(len(images))), k,
+                n_texts=len(texts), n_images=len(images),
+            )
+        else:
+            res = self.index.search_mixed_fused(
+                self.model, ids, mask, self._pixels_bucketed(images), k,
+                n_texts=len(texts), n_images=len(images),
+            )
         return res[: len(texts)], res[len(texts):]
 
     def search_image_pil(self, img, k: int, filter_folders=None) -> List[tuple]:
@@ -212,11 +249,15 @@ class ImageDatabase:
     def _search_image_fused(self, img, k: int) -> List[tuple]:
         """Fused body of :meth:`search_image_pil` (one image, batch 1); the
         caller has checked ``can_fuse_image_search``."""
+        if self.is_naflex:
+            return self.index.search_images_fused_naflex(self.model, *self._naflex_inputs([img], 1), k, 1)[0]
         return self.index.search_images_fused(self.model, self._pixels_bucketed([img]), k, 1)[0]
 
     def _embed_pil(self, img) -> np.ndarray:
+        """Decoded PIL image → L2-normalized embedding (NaFlex-aware); the
+        embed path of path- and bytes-based image queries."""
         if self.is_naflex:
-            raise NotImplementedError("NaFlex models are not ported yet (ROADMAP Queue 1 item 7)")
+            return self.embed_patches_naflex(*self._naflex_inputs([img], 1))[0].flatten()
         from tpuclip_torch.io.preprocess import resize_to_uint8
 
         pixels = resize_to_uint8(img, self.image_size)
@@ -235,10 +276,31 @@ class ImageDatabase:
             return None
 
     def embed_pils(self, images) -> np.ndarray:
-        """L2-normalized embeddings for decoded PIL images, one batched pass."""
+        """L2-normalized embeddings for decoded PIL images, one batched pass
+        (NaFlex-aware)."""
         if self.is_naflex:
-            raise NotImplementedError("NaFlex models are not ported yet (ROADMAP Queue 1 item 7)")
+            return self.embed_patches_naflex(*self._naflex_inputs(images, len(images)))
         return self.embed_images_uint8(preprocess_batch(images, self.image_size))
+
+    def _get_image_embeddings_batch(self, image_paths: List[str]) -> List[Optional[np.ndarray]]:
+        """Embeddings of image files in one :meth:`embed_pils` pass, aligned
+        to ``image_paths``: None where a file does not decode, and None for
+        every file when the pass fails."""
+        from tpuclip_torch.io.decode import load_image
+
+        images = [load_image(p) for p in image_paths]
+        valid = [i for i, img in enumerate(images) if img is not None]
+        if not valid:
+            return [None] * len(image_paths)
+        try:
+            embeddings = self.embed_pils([images[i] for i in valid])
+            out: List[Optional[np.ndarray]] = [None] * len(image_paths)
+            for j, i in enumerate(valid):
+                out[i] = embeddings[j].flatten()
+            return out
+        except Exception as e:  # noqa: BLE001 - containment, as in tpuclip
+            log(f"Error processing batch: {e}")
+            return [None] * len(image_paths)
 
     def _get_text_embedding(self, text: str) -> np.ndarray:
         """Lowercase + template + 64-token pad contract, through the LRU."""

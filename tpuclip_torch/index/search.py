@@ -39,21 +39,25 @@ needs; every search then runs on the device. What is ported:
   over the cap serves from its binary rows.
 - **fused query programs** (:meth:`DeviceIndex.search_texts_fused`,
   :meth:`~DeviceIndex.search_images_fused`,
-  :meth:`~DeviceIndex.search_mixed_fused`): token ids and / or pixels go
-  through the towers and the fused int8 search without the embedding
-  leaving the device, under :meth:`~DeviceIndex.can_fuse_text_search`. On
-  CUDA each program shape is one captured CUDA graph
+  :meth:`~DeviceIndex.search_mixed_fused`, and for the NaFlex towers
+  :meth:`~DeviceIndex.search_images_fused_naflex` and
+  :meth:`~DeviceIndex.search_mixed_fused_naflex`): token ids and / or
+  pixels (NaFlex: patches, masks and patch grids) go through the towers
+  and the fused int8 search without the embedding leaving the device,
+  under :meth:`~DeviceIndex.can_fuse_text_search`. On CUDA each program
+  shape is one captured CUDA graph
   (:class:`~tpuclip_torch.ops.graphs.FusedGraphs`), dropped whenever
   ``refresh`` re-uploads; on the CPU they run eager.
 
 Not ported yet, each raising ``NotImplementedError`` instead of running a
-slower path: the ``ivf`` mode (ROADMAP Queue 1 item 8), mesh sharding
-(item 10) and NaFlex towers (item 7).
+slower path: the ``ivf`` mode (ROADMAP Queue 1 item 8) and mesh sharding
+(item 10).
 """
 
 from __future__ import annotations
 
 import os
+from functools import partial
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -78,7 +82,9 @@ from tpuclip_torch.ops.topk_int8 import (
     INT8_TILE_N,
     derive_int8_matrix,
     image_topk_fused,
+    mixed_naflex_topk_fused,
     mixed_topk_fused,
+    naflex_image_topk_fused,
     quantize_matrix,
     quantize_queries,
     quantize_query,
@@ -460,56 +466,40 @@ class DeviceIndex:
             self._graphs = FusedGraphs(self.device)
         return self._graphs.run(key, program, host_inputs)
 
-    def _search_args(self):
-        """The resident tensors a fused program reads, bound at call time."""
-        return self._matrix, self._scales, self._rows_device, self._n_valid
-
-    def _run_fused(self, run_fused, q_batch: int, k: int, q_count: int, row_sel=None):
-        """Shared tail of the fused searches: the shortlist method for the
-        program's query block (``exact`` for one row, ``extract`` for more;
-        tpuclip's ``verified`` branch is not ported), ``run_fused(method)``,
-        then the result mapping of the real rows only: the first
-        ``q_count``, or ``row_sel`` where the block holds interior padding
-        (the mixed layout pads each span to its bucket)."""
-        method = resolve_shortlist_method(q_batch)
+    def _run_fused(self, kind: str, program, host_inputs, tb: int, ib: int, k: int, row_sel):
+        """Shared body of the fused searches: ``program`` (a fused program of
+        :mod:`~tpuclip_torch.ops.topk_int8` with its model bound) on a block
+        of ``tb`` text and ``ib`` image rows, as the graph ``(kind, tb, ib,
+        k, method)``. The shortlist method is the block's (``exact`` for one
+        row, ``extract`` for more; tpuclip's ``verified`` branch is not
+        ported), the resident tensors are bound at call time, and only the
+        real rows ``row_sel`` are mapped to results (a mixed block pads each
+        span to its bucket)."""
+        method = resolve_shortlist_method(tb + ib)
         self.shortlist_stats[f"{method}_searches"] = self.shortlist_stats.get(f"{method}_searches", 0) + 1
-        scores, rows = run_fused(method)
-        if row_sel is not None:
-            scores, rows = scores[row_sel], rows[row_sel]
-            q_count = len(row_sel)
-        else:
-            scores, rows = scores[:q_count], rows[:q_count]
-        return self._map_batch_results(scores, rows, q_count)
+        m, sc, rows, n_valid = self._matrix, self._scales, self._rows_device, self._n_valid
+        scores, found = self._program(
+            (kind, tb, ib, k, method),
+            lambda *x: program(*x, m, sc, rows, k, n_valid, shortlist_method=method),
+            host_inputs,
+        )
+        return self._map_batch_results(scores[row_sel], found[row_sel], len(row_sel))
 
     def search_texts_fused(self, model, ids: np.ndarray, mask: np.ndarray, k: int, q_count: int):
         """Tokenized (ladder-padded) text queries → ranked results through
         :func:`~tpuclip_torch.ops.topk_int8.text_topk_fused`, one program.
         Caller must have checked :meth:`can_fuse_text_search`."""
-        m, sc, rows, n_valid = self._search_args()
-
-        def run(method):
-            return self._program(
-                ("text", len(ids), 0, k, method),
-                lambda i, a: text_topk_fused(model, i, a, m, sc, rows, k, n_valid, shortlist_method=method),
-                (ids, mask),
-            )
-
-        return self._run_fused(run, len(ids), k, q_count)
+        return self._run_fused(
+            "text", partial(text_topk_fused, model), (ids, mask), len(ids), 0, k, list(range(q_count))
+        )
 
     def search_images_fused(self, model, pixels: np.ndarray, k: int, q_count: int):
         """uint8 query pixels → ranked results through
         :func:`~tpuclip_torch.ops.topk_int8.image_topk_fused`. Caller must
         have checked :meth:`can_fuse_image_search`."""
-        m, sc, rows, n_valid = self._search_args()
-
-        def run(method):
-            return self._program(
-                ("image", 0, len(pixels), k, method),
-                lambda p: image_topk_fused(model, p, m, sc, rows, k, n_valid, shortlist_method=method),
-                (pixels,),
-            )
-
-        return self._run_fused(run, len(pixels), k, q_count)
+        return self._run_fused(
+            "image", partial(image_topk_fused, model), (pixels,), 0, len(pixels), k, list(range(q_count))
+        )
 
     def search_mixed_fused(
         self, model, ids: np.ndarray, mask: np.ndarray, pixels: np.ndarray, k: int,
@@ -520,20 +510,37 @@ class DeviceIndex:
         the real queries only, texts first, then images (the block holds
         texts at [0, Tb), images at [Tb, Tb + Ib)). Caller must have checked
         :meth:`can_fuse_text_search`."""
-        m, sc, rows, n_valid = self._search_args()
-        tb, total = len(ids), len(ids) + len(pixels)
-        row_sel = list(range(n_texts)) + list(range(tb, tb + n_images))
+        tb, ib = len(ids), len(pixels)
+        return self._run_fused(
+            "mixed", partial(mixed_topk_fused, model), (ids, mask, pixels), tb, ib, k,
+            list(range(n_texts)) + list(range(tb, tb + n_images)),
+        )
 
-        def run(method):
-            return self._program(
-                ("mixed", tb, len(pixels), k, method),
-                lambda i, a, p: mixed_topk_fused(
-                    model, i, a, p, m, sc, rows, k, n_valid, shortlist_method=method
-                ),
-                (ids, mask, pixels),
-            )
+    def search_images_fused_naflex(
+        self, model, patches: np.ndarray, masks: np.ndarray, shapes: np.ndarray, k: int, q_count: int
+    ):
+        """:meth:`search_images_fused` for NaFlex inputs (uint8 patches
+        (B, L, P*P*C), int32 masks (B, L) and patch grids (B, 2)) through
+        :func:`~tpuclip_torch.ops.topk_int8.naflex_image_topk_fused`. Caller
+        must have checked :meth:`can_fuse_image_search`."""
+        return self._run_fused(
+            "naflex_image", partial(naflex_image_topk_fused, model), (patches, masks, shapes),
+            0, len(patches), k, list(range(q_count)),
+        )
 
-        return self._run_fused(run, total, k, total, row_sel=row_sel)
+    def search_mixed_fused_naflex(
+        self, model, ids: np.ndarray, mask: np.ndarray, patches: np.ndarray, masks: np.ndarray,
+        shapes: np.ndarray, k: int, n_texts: int, n_images: int,
+    ):
+        """:meth:`search_mixed_fused` for NaFlex inputs through
+        :func:`~tpuclip_torch.ops.topk_int8.mixed_naflex_topk_fused`: the
+        same texts-first block and real-rows output. Caller must have
+        checked :meth:`can_fuse_text_search`."""
+        tb, ib = len(ids), len(patches)
+        return self._run_fused(
+            "naflex_mixed", partial(mixed_naflex_topk_fused, model), (ids, mask, patches, masks, shapes),
+            tb, ib, k, list(range(n_texts)) + list(range(tb, tb + n_images)),
+        )
 
     # ---------------------------------------------------------------- binary
 

@@ -164,10 +164,11 @@ class MAPHead(nn.Module):
         self.ln = LayerNorm(d, cfg.layer_norm_eps)
         self.mlp = MLP(d, cfg.intermediate_size)
 
-    def forward(self, hidden: torch.Tensor) -> torch.Tensor:
+    def forward(self, hidden: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``mask``: additive (B, 1, 1, S) over padded patch keys (NaFlex)."""
         b, _, d = hidden.shape
         probe = self.probe.to(hidden.dtype).expand(b, 1, d)
-        attn_out = self.attn(probe, hidden)
+        attn_out = self.attn(probe, hidden, mask)
         y = attn_out + self.mlp(self.ln(attn_out))
         return y[:, 0]
 
@@ -175,10 +176,6 @@ class MAPHead(nn.Module):
 class VisionTower(nn.Module):
     def __init__(self, cfg: VisionConfig):
         super().__init__()
-        if cfg.naflex:
-            raise NotImplementedError(
-                "NaFlex vision towers are not ported yet (ROADMAP Queue 1 item 7)"
-            )
         self.cfg = cfg
         patch_in = cfg.patch_size * cfg.patch_size * cfg.num_channels
         self.patch = nn.Linear(patch_in, cfg.hidden_size)
@@ -269,6 +266,17 @@ class SiglipModel(nn.Module):
         pooled = self.vision(pixel_values, self.dtype).float()
         norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
         return pooled / norm.clamp_min(1e-12)
+
+    @torch.inference_mode()
+    def get_image_features_naflex(
+        self, patches: torch.Tensor, pixel_mask: torch.Tensor, spatial_shapes: torch.Tensor
+    ) -> torch.Tensor:
+        """NaFlex towers: uint8 patches (B, L, P*P*C), mask (B, L) and patch
+        grids (B, 2) → L2-normalised fp32 (B, D)
+        (:func:`tpuclip_torch.models.naflex.get_image_features_naflex`)."""
+        from tpuclip_torch.models.naflex import get_image_features_naflex
+
+        return get_image_features_naflex(self, patches, pixel_mask, spatial_shapes)
 
     @torch.inference_mode()
     def get_text_features(

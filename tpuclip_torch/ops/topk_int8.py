@@ -646,3 +646,55 @@ def mixed_topk_fused(
         emb, m_int8, scales, rows_full, k, shortlist=shortlist, n_valid=n_valid,
         shortlist_method=shortlist_method,
     )
+
+
+@torch.inference_mode()
+def naflex_image_topk_fused(
+    model,
+    patches: torch.Tensor,
+    pixel_mask: torch.Tensor,
+    spatial_shapes: torch.Tensor,
+    m_int8: torch.Tensor,
+    scales: torch.Tensor,
+    rows_full: torch.Tensor,
+    k: int,
+    n_valid: Optional[int] = None,
+    shortlist: int = 512,
+    shortlist_method: str = "extract",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`image_topk_fused` for the NaFlex towers: uint8 patches
+    (B, L, P*P*C), mask (B, L) and patch grids (B, 2) → NaFlex vision tower
+    → the same search."""
+    emb = model.get_image_features_naflex(patches, pixel_mask, spatial_shapes)
+    return topk_int8_rerank_fused(
+        emb, m_int8, scales, rows_full, k, shortlist=shortlist, n_valid=n_valid,
+        shortlist_method=shortlist_method,
+    )
+
+
+@torch.inference_mode()
+def mixed_naflex_topk_fused(
+    model,
+    ids: torch.Tensor,
+    attn_mask: torch.Tensor,
+    patches: torch.Tensor,
+    pixel_mask: torch.Tensor,
+    spatial_shapes: torch.Tensor,
+    m_int8: torch.Tensor,
+    scales: torch.Tensor,
+    rows_full: torch.Tensor,
+    k: int,
+    n_valid: Optional[int] = None,
+    shortlist: int = 512,
+    shortlist_method: str = "extract",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`mixed_topk_fused` for the NaFlex towers: the text tower, the
+    NaFlex vision tower, then ONE search over the texts-first query block."""
+    emb = torch.cat([
+        model.get_text_features(ids, attn_mask),
+        model.get_image_features_naflex(patches, pixel_mask, spatial_shapes),
+    ])
+    return topk_int8_rerank_fused(
+        emb, m_int8, scales, rows_full, k, shortlist=shortlist, n_valid=n_valid,
+        shortlist_method=shortlist_method,
+    )

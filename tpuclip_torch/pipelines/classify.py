@@ -32,6 +32,13 @@ def classify_image(
 
     device = resolve_device(device)
     cfg, model = load_model(model_name, model_cache_dir, device=device, dtype=default_dtype(device))
+    if cfg.vision.naflex:
+        # The square decode below does not fit NaFlex's patch inputs
+        # (tpuclip refuses the same).
+        raise ValueError(
+            f"{model_name} is a NaFlex model, which classify does not support yet; "
+            "use a fixed-resolution preset"
+        )
     ckpt = find_local_checkpoint(model_name, model_cache_dir)
     tokenizer = load_tokenizer(model_name, str(ckpt) if ckpt else None, vocab_size=cfg.text.vocab_size)
 

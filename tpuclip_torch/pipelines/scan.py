@@ -14,8 +14,9 @@ Differences from the reference, shared with tpuclip:
 - The device embed for batch N is dispatched asynchronously (CUDA kernels
   are queued, not waited for); the host commits batch N-1 to SQLite while
   the device works. The drain's ``.cpu()`` is the barrier.
-
-NaFlex models are not ported yet (ROADMAP Queue 1 item 7) and raise.
+- NaFlex models take native-aspect patch batches (patches, masks, patch
+  grids) from the prefetcher and embed them with
+  ``get_image_features_naflex``.
 """
 
 from __future__ import annotations
@@ -361,10 +362,10 @@ def scan_directory(
             if pbar:
                 pbar.update(len(items))
 
+        naflex_cfg = None
         if engine.is_naflex:
-            raise NotImplementedError(
-                "NaFlex scans are not ported yet (ROADMAP Queue 1 item 7)"
-            )
+            v = engine.config.vision
+            naflex_cfg = (v.patch_size, v.max_num_patches)
         # The prefetcher sets this event itself when the consumer stops early
         # (Ctrl-C, mid-scan failure); without it the producer thread would
         # keep decoding, block forever on its full queue, and leak its SQLite
@@ -376,6 +377,7 @@ def scan_directory(
             image_size=engine.image_size,
             with_hash=True,
             num_procs=decode_procs,
+            naflex=naflex_cfg,
             stop_event=stop_event,
             reuse_lookup=reuse_lookup,
         ):
@@ -390,12 +392,16 @@ def scan_directory(
 
             # Dispatch this batch (async), then drain the previous one while
             # the device works.
-            pixels = torch.from_numpy(batch.pixels)
-            if engine.device.type == "cuda":
-                pixels = pixels.pin_memory()
-            emb_dev = engine.model.get_image_features(
-                pixels.to(engine.device, non_blocking=True)
-            )
+            host = [batch.pixels] if naflex_cfg is None else [batch.pixels, batch.masks, batch.shapes]
+            inputs = []
+            for x in map(torch.from_numpy, host):
+                if engine.device.type == "cuda":
+                    x = x.pin_memory()
+                inputs.append(x.to(engine.device, non_blocking=True))
+            if naflex_cfg is None:
+                emb_dev = engine.model.get_image_features(*inputs)
+            else:
+                emb_dev = engine.model.get_image_features_naflex(*inputs)
             if pending_embed is not None:
                 # Clear BEFORE draining: a Ctrl-C landing mid-drain must not
                 # let the interrupt handler drain the same batch again
