@@ -135,7 +135,30 @@ Phases, each printing its own lines; any failure exits non-zero:
    /search, /search_batch, /embed, /classify and a 4 + 4 burst with a
    mixed window, each equal to the two-stage route). Kernels 1 and 2 must
    count exactly the fused search's runs in the phase (each run outside a
-   graph capture, and each graph replay), every other kernel 0.
+   graph capture, and each graph replay), every other kernel 0;
+12. IVF at full width: 1,000,000 x 1152 clustered unit rows (numpy seed 12,
+   1,024 centres on the sphere, tests/test_ivf.py's mixture) resident in
+   bf16 with their int8 matrix; ``build_ivf_device`` (K, C, overflow rows,
+   bytes on the card, seconds), a rebuild after a 10% append reusing the
+   centroids (timed); ``ivf_search`` at Q = 1, 4, 16, 64, k = 20: p50 beside
+   the exact fused search on the same rows, every score within 1e-6 of the
+   exact path's for its row, recall@20 against the exact search >= 0.90;
+   nprobe = K id-identical to the exact search; the kernel route id- and
+   score-identical to the route through ``_int8_scores_plain``; then on
+   phase 4's database ``search --mode ivf`` (text and ``--image``) through
+   tpuclip_torch.cli and ``serve`` under the mode (text /search, 4-text
+   /search_batch, image /search), each equal to ``DeviceIndex.search_batch``
+   under IVF. Kernel 1 must count exactly the probe's launches (one a
+   query and one on the overflow block, every call), every other kernel 0;
+13. training at full width: SigLIP2 SO400M-patch14-224, random weights, 64
+   seeded JPEG/caption pairs, ``train --steps 5 --batch-size 16`` through
+   tpuclip_torch.cli with ``--optimizer adamw`` and with ``auto`` (which
+   must take Adafactor): the per-step p50 after step 1, images/s, peak
+   allocated bytes and every loss, all finite; the model it writes loads
+   through the port's loader and embeds unit rows; on one fixed batch the
+   bf16 loss within 2e-2 relative of the fp32 loss with the same weights,
+   and the loss and gradient norm with the layers checkpointed within 1e-3
+   of those without. No kernel may run.
    Neither jax nor the JAX package (tpuclip) may ever have been imported.
 
 The last two lines are the kernels' JSON record and then
@@ -149,12 +172,13 @@ per SM per clock at 1.98 GHz, kernels 6 and 7's b1 AND + add at the rate
 phase 2 measures), at the recorded case's shapes; ``launches`` counts
 phase 4's path for kernels 1 and 2, and their ``launches_fused`` and
 ``launches_serve`` phases 8's and 9's; every kernel's ``launches_session``
-counts phase 10's session (0 where the session does not run it) and its
-``launches_naflex`` phase 11's NaFlex path; each count is zeroed just
-before its path runs. ``library_ms`` is null
+counts phase 10's session (0 where the session does not run it), its
+``launches_naflex`` phase 11's NaFlex path, its ``launches_ivf`` phase
+12's IVF path and its ``launches_train`` phase 13's training; each count
+is zeroed just before its path runs. ``library_ms`` is null
 (no single PyTorch call computes any of these functions) and
 ``nearest_ms`` times the nearest route of PyTorch calls, where there is
-one. Kernels 4 and 8 also carry ``kernel_ms``, the kernel's own launch
+one (kernel 1's: ``torch._int_mm`` at Q = 32, then the scales). Kernels 4 and 8 also carry ``kernel_ms``, the kernel's own launch
 (``ms`` is the wrapper's).
 """
 
@@ -369,8 +393,10 @@ def phase_kernels(mods, gpu, variants):
         print(f"[kernels] int8_scores Q={q_count}: bit-equal, p50 {ms:.4f} ms vs plain "
               f"{plain:.4f} ms  ({gpu})", flush=True)
         if q_count == 1:  # the single-query main path
+            nearest = int_mm_route(qi, m, scales, got, gpu)
             record["int8_scores"] = entry(
-                err, ms, plain, int8_scan_bytes(1, N_ROWS, n_pad * 4), 2 * N_ROWS * DIM, "int8")
+                err, ms, plain, int8_scan_bytes(1, N_ROWS, n_pad * 4), 2 * N_ROWS * DIM, "int8",
+                "torch._int_mm at Q=32 (the query and 31 zero rows) x scales", nearest)
     k_pad = -(-k_tile // 128) * 128
     for q_count in (16, 64):
         qi, _ = ops.quantize_queries(queries[:q_count])
@@ -480,6 +506,31 @@ def phase_kernels(mods, gpu, variants):
         print(f"[kernels] topk_plain (bf16 route, k > 128) Q={q_count} k=200: max score diff {err:.2e} "
               f"from the float64 reference, p50 {ms:.4f} ms  ({gpu})", flush=True)
     return record, (rows, m, scales)
+
+
+def int_mm_route(qi, m, scales, want, gpu):
+    """Kernel 1's nearest PyTorch route at one query: ``torch._int_mm``
+    (int8 x int8 -> int32 through cuBLAS, which takes at least 17 rows, so
+    the query and 31 zero rows) then the f32 row scales. Returns its p50 ms,
+    or None where this build of PyTorch refuses the call."""
+    q32 = torch.zeros((32, qi.shape[1]), dtype=torch.int8, device=qi.device)
+    q32[:1] = qi
+
+    def route():
+        return torch._int_mm(q32, m.T)[:1].float() * scales
+
+    try:
+        got = route()
+    except RuntimeError as e:
+        print(f"[kernels] torch._int_mm refused the Q=32 route: {e}", flush=True)
+        return None
+    n = want.shape[1]
+    valid = torch.isfinite(want)
+    check(torch.equal(got[valid], want[valid]), "torch._int_mm route differs from kernel 1 on the valid rows")
+    ms = p50_ms(route, 20)
+    print(f"[kernels] int8_scores' nearest route, torch._int_mm at Q=32 x scales over {n:,} rows: equal on "
+          f"the valid rows, p50 {ms:.4f} ms  ({gpu})", flush=True)
+    return ms
 
 
 def phase_int8_candidates(mods, gpu, m, scales, queries):
@@ -2354,6 +2405,407 @@ def naflex_program(ops, model, kind, tail, method):
     return lambda i, a, p, pm, s: ops.mixed_naflex_topk_fused(model, i, a, p, pm, s, *tail, shortlist_method=method)
 
 
+# IVF at the main path's size (phase 12): tests/test_ivf.py's mixture on the
+# sphere at 1152-d, with per-dimension noise scaled so the noise norm keeps
+# its ~0.4 of a centre's (0.05 at 64-d).
+N_IVF_CENTRES = 1024
+IVF_SPREAD = 0.05 * (64 / DIM) ** 0.5
+IVF_QUERY_COUNTS = (1, 4, 16, 64)
+
+
+def clustered_rows(rng, centres, out, chunk=65536):
+    """Fills ``out`` (n, D) on the card with unit rows of the mixture: a
+    seeded numpy centre per row plus Gaussian noise, normalised."""
+    n = out.shape[0]
+    for s in range(0, n, chunk):
+        c = min(chunk, n - s)
+        x = centres[rng.integers(0, len(centres), c)] + IVF_SPREAD * rng.standard_normal((c, DIM), dtype=np.float32)
+        x = torch.from_numpy(x).to(out.device)
+        out[s : s + c] = x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    return out
+
+
+def device_breakdown(fn, runs=3, top=6):
+    """torch.profiler (CPU and CUDA activity) over ``runs`` calls of ``fn``
+    after one warm-up: (wall ms a call, the device's busy ms a call, i.e.
+    the sum of its kernels' times, kernel launches a call, [(kernel name,
+    device ms a call)] for the ``top`` kernels by device time). Busy is
+    None when the profiler saw no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / runs
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return wall, None, 0, []
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / runs
+    launches = sum(e.count for e in kernels) / runs
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    return wall, busy, launches, [(e.key[:70], e.self_device_time_total / 1e3 / runs) for e in ranked]
+
+
+def print_breakdown(tag, what, breakdown, gpu):
+    wall, busy, launches, ranked = breakdown
+    if busy is None:
+        print(f"[{tag}] {what}: wall {wall:.3f} ms a call; the profiler saw no device time  ({gpu})", flush=True)
+        return
+    print(f"[{tag}] {what}: wall {wall:.3f} ms a call, device busy {busy:.3f} ms ({busy / wall:.0%}; idle "
+          f"{1 - busy / wall:.0%}), {launches:.0f} kernel launches a call; by device time: "
+          + "; ".join(f"{name} {ms:.3f}" for name, ms in ranked) + f"  ({gpu})", flush=True)
+
+
+def reaches_every_row_once(index, n):
+    ids = torch.cat([index.bucket_rows.reshape(-1), index.over_rows]).long()
+    ids = ids[ids >= 0]
+    return ids.numel() == n and int(torch.bincount(ids, minlength=n).max()) == 1
+
+
+def phase_ivf(mods, gpu, work, db):
+    """Phase 12: IVF at full width, then ``--mode ivf`` through the CLI and
+    ``serve`` on phase 4's database; returns every counted kernel's
+    launches on the IVF path."""
+    import base64
+
+    from tpuclip_torch import cli
+    from tpuclip_torch.engine import ImageDatabase
+    from tpuclip_torch.index import ivf as ivf_mod
+    from tpuclip_torch.index.dedup import filter_duplicates
+    from tpuclip_torch.io.decode import load_image_bytes
+    from tpuclip_torch.ops._counters import COUNTED
+    from tpuclip_torch.serve import SearchServer
+
+    ops = mods[0]
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(12)
+    centres = rng.standard_normal((N_IVF_CENTRES, DIM), dtype=np.float32)
+    centres /= np.linalg.norm(centres, axis=1, keepdims=True)
+    n_more = N_ROWS // 10  # the append: under the 20% that triggers a retraining
+    rows_all = clustered_rows(rng, centres, torch.empty((N_ROWS + n_more, DIM), dtype=torch.bfloat16, device=dev))
+    rows = rows_all[:N_ROWS]
+    queries = clustered_rows(rng, centres, torch.empty((max(IVF_QUERY_COUNTS), DIM), device=dev))
+    n_pad = -(-N_ROWS // ops.INT8_TILE_N) * ops.INT8_TILE_N
+    m, scales = ops.derive_int8_matrix(rows, n_pad)
+    torch.cuda.synchronize()
+    print(f"[ivf] {N_ROWS:,} x {DIM} clustered unit rows ({N_IVF_CENTRES} centres, noise {IVF_SPREAD:.4f} a "
+          f"dimension) resident: bf16 + int8 matrix", flush=True)
+
+    # The exact fused search on the same rows, outside the counted window.
+    exact, exact_ms = {}, {}
+    for q_count in IVF_QUERY_COUNTS:
+        q = queries[:q_count]
+
+        def fused():
+            return ops.topk_int8_rerank_fused_auto(q, m, scales, rows, K, n_valid=N_ROWS)
+
+        exact[q_count] = fused()
+        exact_ms[q_count] = p50_ms(fused, 20)
+
+    def exact_of(q, ids):
+        """The exact path's score of each returned row: the bf16-rounded
+        query against the bf16 row in f32, as its rescore computes it."""
+        qr = ops.round_f32_to_bf16_bits(q)
+        return (rows[ids.clamp_min(0)].float() * qr[:, None, :]).sum(-1)
+
+    probes = [0]
+    real_rerank = ivf_mod.ivf_topk_rerank
+
+    def counted_rerank(q_f32, *args):
+        probes[0] += q_f32.shape[0] + 1  # kernel 1 once a query, once on the overflow block
+        return real_rerank(q_f32, *args)
+
+    cache = str(work / "models")
+    files = sorted((work / "images").rglob("*.jpg"))
+    saved_env = {key: os.environ.get(key) for key in ("TPUCLIP_SEARCH_MODE", "TPUCLIP_DEVICE_RERANK")}
+    saved_gallery = ImageDatabase.generate_html_gallery
+    galleries, statuses, report = [], [], {}
+    for wrapper in COUNTED:
+        wrapper.launches = 0
+    ivf_mod.ivf_topk_rerank = counted_rerank
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = ivf_mod.build_ivf_device(rows)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        k_clusters, cap = index.bucket_rows.shape
+        overflow = int((index.over_rows >= 0).sum())
+        check(reaches_every_row_once(index, N_ROWS), "the IVF build lost or repeated a row")
+        print(f"[ivf] build_ivf_device: K {k_clusters}, C {cap}, nprobe {index.nprobe}, overflow {overflow:,} "
+              f"rows (block {index.over_rows.numel():,}), {index.nbytes():,} bytes on the card, "
+              f"{build_s:.3f} s  ({gpu})", flush=True)
+        t0 = time.perf_counter()
+        grown = ivf_mod.build_ivf_device(rows_all, k_clusters=k_clusters, centroids=index.centroids)
+        torch.cuda.synchronize()
+        reuse_s = time.perf_counter() - t0
+        check(torch.equal(grown.centroids, index.centroids) and reaches_every_row_once(grown, len(rows_all)),
+              "the rebuild after the append retrained or lost a row")
+        print(f"[ivf] rebuild after a {n_more / N_ROWS:.0%} append ({len(rows_all):,} rows), centroids reused: "
+              f"C {grown.bucket_rows.shape[1]}, overflow {int((grown.over_rows >= 0).sum()):,} rows, "
+              f"{reuse_s:.3f} s (assignment, quantization and fill)  ({gpu})", flush=True)
+        del grown
+
+        for q_count in IVF_QUERY_COUNTS:
+            q = queries[:q_count]
+            s, ids = ivf_mod.ivf_search(index, rows, q, K)
+            err = (s - exact_of(q, ids)).abs().max().item()
+            check(bool((ids >= 0).all()) and err <= 1e-6, f"IVF Q={q_count}: a score off the exact path's by {err}")
+            check(ordered(s, ids), f"IVF Q={q_count}: not ordered (score desc, row asc)")
+            want = exact[q_count][1]
+            recall = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / K for a, b in zip(ids, want)]))
+            check(recall >= 0.90, f"IVF Q={q_count}: recall@{K} {recall:.4f} under 0.90")
+            ms = p50_ms(lambda: ivf_mod.ivf_search(index, rows, q, K), 20)
+            report[q_count] = {"ivf_ms": ms, "exact_ms": exact_ms[q_count], "recall": recall, "max_score_err": err}
+            print(f"[ivf] Q={q_count} k={K}: p50 {ms:.4f} ms against the exact fused search's "
+                  f"{exact_ms[q_count]:.4f} ms on the same rows; recall@{K} {recall:.4f}; scores within "
+                  f"{err:.2e} of the exact path's  ({gpu})", flush=True)
+        everything = index._replace(nprobe=k_clusters)
+        for q_count in (1, 16):
+            s, ids = ivf_mod.ivf_search(everything, rows, queries[:q_count], K)
+            check(torch.equal(ids, exact[q_count][1]), f"IVF nprobe=K Q={q_count}: ids differ from the exact search")
+        print(f"[ivf] nprobe = K = {k_clusters} at Q=1 and 16: ids identical to the exact search", flush=True)
+        for q_count in (1, 64):
+            trace = device_breakdown(lambda: ivf_mod.ivf_search(index, rows, queries[:q_count], K))
+            report[q_count]["trace"] = trace
+            print_breakdown("ivf-trace", f"ivf_search Q={q_count} k={K}", trace, gpu)
+
+        # The entry points under --mode ivf on phase 4's database.
+        ImageDatabase.generate_html_gallery = lambda self, results, *a, **kw: galleries.append(list(results))
+        common = ["-k", str(K), "--db", db, "--model-cache", cache, "--no-session", "--mode", "ivf"]
+        run_cli(cli, "search", "a red car", *common)
+        run_cli(cli, "search", str(files[7]), "--image", *common)
+        ImageDatabase.generate_html_gallery = saved_gallery
+        os.environ["TPUCLIP_SEARCH_MODE"] = "ivf"
+        engine = ImageDatabase(db, cache, inference_batch_size=64)
+        engine.index.refresh()
+        check(engine.index._ivf is not None and not engine.index.can_fuse_text_search(K, None),
+              "phase 4's database under --mode ivf built no IVF index, or left the fused gate open")
+        b64 = base64.b64encode(files[3].read_bytes()).decode()
+        srv = SearchServer(engine, host="127.0.0.1", port=0)
+        thread = srv.start_background()
+        call = functools.partial(http_call, srv, statuses)
+        try:
+            text = call("/search", {"query": "a yellow taxi", "k": K})
+            batch = call("/search_batch", {"queries": TEXTS, "k": K})
+            upload = call("/search", {"image_b64": b64, "k": K})
+            stats = call("/stats")
+        finally:
+            srv.shutdown()
+            thread.join(timeout=30)
+        index_db = engine.index
+        same = functools.partial(same_served, engine)
+        errs = [same(text["results"], index_db.search_batch(engine.embed_texts(["a yellow taxi"]), K)[0],
+                     "ivf text /search")]
+        for q, body, want in zip(TEXTS, batch["results"], index_db.search_batch(engine.embed_texts(TEXTS), K)):
+            errs.append(same(body, want, f"ivf /search_batch {q!r}", dedup=False))
+        pil = load_image_bytes(base64.b64decode(b64), "<bytes>")
+        errs.append(same(upload["results"], index_db.search_batch(engine.embed_pils([pil]), K)[0], "ivf image /search"))
+        cli_want = [index_db.search_batch(engine.embed_texts(["a red car"]), K)[0],
+                    index_db.search(engine._get_image_embedding(str(files[7])), K)]
+        check(len(galleries) == 2, f"the two CLI searches handed {len(galleries)} result lists to the gallery")
+        for got, want, what in zip(galleries, cli_want, ("search --mode ivf", "search --image --mode ivf")):
+            want = filter_duplicates(engine.store, want)
+            check([p for p, _ in got] == [p for p, _ in want] and got, f"{what}: paths differ from search_batch")
+            errs.append(max(abs(s - w) for (_, s), (_, w) in zip(got, want)))
+        check(max(errs) <= 1e-6 and stats["search_mode"] == "ivf" and all(s == 200 for s in statuses),
+              f"the IVF entry points: max score diff {max(errs)}, /stats {stats}, statuses {statuses}")
+        torch.cuda.synchronize()
+        launches = {wrapper.__name__: wrapper.launches for wrapper in COUNTED}
+    finally:
+        ivf_mod.ivf_topk_rerank = real_rerank
+        ImageDatabase.generate_html_gallery = saved_gallery
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    print(f"[ivf] search --mode ivf (text, --image) through tpuclip_torch.cli and serve (text /search, "
+          f"4-text /search_batch, image /search; /stats search_mode {stats['search_mode']}) on phase 4's "
+          f"{N_IMAGES} rows (K {index_db._ivf.bucket_rows.shape[0]}): equal to DeviceIndex.search_batch under "
+          f"IVF, max score diff {max(errs):.2e}", flush=True)
+    print(f"[ivf] kernel launches on the IVF path: {launches}; the probe's: {probes[0]}", flush=True)
+    check(launches["int8_scores"] == probes[0] > 0, f"kernel 1 launched {launches['int8_scores']} times, "
+          f"the probe {probes[0]}")
+    check(all(n == 0 for name, n in launches.items() if name != "int8_scores"),
+          f"a kernel off the IVF path was launched: {launches}")
+
+    # The kernel route against the route through kernel 1's plain version.
+    ivf_mod.int8_scores = ops._int8_scores_plain
+    try:
+        plain = {q_count: ivf_mod.ivf_search(index, rows, queries[:q_count], K) for q_count in (1, 16)}
+    finally:
+        ivf_mod.int8_scores = ops.int8_scores
+    for q_count, (s_p, i_p) in plain.items():
+        s, ids = ivf_mod.ivf_search(index, rows, queries[:q_count], K)
+        check(torch.equal(ids, i_p) and torch.equal(s, s_p),
+              f"IVF Q={q_count}: the kernel route differs from the route through the plain version")
+    print("[ivf] Q=1 and 16: the kernel route id- and score-identical to the route through "
+          "_int8_scores_plain", flush=True)
+    print("[phase12-json] " + json.dumps({
+        "gpu": gpu, "k_clusters": k_clusters, "capacity": cap, "nprobe": index.nprobe,
+        "overflow_rows": overflow, "ivf_bytes": index.nbytes(), "build_s": build_s, "reuse_s": reuse_s,
+        "queries": report, "launches": launches, "probe_launches": probes[0]}), flush=True)
+    return launches
+
+
+# Training at full width (phase 13).
+N_TRAIN_PAIRS = 64
+TRAIN_STEPS = 5
+TRAIN_BATCH = 16
+COLOURS = ("red", "green", "blue", "yellow", "purple", "orange", "white", "black")
+
+
+def write_captioned_jpegs(root, n):
+    """``n`` seeded 224 x 224 JPEGs, each with a sidecar caption."""
+    from PIL import Image
+
+    rng = np.random.default_rng(13)
+    root.mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        arr = np.clip(rng.integers(0, 256, (1, 1, 3)) + rng.integers(-40, 40, (224, 224, 3)), 0, 255)
+        Image.fromarray(arr.astype(np.uint8)).save(root / f"pair_{i:03d}.jpg", quality=90)
+        (root / f"pair_{i:03d}.txt").write_text(f"a {COLOURS[i % len(COLOURS)]} photo, number {i}")
+
+
+def phase_train(gpu, work):
+    """Phase 13: ``train`` through tpuclip_torch.cli at SO400M width, with
+    AdamW and with ``auto``; then one fixed batch in bf16 against fp32 and
+    with the encoder layers checkpointed and not. Returns every counted
+    kernel's launches in the phase."""
+    import shutil
+    from contextlib import nullcontext
+
+    from PIL import Image
+
+    from tpuclip_torch import cli
+    from tpuclip_torch.models.configs import DEFAULT_MODEL
+    from tpuclip_torch.models.loader import load_model
+    from tpuclip_torch.models.siglip import remat_scope
+    from tpuclip_torch.ops._counters import COUNTED
+    from tpuclip_torch.parallel.training import (
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+        sigmoid_contrastive_loss,
+    )
+    from tpuclip_torch.pipelines import train as train_mod
+    from tpuclip_torch.text.tokenizer import load_tokenizer
+
+    data = work / "train_pairs"
+    write_captioned_jpegs(data, N_TRAIN_PAIRS)
+    cache = str(work / "train_models")  # empty: random weights (TPUCLIP_INIT=random)
+    reports, runs = [], {}
+    real_train = train_mod.train
+
+    def keep_report(*args, **kwargs):
+        reports.append(real_train(*args, **kwargs))
+        return reports[-1]
+
+    for wrapper in COUNTED:
+        wrapper.launches = 0
+    train_mod.train = keep_report
+    try:
+        for optimizer in ("adamw", "auto"):
+            out = work / f"train_{optimizer}"
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            run_cli(cli, "train", str(data), "--output", str(out), "--model-cache", cache,
+                    "--steps", str(TRAIN_STEPS), "--batch-size", str(TRAIN_BATCH), "--optimizer", optimizer)
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            r = reports[-1]
+            want = "adafactor" if optimizer == "auto" else "adamw"
+            check(r is not None and r.optimizer == want and r.final_step == TRAIN_STEPS,
+                  f"train --optimizer {optimizer}: ran {r and r.optimizer} to step {r and r.final_step}")
+            check(all(np.isfinite(r.losses)) and len(r.losses) == TRAIN_STEPS, f"train losses {r.losses}")
+            p50 = statistics.median(r.step_seconds[1:])
+            # The model it wrote, through the port's loader (linked into a cache).
+            link = work / f"load_{optimizer}"
+            (link / DEFAULT_MODEL.replace("/", "--")).parent.mkdir(parents=True, exist_ok=True)
+            os.symlink(out / "model", link / DEFAULT_MODEL.replace("/", "--"))
+            _, model = load_model(DEFAULT_MODEL, str(link), device="cuda", dtype=torch.bfloat16)
+            size = (model.cfg.vision.image_size,) * 2
+            pixels = torch.from_numpy(np.stack([np.asarray(Image.open(f).convert("RGB").resize(size))
+                                                for f in sorted(data.glob("*.jpg"))[:4]])).cuda()
+            emb = model.get_image_features(pixels)
+            norm_err = (torch.linalg.vector_norm(emb, dim=1) - 1).abs().max().item()
+            check(bool(torch.isfinite(emb).all()) and norm_err <= 1e-5,
+                  f"the trained model's embeddings are not unit rows ({norm_err})")
+            del model, emb
+            runs[optimizer] = {"optimizer": r.optimizer, "losses": r.losses, "step_p50_s": p50,
+                               "images_per_s": TRAIN_BATCH / p50, "peak_bytes": peak, "wall_s": wall}
+            print(f"[train] train --optimizer {optimizer} ({r.optimizer}): {TRAIN_STEPS} steps of "
+                  f"{TRAIN_BATCH} at SO400M (bf16 compute, fp32 parameters, layers checkpointed), step p50 "
+                  f"{p50 * 1e3:.1f} ms after step 1 = {TRAIN_BATCH / p50:.1f} images/s; losses "
+                  f"{', '.join(f'{x:.6f}' for x in r.losses)}; peak {peak:,} bytes allocated; "
+                  f"{wall:.1f} s with model init and the checkpoints; model/ loads, unit rows "
+                  f"(max |norm - 1| {norm_err:.1e})  ({gpu})", flush=True)
+            shutil.rmtree(out)
+            torch.cuda.empty_cache()
+
+        # One fixed batch, the same random weights: bf16 against fp32, and
+        # checkpointing on and off.
+        _, model = load_model(DEFAULT_MODEL, cache, device="cuda", dtype=torch.float32)
+        model.requires_grad_(True)
+        pairs = train_mod.find_pairs(str(data))
+        tokenizer = load_tokenizer(DEFAULT_MODEL, None, vocab_size=model.cfg.text.vocab_size)
+        batches = train_mod._batches(pairs, TRAIN_BATCH, model.cfg.vision.image_size, tokenizer, 1, 0)
+        images, ids = next(batches)
+        batches.close()
+        images, ids = torch.from_numpy(images).cuda(), torch.from_numpy(ids).cuda()
+        with torch.no_grad():
+            loss32 = sigmoid_contrastive_loss(model, images, ids, torch.float32).item()
+            loss16 = sigmoid_contrastive_loss(model, images, ids, torch.bfloat16).item()
+        rel = abs(loss16 - loss32) / abs(loss32)
+        check(rel <= 2e-2, f"bf16 loss {loss16} off the fp32 loss {loss32} by {rel:.2e} relative")
+        remat = {}
+        for on in (True, False):
+            model.zero_grad(set_to_none=True)
+            torch.cuda.reset_peak_memory_stats()
+            with remat_scope(model) if on else nullcontext():
+                loss = sigmoid_contrastive_loss(model, images, ids, torch.bfloat16)
+            loss.backward()
+            gnorm = torch.sqrt(sum((p.grad.float() ** 2).sum() for p in model.parameters())).item()
+            torch.cuda.synchronize()
+            remat[on] = (loss.item(), gnorm, torch.cuda.max_memory_allocated())
+        (l_on, g_on, peak_on), (l_off, g_off, peak_off) = remat[True], remat[False]
+        check(abs(l_on - l_off) <= 1e-3 and abs(g_on - g_off) <= 1e-3 * g_off,
+              f"checkpointing changed the loss ({l_on} vs {l_off}) or the gradient norm ({g_on} vs {g_off})")
+        # Where a train step's time goes: one step of each optimizer on this batch.
+        model.zero_grad(set_to_none=True)
+        traces = {}
+        for factored in (False, True):
+            opt = make_optimizer(learning_rate=1e-5, warmup_steps=1, total_steps=10, factored=factored)
+            state = init_train_state(model, opt)
+            step = make_train_step(opt, compute_dtype=torch.bfloat16)
+            name = "adafactor" if factored else "adamw"
+            traces[name] = device_breakdown(lambda: step(state, images, ids), runs=2)
+            print_breakdown("train-trace", f"one {name} step, batch {TRAIN_BATCH}", traces[name], gpu)
+            del state, step
+        del model
+        torch.cuda.synchronize()
+        launches = {wrapper.__name__: wrapper.launches for wrapper in COUNTED}
+    finally:
+        train_mod.train = real_train
+    print(f"[train] one batch of {TRAIN_BATCH}: loss bf16 {loss16:.6f}, fp32 {loss32:.6f} ({rel:.2e} relative); "
+          f"layers checkpointed / not: loss {l_on:.6f} / {l_off:.6f}, gradient norm {g_on:.6f} / {g_off:.6f}, "
+          f"peak {peak_on:,} / {peak_off:,} bytes  ({gpu})", flush=True)
+    print(f"[train] kernel launches in this phase: {launches}", flush=True)
+    check(all(n == 0 for n in launches.values()), f"a kernel ran in training: {launches}")
+    print("[phase13-json] " + json.dumps({
+        "gpu": gpu, "runs": runs, "loss_bf16": loss16, "loss_fp32": loss32, "bf16_rel": rel,
+        "remat": {"loss": l_on, "grad_norm": g_on, "peak_bytes": peak_on},
+        "no_remat": {"loss": l_off, "grad_norm": g_off, "peak_bytes": peak_off}, "traces": traces,
+        "launches": launches}), flush=True)
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ab", action="append", default=[], metavar="LABEL:PATH",
@@ -2410,6 +2862,11 @@ def main():
         session = phase_cli(gpu, Path(tmp), db)
         del engine
         naflex = phase_naflex(mods, gpu, Path(tmp), resident)
+        del resident
+        torch.cuda.empty_cache()
+        ivf = phase_ivf(mods, gpu, Path(tmp), db)
+        torch.cuda.empty_cache()
+        train = phase_train(gpu, Path(tmp))
 
     sources = {
         "int8_scores": ("tpuclip_torch/csrc/int8_scan.cu", "tpuclip/ops/topk_int8.py:340"),
@@ -2427,7 +2884,9 @@ def main():
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], **paths.get(name, {}),
          "launches_session": session[name.removesuffix("_q16")],
-         "launches_naflex": naflex[name.removesuffix("_q16")], **record[name]}
+         "launches_naflex": naflex[name.removesuffix("_q16")],
+         "launches_ivf": ivf[name.removesuffix("_q16")],
+         "launches_train": train[name.removesuffix("_q16")], **record[name]}
         for name, (source, replaces) in sources.items()
     ]
     check("jax" not in sys.modules, "the port loaded jax")

@@ -8,9 +8,11 @@ commands that load a model. Held equal: the exit code, what the command
 prints (the package name and the work directory masked; an argparse error
 by its last line, since the port's usage lines list ``--device``), and
 every file the command leaves in its work directory (SQLite tables, npz /
-npy arrays, other files byte for byte). The port alone: ``train`` exits 2,
-and ``gc --db <missing> --decode-cache DIR`` bounds the cache before it
-refuses (tpuclip exits first)."""
+npy arrays, other files byte for byte). ``train`` is held to tpuclip's
+refusal of a dataset under one batch (its runs are held in
+``tests/test_torch_train.py``). The port alone: ``gc --db <missing>
+--decode-cache DIR`` bounds the cache before it refuses (tpuclip exits
+first)."""
 
 import os
 import shutil
@@ -256,17 +258,29 @@ def test_every_tpuclip_subcommand_has_the_same_flags():
         extra = {k: v for k, v in port[name].items() if k not in want[name]}
         assert {k: v for k, v in port[name].items() if k in want[name]} == want[name], name
         assert extra == ({("--device",): (None, "cuda", ["cuda", "cpu"])}
-                         if name in ("scan", "search", "serve", "classify", "selftest") else {}), name
+                         if name in ("scan", "search", "serve", "classify", "selftest", "train") else {}), name
 
 
 def test_train_is_refused(tmp_path, monkeypatch, capsys):
+    """``train`` runs in the port; where tpuclip refuses a dataset (fewer
+    pairs than the batch) the port prints the same lines, writes nothing
+    and exits 0 as tpuclip does."""
     monkeypatch.delenv("TPUCLIP_QUIET", raising=False)
     monkeypatch.setenv("TPUCLIP_HOME", str(tmp_path / "home"))
-    with pytest.raises(SystemExit) as exc:
-        pt_cli.main(["train", str(tmp_path), "--output", str(tmp_path / "out")])
-    assert exc.value.code == 2
-    assert "ROADMAP Queue 1 item 9" in capsys.readouterr().out
-    assert not (tmp_path / "out").exists()
+    data = tmp_path / "data"
+    data.mkdir()
+    for i in range(3):
+        Image.new("RGB", (40, 40), (40 * i, 90, 200)).save(data / f"p{i}.jpg")
+        (data / f"p{i}.txt").write_text(f"photo {i}")
+    outputs = {}
+    for name, cli in CLIS.items():
+        capsys.readouterr()
+        argv = ["train", str(data), "--output", str(tmp_path / f"out_{name}"), "--batch-size", "4"]
+        cli.main(argv + (["--device", "cpu"] if name == "port" else []))
+        outputs[name] = capsys.readouterr().out
+        assert not (tmp_path / f"out_{name}").exists()
+    assert outputs["port"] == outputs["tpuclip"]
+    assert "[X] Need at least 4 (image, caption) pairs; found 3" in outputs["port"]
 
 
 def test_selftest_without_model_flag(tmp_path, monkeypatch, capsys):

@@ -246,11 +246,13 @@ def test_random_init_is_seeded_and_scaled():
 def test_serving_modules_import_neither_tpuclip_nor_jax():
     """The server, its UI and client, the classify pipeline, the CUDA graph
     runner, the CLI, selftest, the duplicate finder, the checkpoint writer,
-    the CLI's copied pipelines and the NaFlex tower, imported one by one in
-    a fresh process, checked after each."""
+    the CLI's copied pipelines, the NaFlex tower, the IVF index and the
+    training modules, imported one by one in a fresh process, checked after
+    each."""
     names = ("serve", "serve_ui", "client", "pipelines.classify", "ops.graphs", "cli", "selftest",
              "pipelines.duplicates", "models.checkpoint", "index.migrate", "pipelines.check",
-             "pipelines.prune", "pipelines.export", "pipelines.merge", "models.naflex")
+             "pipelines.prune", "pipelines.export", "pipelines.merge", "models.naflex",
+             "index.ivf", "parallel.training", "parallel.checkpoint", "pipelines.train")
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"

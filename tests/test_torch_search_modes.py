@@ -249,10 +249,19 @@ def test_index_hbm_cap_matches_tpuclip(tmp_path, vecs, monkeypatch, cap):
 
 
 def test_unknown_settings_raise(tmp_path, vecs, monkeypatch):
+    """Unknown modes and precisions raise, and so does the mesh-sharded
+    index (not ported). ``ivf`` is ported: on 10 rows (under the 64 an IVF
+    index needs) both packages take the exact route and agree."""
     store = _build_db(tmp_path, vecs[:10])
     monkeypatch.setenv("TPUCLIP_SEARCH_MODE", "ivf")
-    with pytest.raises(NotImplementedError, match="ivf"):
+    queries = _unit(np.random.default_rng(16), 2)
+    tx = TorchIndex(store, device="cpu")
+    _assert_same(tx.search_batch(queries, 5), jax_search.DeviceIndex(store).search_batch(queries, 5), atol=1e-6)
+    assert tx._ivf is None
+    monkeypatch.setenv("TPUCLIP_SHARDED_INDEX", "1")
+    with pytest.raises(NotImplementedError, match="mesh"):
         TorchIndex(store, device="cpu")
+    monkeypatch.delenv("TPUCLIP_SHARDED_INDEX")
     monkeypatch.setenv("TPUCLIP_SEARCH_MODE", "nearest")
     with pytest.raises(ValueError):
         TorchIndex(store, device="cpu")

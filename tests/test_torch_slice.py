@@ -111,19 +111,35 @@ def test_scan_search_slice_matches_tpuclip(world, monkeypatch):
         np.testing.assert_allclose([s for _, s in g], [s for _, s in w], rtol=0, atol=1e-5)
 
 
-def test_cli_refuses_what_is_not_ported(world, monkeypatch):
+def test_cli_refuses_what_is_not_ported(world, monkeypatch, capsys):
+    """The session, ``train`` and ``--mode ivf`` are ported: ``search --mode
+    ivf`` gives tpuclip's results (13 rows, under the 64 an IVF index
+    needs: the exact route in both), and ``train`` on a tree without
+    captions gives tpuclip's refusal. The mesh-sharded index is refused."""
     tmp_path, cache, root = world
-    db = str(tmp_path / "t.db")
-    common = ["--db", db, "--model", MODEL, "--model-cache", str(cache), "--device", "cpu"]
-    torch_cli.main(["scan", str(root / "a"), *common])
-    # The session is ported: on a non-tty stdin it runs the query and returns.
-    torch_cli.main(["search", "a red car", *common])
-    with pytest.raises(SystemExit) as exc:  # training is not
-        torch_cli.main(["train", str(root), "--output", str(tmp_path / "out")])
-    assert exc.value.code == 2
     monkeypatch.setenv("TPUCLIP_SEARCH_MODE", "exact")  # the CLI sets it; restored afterwards
-    with pytest.raises(NotImplementedError, match="ivf"):
-        torch_cli.main(["search", "a red car", "--no-session", "--mode", "ivf", *common])
+    flags = ["--mode", "ivf"]
+    _, res_j = _scan_and_search(jax_cli, tmp_path, cache, root, "jax", [], monkeypatch, flags)
+    db, res_t = _scan_and_search(torch_cli, tmp_path, cache, root, "torch", ["--device", "cpu"], monkeypatch, flags)
+    assert [p for p, _ in res_t] == [p for p, _ in res_j] and len(res_t) == 5
+    np.testing.assert_allclose([s for _, s in res_t], [s for _, s in res_j], rtol=0, atol=1e-5)
+    common = ["--db", db, "--model", MODEL, "--model-cache", str(cache), "--device", "cpu"]
+    # The session: on a non-tty stdin it runs the query and returns.
+    torch_cli.main(["search", "a red car", *common])
+
+    monkeypatch.delenv("TPUCLIP_QUIET", raising=False)
+    train = ["train", str(root), "--model", MODEL, "--model-cache", str(cache)]
+    capsys.readouterr()
+    jax_cli.main([*train, "--output", str(tmp_path / "out_jax")])
+    want = capsys.readouterr().out
+    torch_cli.main([*train, "--output", str(tmp_path / "out_torch"), "--device", "cpu"])
+    assert capsys.readouterr().out == want
+    assert "[X] Need at least 16 (image, caption) pairs; found 0" in want
+    assert not (tmp_path / "out_torch").exists()
+
+    monkeypatch.setenv("TPUCLIP_SHARDED_INDEX", "1")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        torch_cli.main(["search", "a red car", "--no-session", *common])
 
 
 def test_cli_folder_filter_matches_tpuclip(world, monkeypatch):

@@ -1,0 +1,277 @@
+"""The port's contrastive training (``tpuclip_torch/parallel/{training,
+checkpoint}.py``, ``pipelines/train.py`` and the CLI's ``train``) against
+tpuclip's, on the CPU, on the ``tpuclip/test-tiny`` preset with the same
+weights in fp32 (carried over from tpuclip's ``init_params``).
+
+Held against tpuclip: the sigmoid loss (1e-5 relative), autograd's
+gradients against ``jax.grad`` (per leaf, 1e-4 of the leaf's largest),
+three optimizer steps of AdamW + clipping + warmup-cosine and of Adafactor
+against optax on a seeded tree (1e-6), and three train steps with the
+encoder layers checkpointed against tpuclip's ``make_train_step`` under
+``remat_scope`` (losses within 1e-4). Then ``train`` through the port's
+CLI on ``tests/test_train_cli.py``'s caption set: the model it writes loads
+in tpuclip's loader and in the port's, ``--resume`` continues the step
+count, and a NaFlex model and tpuclip's orbax train state are refused."""
+
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+from PIL import Image
+
+import tpuclip.parallel.training as jx_train
+import tpuclip_torch.cli as pt_cli
+import tpuclip_torch.parallel.training as pt_train
+from tpuclip.models.configs import get_config
+from tpuclip.models.siglip import init_params
+from tpuclip.pipelines.train import find_pairs as jx_find_pairs
+from tpuclip_torch.models import configs as pt_configs
+from tpuclip_torch.models.convert import jax_params_to_state_dict, load_jax_params
+from tpuclip_torch.models.siglip import build_model
+from tpuclip_torch.pipelines.train import find_pairs
+
+MODEL = "tpuclip/test-tiny"
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    """(config, tpuclip's fp32 params as numpy, one seeded batch)."""
+    cfg = get_config(MODEL)
+    params = jax.tree.map(np.asarray, init_params(jax.random.PRNGKey(5), cfg))
+    rng = np.random.default_rng(0)
+    s = cfg.vision.image_size
+    batches = [
+        (rng.integers(0, 256, (4, s, s, 3), dtype=np.uint8),
+         rng.integers(0, cfg.text.vocab_size, (4, cfg.text.max_length)).astype(np.int32))
+        for _ in range(3)
+    ]
+    return cfg, params, batches
+
+
+# Jitted once: tpuclip's loss and its gradients, cfg and dtype static.
+_jx_value_and_grad = jax.jit(jax.value_and_grad(jx_train.sigmoid_contrastive_loss), static_argnums=(3, 4))
+
+
+def _port_model(params):
+    model = build_model(pt_configs.get_config(MODEL), torch.device("cpu"), torch.float32)
+    return load_jax_params(model, params).requires_grad_(True)
+
+
+def _t(batch):
+    return [torch.from_numpy(a) for a in batch]
+
+
+def test_loss_matches_tpuclip(tiny):
+    cfg, params, batches = tiny
+    model = _port_model(params)
+    for images, ids in batches:
+        want, _ = _jx_value_and_grad(
+            jax.tree.map(jnp.asarray, params), jnp.asarray(images), jnp.asarray(ids), cfg, jnp.float32)
+        with torch.no_grad():
+            got = float(pt_train.sigmoid_contrastive_loss(model, *_t((images, ids)), torch.float32))
+        want = float(want)
+        assert abs(got - want) <= 1e-5 * abs(want), (got, want)
+
+
+def test_eval_retrieval_at_1_matches_tpuclip(tiny):
+    """Text → image retrieval@1 on a seeded batch, as given and with two
+    captions swapped."""
+    cfg, params, batches = tiny
+    images, ids = batches[0]
+    model = _port_model(params)
+    for order in ([0, 1, 2, 3], [1, 0, 2, 3]):
+        want = float(jx_train.eval_retrieval_at_1(
+            jax.tree.map(jnp.asarray, params), jnp.asarray(images), jnp.asarray(ids[order]), cfg, jnp.float32))
+        got = pt_train.eval_retrieval_at_1(model, *_t((images, ids[order])), torch.float32)
+        assert got == want
+
+
+def test_gradients_match_jax_grad(tiny):
+    """Per leaf within 1e-4 of the leaf's largest gradient. The attention
+    key biases' gradients are zero in exact arithmetic (a softmax does not
+    see a shift common to a row), and both packages return rounding noise
+    of ~1e-8 there; a floor of 1e-7 absolute covers them."""
+    cfg, params, batches = tiny
+    images, ids = batches[0]
+    _, grads = _jx_value_and_grad(
+        jax.tree.map(jnp.asarray, params), jnp.asarray(images), jnp.asarray(ids), cfg, jnp.float32)
+    want = jax_params_to_state_dict(jax.tree.map(np.asarray, grads))
+    model = _port_model(params)
+    pt_train.sigmoid_contrastive_loss(model, *_t((images, ids)), torch.float32).backward()
+    named = dict(model.named_parameters())
+    assert set(named) == set(want)
+    for name, p in named.items():
+        ref = want[name]
+        tol = 1e-4 * max(float(np.abs(ref).max()), 1e-3)
+        np.testing.assert_allclose(p.grad.numpy(), ref, rtol=0, atol=tol, err_msg=name)
+
+
+def _seeded_tree(rng):
+    """Factored (both dims >= 128, square and not), unfactored, 3-D, a
+    vector and a scalar."""
+    shapes = {"a": (256, 160), "b": (130, 130), "c": (64,), "d": (3, 200, 140), "e": (20, 40), "f": ()}
+    return {k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
+
+
+@pytest.mark.parametrize("factored", [False, True], ids=["adamw", "adafactor"])
+def test_optimizer_steps_match_optax(factored):
+    """Three steps of tpuclip's optax chain and of the port's optimizer on
+    one seeded tree; the second step's gradients are small enough to pass
+    the global-norm clip unclipped, the others are clipped."""
+    rng = np.random.default_rng(7)
+    tree = _seeded_tree(rng)
+    tx = jx_train.make_optimizer(learning_rate=1e-2, warmup_steps=1, total_steps=5, factored=factored)
+    opt = pt_train.make_optimizer(learning_rate=1e-2, warmup_steps=1, total_steps=5, factored=factored)
+    jp = jax.tree.map(jnp.asarray, tree)
+    jstate = tx.init(jp)
+    update = jax.jit(tx.update)
+    tp = {k: torch.tensor(v) for k, v in tree.items()}
+    tstate = opt.init(tp)
+    for step in range(3):
+        scale = 1e-3 if step == 1 else 1.0
+        g = {k: (scale * rng.standard_normal(v.shape)).astype(np.float32) for k, v in tree.items()}
+        updates, jstate = update(jax.tree.map(jnp.asarray, g), jstate, jp)
+        jp = optax.apply_updates(jp, updates)
+        pt_train.apply_updates(tp, opt.update({k: torch.tensor(v) for k, v in g.items()}, tstate, tp))
+        for k in tree:
+            np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]), rtol=0, atol=1e-6, err_msg=(step, k))
+    assert tstate["count"] == 3
+
+
+@pytest.mark.parametrize("total", [None, 1, 3, 50])
+def test_schedule_matches_optax(total):
+    """warmup_cosine_decay, linear (total <= warmup) and constant."""
+    warmup = 0 if total is None else 2
+    opt = pt_train.make_optimizer(learning_rate=3e-4, warmup_steps=warmup, total_steps=total)
+    if total is None:
+        ref = lambda count: 3e-4  # noqa: E731
+    elif total > warmup:
+        ref = optax.warmup_cosine_decay_schedule(0.0, 3e-4, warmup, total)
+    else:
+        ref = optax.linear_schedule(0.0, 3e-4, warmup)
+    for count in range(0, 60, 3):
+        np.testing.assert_allclose(opt.schedule(count), float(ref(count)), rtol=0, atol=1e-6 * 3e-4)
+
+
+def test_decay_mask_fault_is_not_copied(tiny):
+    """tpuclip's mask (ndim >= 2) sees its stacked encoder biases and
+    LayerNorm scales as matrices and decays them, against its own rule; the
+    port's per-layer tensors keep them out."""
+    _, params, _ = tiny
+    assert np.ndim(params["vision"]["encoder"]["ln1_scale"]) == 2
+    assert np.ndim(params["vision"]["encoder"]["q_bias"]) == 2
+    named = dict(_port_model(params).named_parameters())
+    decays = {n: pt_train.Optimizer.decays(p) for n, p in named.items()}
+    assert not decays["vision.encoder.layers.0.ln1.weight"]
+    assert not decays["vision.encoder.layers.0.attn.q.bias"]
+    assert not decays["logit_scale"] and not decays["text.head.bias"]
+    assert decays["vision.encoder.layers.0.attn.q.weight"] and decays["text.token_embedding.weight"]
+
+
+def test_train_steps_with_remat_match_tpuclip(tiny):
+    """Three steps of AdamW at lr 1e-3 (warmup 1 of 3): tpuclip's jitted
+    step under ``remat_scope`` and the port's with checkpointed layers.
+    Their decay masks differ on the encoder's biases and LayerNorm scales
+    (above), by lr x wd x p ~ 1e-7 a step, far inside 1e-4."""
+    cfg, params, batches = tiny
+    tx = jx_train.make_optimizer(learning_rate=1e-3, warmup_steps=1, total_steps=3)
+    step = jx_train.make_train_step(cfg, tx, compute_dtype=jnp.float32)
+    state = jx_train.init_train_state(jax.tree.map(jnp.asarray, params), tx)
+    want = []
+    for images, ids in batches:
+        state, loss = step(state, jnp.asarray(images), jnp.asarray(ids))
+        want.append(float(loss))
+
+    opt = pt_train.make_optimizer(learning_rate=1e-3, warmup_steps=1, total_steps=3)
+    pstate = pt_train.init_train_state(_port_model(params), opt)
+    pstep = pt_train.make_train_step(opt, compute_dtype=torch.float32)
+    got = []
+    for batch in batches:
+        pstate, loss = pstep(pstate, *_t(batch))
+        got.append(float(loss))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    assert pstate.step == 3 and int(state.step) == 3
+    assert not any(e.remat for e in (pstate.model.vision.encoder, pstate.model.text.encoder))
+
+
+# ============================================================ the CLI
+
+
+@pytest.fixture()
+def caption_dataset(tmp_path):
+    """tests/test_train_cli.py's set: 12 solid squares with captions and
+    one image without."""
+    d = tmp_path / "data"
+    d.mkdir()
+    colors = {"red": (220, 30, 30), "green": (30, 200, 30), "blue": (30, 30, 220)}
+    for name, c in colors.items():
+        for i in range(4):
+            Image.new("RGB", (60, 60), c).save(d / f"{name}_{i}.jpg")
+            (d / f"{name}_{i}.txt").write_text(f"a solid {name} square")
+    (d / "nocaption.jpg").touch()
+    return d
+
+
+def test_find_pairs_matches_tpuclip(caption_dataset):
+    assert find_pairs(str(caption_dataset)) == jx_find_pairs(str(caption_dataset))
+    assert len(find_pairs(str(caption_dataset))) == 12
+
+
+def _train(data, out, tmp_path, *extra):
+    pt_cli.main([
+        "train", str(data), "--output", str(out), "--model", MODEL,
+        "--model-cache", str(tmp_path / "models"), "--batch-size", "4", "--lr", "1e-3",
+        "--device", "cpu", *extra,
+    ])
+
+
+def test_train_cli_end_to_end(caption_dataset, tmp_path, monkeypatch, capsys):
+    from tpuclip.models.checkpoint import load_checkpoint as jx_load_checkpoint
+    from tpuclip.models.siglip import get_image_features
+    from tpuclip_torch.models.loader import load_model
+    from tpuclip_torch.parallel.checkpoint import STATE_FILE
+
+    monkeypatch.delenv("TPUCLIP_QUIET", raising=False)
+    monkeypatch.setenv("TPUCLIP_HOME", str(tmp_path / "home"))
+    out = tmp_path / "finetuned"
+    _train(caption_dataset, out, tmp_path, "--steps", "3")
+    assert (out / "model" / "tpuclip.json").exists() and (out / "train_state" / STATE_FILE).exists()
+
+    pix = np.random.default_rng(0).integers(0, 256, (2, 56, 56, 3), dtype=np.uint8)
+    cfg, params = jx_load_checkpoint(str(out / "model"))
+    want = np.asarray(get_image_features(params, jnp.asarray(pix), cfg))
+    shutil.copytree(out / "model", tmp_path / "cache" / MODEL.replace("/", "--"))
+    _, model = load_model(MODEL, str(tmp_path / "cache"), device="cpu")
+    got = model.get_image_features(torch.from_numpy(pix)).numpy()
+    np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, rtol=1e-5)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+    _train(caption_dataset, tmp_path / "more", tmp_path, "--steps", "2", "--resume", str(out / "train_state"))
+    text = capsys.readouterr().out
+    assert f"Resumed from {out / 'train_state'} at step 3" in text
+    assert "step     4  loss" in text  # the resumed run's first step
+    state = torch.load(tmp_path / "more" / "train_state" / STATE_FILE, weights_only=True)
+    assert state["step"] == 5 and state["opt_state"]["count"] == 5
+
+
+def test_train_refuses_naflex_and_orbax(caption_dataset, tmp_path, monkeypatch, capsys):
+    from tpuclip.parallel.checkpoint import save_train_state
+
+    monkeypatch.delenv("TPUCLIP_QUIET", raising=False)
+    monkeypatch.setenv("TPUCLIP_HOME", str(tmp_path / "home"))
+    pt_cli.main(["train", str(caption_dataset), "--output", str(tmp_path / "nf"), "--model",
+                 "tpuclip/test-tiny-naflex", "--batch-size", "4", "--device", "cpu"])
+    assert "is a NaFlex model; training does not support NaFlex yet" in capsys.readouterr().out
+    assert not (tmp_path / "nf").exists()
+
+    orbax_dir = tmp_path / "orbax_state"
+    save_train_state(str(orbax_dir), jx_train.TrainState({"w": jnp.zeros(2)}, (), jnp.zeros((), jnp.int32)))
+    with pytest.raises(SystemExit) as exc:
+        _train(caption_dataset, tmp_path / "o", tmp_path, "--steps", "1", "--resume", str(orbax_dir))
+    assert exc.value.code == 2
+    assert "is an orbax train state written by tpuclip" in capsys.readouterr().out
+    assert not (tmp_path / "o").exists()

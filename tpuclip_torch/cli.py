@@ -4,15 +4,15 @@ Every subcommand of ``tpuclip`` (tpuclip/cli.py) with the same flags,
 messages and exit codes: ``scan``, ``search`` (a single query, or the
 interactive session and its mini-language), ``serve``, ``info``, ``gc``,
 ``check``, ``prune``, ``migrate``, ``export``, ``merge``, ``duplicates``,
-``convert``, ``classify`` and ``selftest``. Those that load a model take
-``--device {cuda,cpu}`` (default ``cuda``; the CPU only when named).
-``train`` is not ported (ROADMAP Queue 1 item 9) and exits with status 2.
-Usage::
+``convert``, ``classify``, ``selftest`` and ``train``. Those that run a
+model take ``--device {cuda,cpu}`` (default ``cuda``; the CPU only when
+named). Usage::
 
     python -m tpuclip_torch.cli scan DIR --db photos.db
     python -m tpuclip_torch.cli search "a red car" -k 20 --db photos.db
     python -m tpuclip_torch.cli serve --db photos.db --port 8000 --warm
     python -m tpuclip_torch.cli info --db photos.db
+    python -m tpuclip_torch.cli train captions/ --output finetuned --steps 100
 """
 
 from __future__ import annotations
@@ -236,7 +236,7 @@ def build_parser() -> argparse.ArgumentParser:
     search_parser.add_argument("--show-duplicates", action="store_true", help="Show duplicate images in results (default: filtered)")
     search_parser.add_argument("--model", default=None, help="Model preset name (default: google/siglip2-so400m-patch14-224)")
     search_parser.add_argument("--precision", choices=["bf16", "int8"], default=None, help="Search precision: int8 quantized scan with exact re-rank (the default) or the plain bf16 scan")
-    search_parser.add_argument("--mode", dest="search_mode", choices=["exact", "ivf", "cascade"], default=None, help="Search mode: exact scan (default), or cascade (packed-binary prefilter + exact fp32 rescore from the host; no flat matrix on the device); ivf is not ported yet")
+    search_parser.add_argument("--mode", dest="search_mode", choices=["exact", "ivf", "cascade"], default=None, help="Search mode: exact scan (default), ivf (k-means buckets on the device, nprobe 32 of ~2*sqrt(N), int8 probe + exact rescore against the resident rows; needs the rerank rows on the device and >= 64 rows), or cascade (packed-binary prefilter + exact fp32 rescore from the host; no flat matrix on the device)")
 
     # Beyond the reference surface: checkpoint conversion + fine-tuning.
     convert_parser = subparsers.add_parser(
@@ -246,9 +246,8 @@ def build_parser() -> argparse.ArgumentParser:
     convert_parser.add_argument("dst", help="Destination directory for the tpuclip checkpoint")
     convert_parser.add_argument("--model-cache", default=paths.model_cache_dir, help="Model cache directory for name lookups")
 
-    # Parsed with tpuclip's flags, then refused: training is not ported.
     train_parser = subparsers.add_parser(
-        "train", help="Contrastive fine-tuning on (image, sidecar-caption) pairs (not ported yet)"
+        "train", help="Contrastive fine-tuning on (image, sidecar-caption) pairs"
     )
     train_parser.add_argument("data", help="Directory of images with sidecar .txt captions")
     train_parser.add_argument("--output", required=True, help="Output directory for checkpoints")
@@ -257,7 +256,7 @@ def build_parser() -> argparse.ArgumentParser:
     train_parser.add_argument("--steps", type=int, default=100, help="Training steps")
     train_parser.add_argument("--batch-size", type=int, default=16, help="Global batch size")
     train_parser.add_argument("--lr", type=float, default=1e-5, help="Learning rate")
-    train_parser.add_argument("--resume", default=None, help="Train-state directory to resume from")
+    train_parser.add_argument("--resume", default=None, help="Train-state directory to resume from (a train_state/ this port wrote: train_state.pt, torch.save; tpuclip's orbax directories are refused)")
     train_parser.add_argument("--seed", type=int, default=0, help="Shuffle seed")
     train_parser.add_argument("--optimizer", choices=["auto", "adamw", "adafactor"], default="auto", help="auto = AdamW, switching to Adafactor when the AdamW state would not fit the device")
 
@@ -372,7 +371,7 @@ def build_parser() -> argparse.ArgumentParser:
     export_parser.add_argument("--format", default=None, choices=["npz", "npy", "jsonl"], help="Output format (default: inferred from the output extension, else npz)")
     export_parser.add_argument("--binary", action="store_true", help="Also export the binary (sign-bit) embeddings (npz only)")
 
-    for sub in (scan_parser, search_parser, serve_parser, classify_parser, selftest_parser):
+    for sub in (scan_parser, search_parser, serve_parser, classify_parser, selftest_parser, train_parser):
         sub.add_argument("--device", choices=["cuda", "cpu"], default="cuda", help="Device for the towers and the index (default: cuda)")
     return parser
 
@@ -879,8 +878,26 @@ def main(argv: Optional[List[str]] = None) -> None:
         db_path = _require_existing_db_path(args, paths)
         report_duplicates(db_path, tolerance_bits=args.tolerance)
     elif args.mode == "train":
-        log("[X] Error: train is not ported to tpuclip_torch yet (ROADMAP Queue 1 item 9).")
-        sys.exit(2)
+        from tpuclip_torch.parallel.checkpoint import TrainStateError
+        from tpuclip_torch.pipelines.train import train
+
+        try:
+            train(
+                args.data,
+                model_name=_model_name(args),
+                model_cache_dir=args.model_cache or None,
+                output_dir=args.output,
+                steps=args.steps,
+                batch_size=args.batch_size,
+                learning_rate=args.lr,
+                resume=args.resume,
+                seed=args.seed,
+                optimizer=args.optimizer,
+                device=args.device,
+            )
+        except TrainStateError as e:  # a --resume the port cannot read
+            log(f"[X] Error: {e}")
+            sys.exit(2)
     else:
         parser.print_help()
 

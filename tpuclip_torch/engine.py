@@ -8,9 +8,9 @@ thumbnailer are tpuclip's own. NaFlex models (SigLIP2's variable-aspect
 towers) take uint8 patches, masks and patch grids in place of square
 pixels, with the same two shapes. Text, single-image and mixed searches take
 the fused tower + scan programs when the index allows them (int8, rerank
-rows resident, no folder filter, k <= 128): one CUDA graph per ladder
-bucket on the card (``tpuclip_torch.ops.graphs``), eager on the CPU;
-otherwise embed, then search.
+rows resident, no IVF index, no folder filter, k <= 128): one CUDA graph
+per ladder bucket on the card (``tpuclip_torch.ops.graphs``), eager on the
+CPU; otherwise embed, then search (under ``--mode ivf``, the IVF probe).
 """
 
 from __future__ import annotations

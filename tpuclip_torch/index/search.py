@@ -34,6 +34,18 @@ needs; every search then runs on the device. What is ported:
   cached until the next refresh. Masked searches take tpuclip's routes:
   kernel 1's scores for int8, the chunked matmul for bf16, kernel 5's
   popcounts for binary rows and the cascade (an exact prefilter at depth).
+- **ivf** (``TPUCLIP_SEARCH_MODE=ivf``): with the int8 rerank rows
+  resident and at least 64 rows, ``refresh`` builds an IVF index on the
+  device (:func:`~tpuclip_torch.index.ivf.build_ivf_device`; k-means is
+  retrained once the rows grew 20% since the last training, else the
+  previous centroids are reused), and every unmasked int8 search with
+  k <= 128, single or batch, probes it
+  (:func:`~tpuclip_torch.index.ivf.ivf_search`: kernel 1 on the probed
+  buckets and the overflow block, exact rescore). Folder filters, k > 128
+  and an index without the rerank rows take the exact routes. The fused
+  gate is closed while an IVF index is built, so the engine's and the
+  server's text and image searches reach IVF too (tpuclip's gate ignores
+  IVF and serves them the exact scan).
 - ``TPUCLIP_INDEX_HBM_GB`` caps the flat matrix: on CUDA always (12 GB by
   default, as tpuclip on the TPU), on the CPU only when it is set; an index
   over the cap serves from its binary rows.
@@ -49,9 +61,8 @@ needs; every search then runs on the device. What is ported:
   (:class:`~tpuclip_torch.ops.graphs.FusedGraphs`), dropped whenever
   ``refresh`` re-uploads; on the CPU they run eager.
 
-Not ported yet, each raising ``NotImplementedError`` instead of running a
-slower path: the ``ivf`` mode (ROADMAP Queue 1 item 8) and mesh sharding
-(item 10).
+Not ported yet, raising ``NotImplementedError`` instead of running a
+slower path: mesh sharding (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -64,6 +75,7 @@ import numpy as np
 import torch
 
 from tpuclip_torch.index.cache import MatrixCache
+from tpuclip_torch.index.ivf import build_ivf_device, default_clusters, ivf_search
 from tpuclip_torch.index.store import MetadataStore
 from tpuclip_torch.utils.bucketing import batch_bucket
 from tpuclip_torch.utils.logging import log
@@ -131,13 +143,13 @@ class DeviceIndex:
         # Resident rerank copy: 1 / 0 force it, auto decides in refresh().
         self.device_rerank = os.environ.get("TPUCLIP_DEVICE_RERANK", "auto")
         self.search_mode = os.environ.get("TPUCLIP_SEARCH_MODE", "exact")
-        if self.search_mode == "ivf":
-            raise _not_ported("search mode 'ivf'", "ROADMAP Queue 1 item 8")
-        if self.search_mode not in ("exact", "cascade"):
+        if self.search_mode not in ("exact", "ivf", "cascade"):
             raise ValueError(f"TPUCLIP_SEARCH_MODE must be exact, ivf or cascade, got {self.search_mode!r}")
         if os.environ.get("TPUCLIP_SHARDED_INDEX") == "1":
             raise _not_ported("the mesh-sharded index", "ROADMAP Queue 1 item 10")
         self._cascade = False
+        self._ivf = None  # IVFIndex over _rows_device, ivf mode
+        self._ivf_trained_n = 0  # rows at the last k-means training
         self._ids: Optional[np.ndarray] = None  # row -> image_id
         self._host_vectors = None  # fp32 memmap, row-aligned with _ids
         self._rows_device: Optional[torch.Tensor] = None  # (N, D) storage dtype, int8 mode
@@ -181,6 +193,9 @@ class DeviceIndex:
         self._host_vectors = vectors if len(ids) else None
         self._rows_device = self._matrix = self._scales = self._bin_matrix = None
         self._n_valid = 0
+        # No path out of here may keep an IVF index over the previous rows'
+        # numbering; the previous one is kept only to reuse its centroids.
+        prev_ivf, self._ivf = self._ivf, None
         # The graphs hold the old tensors' pointers and n_valid, so each
         # program shape is captured again at its next call (tpuclip passes
         # both to its jitted programs as arguments and recompiles nothing).
@@ -220,6 +235,12 @@ class DeviceIndex:
                     # The host route: the int8 matrix from the fp32 originals.
                     self._matrix, self._scales = quantize_matrix(vectors, n_pad, self.device)
                 self._n_valid = len(ids)
+                if self._rows_device is not None and self.search_mode == "ivf" and len(ids) >= 64:
+                    self._ivf = self._build_ivf_resident(prev_ivf, len(ids))
+                    log(
+                        f"  IVF index built: {self._ivf.centroids.shape[0]} buckets, nprobe "
+                        f"{self._ivf.nprobe}, overflow {int((self._ivf.over_rows >= 0).sum()):,} rows"
+                    )
             else:
                 n_pad = -(-len(ids) // DEFAULT_TILE_N) * DEFAULT_TILE_N
                 self._matrix = self._upload(vectors, n_pad)
@@ -240,6 +261,38 @@ class DeviceIndex:
                 f"  Index resident on {self.device}: {len(ids):,} full vectors, "
                 f"{len(bin_ids):,} binary rows"
             )
+
+    # The centroids are retrained once the rows grew by this fraction since
+    # the last training; below it a rebuild reuses them (one assignment pass).
+    _IVF_RETRAIN_GROWTH = 0.2
+
+    def _build_ivf_resident(self, prev_ivf, n_rows: int):
+        """Build the IVF index from the resident rows, reusing
+        ``prev_ivf``'s centroids while the rows grew less than
+        ``_IVF_RETRAIN_GROWTH`` since the last training (not the last build,
+        so steady growth below the threshold cannot compound forever)."""
+        trained = self._ivf_trained_n
+        reuse = bool(
+            prev_ivf is not None and trained and n_rows >= trained
+            and (n_rows - trained) / trained < self._IVF_RETRAIN_GROWTH
+        )
+        centroids = prev_ivf.centroids if reuse else None
+        ivf = build_ivf_device(
+            self._rows_device,
+            k_clusters=centroids.shape[0] if reuse else None,
+            centroids=centroids,
+        )
+        if not reuse:
+            self._ivf_trained_n = n_rows
+        return ivf
+
+    @staticmethod
+    def _ivf_footprint_bytes(n_rows: int, d: int, capacity_factor: float = 1.5) -> int:
+        """tpuclip's estimate of an IVF build's resident bytes: int8 buckets
+        at ``capacity_factor`` x the flat int8 matrix, a scale and a row id
+        per slot, and the centroids."""
+        slots = int(n_rows * capacity_factor)
+        return slots * d + slots * 8 + default_clusters(max(n_rows, 1)) * d * 4
 
     def _flat_matrix_fits(self, n_rows: int) -> bool:
         """tpuclip's capacity gate for the flat matrix, with CUDA in the
@@ -262,8 +315,9 @@ class DeviceIndex:
     def _want_device_rerank(self, n_rows: int) -> bool:
         """tpuclip's device-rerank gate: TPUCLIP_DEVICE_RERANK=1 / 0 force
         it; under auto, CUDA (tpuclip's TPU) and the int8 matrix plus the
-        storage-dtype rows under TPUCLIP_DEVICE_RERANK_MAX_GB (default 8, as
-        tpuclip's; a default sized to the card waits for a measurement)."""
+        storage-dtype rows, plus the IVF blocks in the ivf mode, under
+        TPUCLIP_DEVICE_RERANK_MAX_GB (default 8, as tpuclip's; a default
+        sized to the card waits for a measurement)."""
         if self.device_rerank == "0":
             return False
         if self.device_rerank == "1":
@@ -271,7 +325,11 @@ class DeviceIndex:
         if self.device.type != "cuda":
             return False
         itemsize = torch.finfo(self.matrix_dtype).bits // 8
-        total_bytes = n_rows * self.store.embedding_dim * (1 + itemsize)
+        d = self.store.embedding_dim
+        total_bytes = n_rows * d * (1 + itemsize)
+        if self.search_mode == "ivf":
+            # The IVF blocks live beside the int8 matrix and the rows.
+            total_bytes += self._ivf_footprint_bytes(n_rows, d)
         budget = float(os.environ.get("TPUCLIP_DEVICE_RERANK_MAX_GB", "8"))
         return total_bytes / 1e9 <= budget
 
@@ -286,7 +344,8 @@ class DeviceIndex:
     def resident_bytes(self) -> int:
         """Bytes of the index's tensors on the device (masks aside)."""
         tensors = (self._rows_device, self._matrix, self._scales, self._bin_matrix)
-        return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+        ivf = self._ivf.nbytes() if self._ivf is not None else 0
+        return ivf + sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
     # ----------------------------------------------------------------- masks
 
@@ -365,6 +424,7 @@ class DeviceIndex:
         ``search_batch`` for a batch):
 
         - bf16: :func:`cosine_topk` with the mask;
+        - int8 with an IVF index, no mask, k <= 128: :func:`ivf_search`;
         - int8 with the resident rows, no mask, k <= 128: the fused search;
         - otherwise an int8 shortlist of ``k_short`` = max(4k, 64) rows (k
           without the rescore): for one unmasked query with k_short <= 128
@@ -379,6 +439,9 @@ class DeviceIndex:
         q = torch.from_numpy(q_host).to(self.device)
         if self.precision == "bf16":
             s, r = cosine_topk(q, self._matrix, k, n_valid=self._n_valid, mask=mask)
+            return s.cpu().numpy(), r.cpu().numpy()
+        if mask is None and self._ivf is not None and k <= _FUSED_MAX_K:
+            s, r = ivf_search(self._ivf, self._rows_device, q, k)
             return s.cpu().numpy(), r.cpu().numpy()
         if mask is None and self._rows_device is not None and k <= _FUSED_MAX_K:
             s, r = topk_int8_rerank_fused_auto(
@@ -443,9 +506,12 @@ class DeviceIndex:
     def can_fuse_text_search(self, k: int, filter_folders, assume_fresh: bool = False) -> bool:
         """True when tower → int8 scan → exact rescore can run as one fused
         program for this index state: int8 precision, the int8 matrix and
-        the rerank rows resident, no folder filter, k <= 128 (tpuclip's
-        gate; the port has no mesh). ``assume_fresh`` skips the implicit
-        refresh, for a caller that just refreshed under the same lock."""
+        the rerank rows resident, no IVF index, no folder filter, k <= 128.
+        This is tpuclip's gate with one difference: tpuclip's ignores IVF,
+        so under ``--mode ivf`` its fused entry points scan every row while
+        its ``search`` probes the buckets; here every entry point probes
+        them. ``assume_fresh`` skips the implicit refresh, for a caller
+        that just refreshed under the same lock."""
         if not assume_fresh:
             self.refresh()
         return (
@@ -453,6 +519,7 @@ class DeviceIndex:
             and self.precision == "int8"
             and self._matrix is not None
             and self._rows_device is not None
+            and self._ivf is None
             and k <= _FUSED_MAX_K
         )
 

@@ -6,7 +6,9 @@ side through ``tpuclip.models``); ``tests/test_torch_imports.py`` pins them
 to the originals. They produce the JAX package's parameter tree as numpy:
 (in, out) kernels, per-layer tensors stacked on a leading layer axis.
 :func:`load_jax_params` carries such a tree into a
-:class:`~tpuclip_torch.models.siglip.SiglipModel`.
+:class:`~tpuclip_torch.models.siglip.SiglipModel`, and
+:func:`model_to_jax_params` takes it back out (a trained model goes to
+tpuclip's checkpoint format that way).
 
 One difference from the original reader: BF16 tensors are widened to fp32
 with integer bit ops, so reading needs no ``ml_dtypes``.
@@ -26,7 +28,7 @@ from tpuclip_torch.models.configs import SiglipConfig
 
 __all__ = [
     "read_safetensors", "read_checkpoint_dir", "params_from_state_dict",
-    "load_jax_params",
+    "load_jax_params", "model_to_jax_params",
 ]
 
 
@@ -289,3 +291,38 @@ def load_jax_params(module: torch.nn.Module, params_np: Mapping[str, Any]) -> to
     }
     module.load_state_dict(state, strict=True)
     return module
+
+
+def model_to_jax_params(module: torch.nn.Module) -> Dict[str, Any]:
+    """The inverse of :func:`load_jax_params`: a ``SiglipModel``'s
+    parameters as the JAX package's tree of fp32 numpy arrays, the layout
+    ``models.checkpoint.save_checkpoint`` writes."""
+    sd = {k: v.detach().float().cpu().numpy() for k, v in module.state_dict().items()}
+
+    def encoder(prefix: str, n: int) -> Dict[str, np.ndarray]:
+        return {
+            key: np.stack([_weight(key, sd[f"{prefix}.layers.{i}.{tk}"]) for i in range(n)])
+            for key, tk in _LAYER_KEYS.items()
+        }
+
+    return {
+        "vision": {
+            "embeddings": {
+                "patch_kernel": sd["vision.patch.weight"].T.copy(),
+                "patch_bias": sd["vision.patch.bias"],
+                "pos_embed": sd["vision.pos_embed"],
+            },
+            "encoder": encoder("vision.encoder", len(module.vision.encoder.layers)),
+            "post_ln": {"scale": sd["vision.post_ln.weight"], "bias": sd["vision.post_ln.bias"]},
+            "head": {key: _weight(key, sd[f"vision.head.{tk}"]).copy() for key, tk in _HEAD_KEYS.items()},
+        },
+        "text": {
+            "token_embedding": sd["text.token_embedding.weight"],
+            "pos_embed": sd["text.pos_embed"],
+            "encoder": encoder("text.encoder", len(module.text.encoder.layers)),
+            "final_ln": {"scale": sd["text.final_ln.weight"], "bias": sd["text.final_ln.bias"]},
+            "head": {"kernel": sd["text.head.weight"].T.copy(), "bias": sd["text.head.bias"]},
+        },
+        "logit_scale": sd["logit_scale"],
+        "logit_bias": sd["logit_bias"],
+    }

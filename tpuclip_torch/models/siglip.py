@@ -16,7 +16,10 @@ Port of ``tpuclip/models/siglip.py`` with the same numerics contract:
   as x/127.5 - 1 inside the tower.
 
 Layers are an ``nn.ModuleList`` looped in Python (the JAX tower scans a
-stacked layer axis). Linear weights use PyTorch's (out, in) layout;
+stacked layer axis). Training calls the towers directly (``model.vision``,
+``model.text``) on fp32 parameters that require grad, with the compute
+dtype as an argument, under :func:`remat_scope`, which recomputes each
+layer's activations in the backward pass (tpuclip's ``remat_scope``). Linear weights use PyTorch's (out, in) layout;
 ``tpuclip_torch.models.convert.load_jax_params`` transposes the JAX
 package's (in, out) kernels on load.
 """
@@ -24,11 +27,13 @@ package's (in, out) kernels on load.
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tpuclip_torch.models.configs import SiglipConfig, TextConfig, VisionConfig
 
@@ -127,11 +132,33 @@ class Encoder(nn.Module):
     def __init__(self, cfg):
         super().__init__()
         self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.num_layers))
+        # Set only inside remat_scope: each layer's activations are then
+        # recomputed in the backward pass instead of kept.
+        self.remat = False
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x, mask)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(layer, x, mask, use_reentrant=False)
+            else:
+                x = layer(x, mask)
         return x
+
+
+@contextmanager
+def remat_scope(model: nn.Module):
+    """Per-layer activation checkpointing of every encoder in ``model``
+    while the block runs (tpuclip's ``remat_scope``: at SO400M the stashed
+    activations of 27 layers, the (B, 256, 4304) MLP ones among them,
+    would otherwise be kept for the backward pass)."""
+    encoders = [m for m in model.modules() if isinstance(m, Encoder)]
+    for enc in encoders:
+        enc.remat = True
+    try:
+        yield
+    finally:
+        for enc in encoders:
+            enc.remat = False
 
 
 # =============================================================================

@@ -1,0 +1,267 @@
+"""SigLIP sigmoid-contrastive training (PyTorch port of ``tpuclip/parallel/training.py``).
+
+The loss is SigLIP's pairwise sigmoid (Zhai et al. 2023) over a batch of
+(image, caption) pairs. The optimizers are optax's, written out as plain
+functions on tensors so both packages take the same steps:
+
+- AdamW (b1 0.9, b2 0.999, eps 1e-8) with decoupled weight decay on the
+  parameters of two or more dimensions (weights and embeddings; biases,
+  LayerNorm and ``logit_scale`` / ``logit_bias`` are excluded);
+- Adafactor as ``optax.adafactor(multiply_by_parameter_scale=False)``:
+  factored second moments for dimensions >= 128, decay rate 0.8, eps
+  1e-30, update clipping at block RMS 1.0, weight decay added after the
+  learning rate;
+- both after ``clip_by_global_norm(1.0)``, with a linear warmup then a
+  cosine decay, evaluated at the step count before the update.
+
+The weight-decay mask is taken on the port's per-layer tensors. tpuclip's
+is taken on its stacked (layers, ...) arrays, where an encoder layer's
+biases and LayerNorm scales are two-dimensional and so are decayed, against
+its own rule; the port does not copy that.
+
+One device; the mesh branch (data and model parallel) is not ported
+(ROADMAP Queue 1 item 10).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from tpuclip_torch.models.siglip import SiglipModel, remat_scope
+
+Params = Dict[str, torch.Tensor]
+# optax's adamw defaults.
+_B1, _B2, _EPS = 0.9, 0.999, 1e-8
+
+
+def _unit(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp_min(1e-12)
+
+
+def sigmoid_contrastive_loss(
+    model: SiglipModel,
+    images: torch.Tensor,
+    input_ids: torch.Tensor,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """SigLIP loss: -mean_i sum_j log sigmoid(z_ij (scale sim_ij + bias)),
+    z = 2I - 1. Embeddings are divided by max(norm, 1e-12), and the text
+    tower runs without an attention mask, as tpuclip's train step does."""
+    img = _unit(model.vision(images, compute_dtype).float())
+    txt = _unit(model.text(input_ids, compute_dtype).float())
+    logits = txt @ img.T
+    logits = logits * model.logit_scale.float().exp() + model.logit_bias.float()
+    z = 2.0 * torch.eye(logits.shape[0], device=logits.device) - 1.0
+    return -F.logsigmoid(z * logits).sum(dim=-1).mean()
+
+
+# =============================================================================
+# Optimizers
+# =============================================================================
+
+
+def make_schedule(
+    learning_rate: float, warmup_steps: int = 0, total_steps: Optional[int] = None
+) -> Callable[[int], float]:
+    """tpuclip's schedule choice: ``warmup_cosine_decay_schedule`` (0 →
+    peak over max(1, warmup) steps, then a cosine to 0 at ``total_steps``),
+    ``linear_schedule`` when ``total_steps <= warmup_steps``, else constant.
+    Returns the f32 learning rate at a step count."""
+    if warmup_steps <= 0 and total_steps is None:
+        return lambda count: float(np.float32(learning_rate))
+    warm = max(1, warmup_steps)
+    cosine = total_steps is not None and total_steps > warmup_steps
+    decay_steps = (total_steps - warm) if cosine else 0
+    if cosine and decay_steps <= 0:
+        raise ValueError(f"the cosine decay needs total_steps > warmup, got {total_steps} <= {warm}")
+
+    def schedule(count: int) -> float:
+        if not cosine or count < warm:
+            frac = 1.0 - min(max(count, 0), warm) / warm
+            return float(np.float32(-learning_rate * frac + learning_rate))
+        c = min(count - warm, decay_steps)
+        return float(np.float32(learning_rate * 0.5 * (1.0 + math.cos(math.pi * c / decay_steps))))
+
+    return schedule
+
+
+def _factored_dims(shape) -> Optional[Tuple[int, int]]:
+    """optax's rule: the two largest axes, if the smaller is >= 128."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < 128:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+@dataclass
+class Optimizer:
+    """AdamW or Adafactor (``factored``) with global-norm clipping and a
+    schedule, as :func:`make_optimizer` builds it. ``init`` makes the state
+    of a ``{name: parameter}`` dict; ``update`` turns gradients into the
+    updates to add, advancing the state in place."""
+
+    schedule: Callable[[int], float]
+    weight_decay: float = 1e-4
+    grad_clip_norm: Optional[float] = 1.0
+    factored: bool = False
+
+    @staticmethod
+    def decays(p: torch.Tensor) -> bool:
+        return p.dim() >= 2
+
+    def init(self, params: Params) -> dict:
+        state: dict = {"count": 0}
+        if not self.factored:
+            state["mu"] = {n: torch.zeros_like(p) for n, p in params.items()}
+            state["nu"] = {n: torch.zeros_like(p) for n, p in params.items()}
+            return state
+        state["v_row"], state["v_col"], state["v"] = {}, {}, {}
+        for n, p in params.items():
+            dims = _factored_dims(p.shape)
+            if dims is None:
+                state["v"][n] = torch.zeros_like(p)
+            else:
+                d1, d0 = dims
+                state["v_row"][n] = p.new_zeros([s for i, s in enumerate(p.shape) if i != d0])
+                state["v_col"][n] = p.new_zeros([s for i, s in enumerate(p.shape) if i != d1])
+        return state
+
+    @torch.no_grad()
+    def update(self, grads: Params, state: dict, params: Params) -> Params:
+        count = state["count"]
+        if self.grad_clip_norm is not None:
+            # No host sync: optax's select between the gradient and its
+            # clipped value, per element.
+            g_norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+            keep = g_norm < self.grad_clip_norm
+            grads = {n: torch.where(keep, g, (g / g_norm) * self.grad_clip_norm) for n, g in grads.items()}
+        lr = self.schedule(count)
+        t = np.float32(count + 1)
+        if self.factored:
+            decay = float(np.float32(1.0) - t ** np.float32(-0.8))
+            updates = {n: self._adafactor(n, g, params[n], state, decay, lr) for n, g in grads.items()}
+        else:
+            # Bias corrections 1 - b**t in f32, as optax computes them.
+            c1 = float(np.float32(1.0) - np.float32(_B1) ** t)
+            c2 = float(np.float32(1.0) - np.float32(_B2) ** t)
+            updates = {n: self._adamw(n, g, params[n], state, c1, c2, lr) for n, g in grads.items()}
+        state["count"] = count + 1
+        return updates
+
+    def _adamw(self, name, g, p, state, c1, c2, lr):
+        mu = (1 - _B1) * g + _B1 * state["mu"][name]
+        nu = (1 - _B2) * (g * g) + _B2 * state["nu"][name]
+        state["mu"][name], state["nu"][name] = mu, nu
+        u = (mu / c1) / (torch.sqrt(nu / c2) + _EPS)
+        if self.decays(p):
+            u = u + self.weight_decay * p
+        return u * -lr
+
+    def _adafactor(self, name, g, p, state, decay, lr):
+        g2 = g * g + 1e-30
+        dims = _factored_dims(g.shape)
+        if dims is None:
+            v = decay * state["v"][name] + (1.0 - decay) * g2
+            state["v"][name] = v
+            u = g * v ** -0.5
+        else:
+            d1, d0 = dims
+            v_row = decay * state["v_row"][name] + (1.0 - decay) * g2.mean(dim=d0)
+            v_col = decay * state["v_col"][name] + (1.0 - decay) * g2.mean(dim=d1)
+            state["v_row"][name], state["v_col"][name] = v_row, v_col
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+            u = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
+        u = u / torch.clamp(torch.sqrt((u * u).mean()), min=1.0)
+        u = u * lr
+        if self.weight_decay and self.decays(p):
+            u = u + self.weight_decay * p
+        return -u
+
+
+def make_optimizer(
+    learning_rate: float = 1e-5,
+    weight_decay: float = 1e-4,
+    warmup_steps: int = 0,
+    total_steps: Optional[int] = None,
+    grad_clip_norm: Optional[float] = 1.0,
+    factored: bool = False,
+) -> Optimizer:
+    """AdamW (or Adafactor with ``factored``: no first moment and a few
+    statistics per matrix, where AdamW's two fp32 moments would not fit)
+    with global-norm clipping and the warmup + cosine schedule, tpuclip's
+    fine-tuning recipe."""
+    return Optimizer(
+        make_schedule(learning_rate, warmup_steps, total_steps),
+        weight_decay=weight_decay, grad_clip_norm=grad_clip_norm, factored=factored,
+    )
+
+
+def apply_updates(params: Params, updates: Params) -> None:
+    """``p += u`` for every parameter, in place."""
+    with torch.no_grad():
+        for n, p in params.items():
+            p.add_(updates[n])
+
+
+# =============================================================================
+# Train step
+# =============================================================================
+
+
+@dataclass
+class TrainState:
+    model: SiglipModel  # fp32 parameters that require grad
+    opt_state: dict
+    step: int = 0
+
+    def params(self) -> Params:
+        return dict(self.model.named_parameters())
+
+
+def init_train_state(model: SiglipModel, optimizer: Optimizer) -> TrainState:
+    model.requires_grad_(True)
+    return TrainState(model, optimizer.init(dict(model.named_parameters())), 0)
+
+
+def make_train_step(optimizer: Optimizer, compute_dtype: torch.dtype = torch.bfloat16):
+    """``step(state, images, input_ids) -> (state, loss)``: the loss and its
+    gradients with each encoder layer checkpointed (recomputed in the
+    backward pass, tpuclip's ``remat_scope``), then one optimizer update of
+    the parameters in place."""
+
+    def step(state: TrainState, images: torch.Tensor, input_ids: torch.Tensor):
+        params = state.params()
+        for p in params.values():
+            p.grad = None
+        with remat_scope(state.model):
+            loss = sigmoid_contrastive_loss(state.model, images, input_ids, compute_dtype)
+        loss.backward()
+        grads = {n: p.grad for n, p in params.items()}
+        apply_updates(params, optimizer.update(grads, state.opt_state, params))
+        for p in params.values():
+            p.grad = None
+        state.step += 1
+        return state, loss.detach()
+
+    return step
+
+
+@torch.no_grad()
+def eval_retrieval_at_1(
+    model: SiglipModel, images: torch.Tensor, input_ids: torch.Tensor,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> float:
+    """Text → image retrieval@1 on a batch (a sanity metric for fine-tuning)."""
+    img = _unit(model.vision(images, compute_dtype).float())
+    txt = _unit(model.text(input_ids, compute_dtype).float())
+    pred = torch.argmax(txt @ img.T, dim=-1)
+    return float((pred == torch.arange(len(pred), device=pred.device)).float().mean())
