@@ -158,7 +158,34 @@ Phases, each printing its own lines; any failure exits non-zero:
    through the port's loader and embeds unit rows; on one fixed batch the
    bf16 loss within 2e-2 relative of the fp32 loss with the same weights,
    and the loss and gradient norm with the layers checkpointed within 1e-3
-   of those without. No kernel may run.
+   of those without. No kernel may run;
+14. the mesh (``tpuclip_torch.parallel``), on tensors still resident from
+   phases 3 and 12: (a) ``make_mesh(["cuda:0"] * 4)``, four shards of the
+   card, over phase 3's 1M x 1152 rows (padded to 4 x 251,904): the int8
+   rerank at Q = 1, 4, 16, 64, k = 20 (kernel 1, then 2, a shard), kernel
+   3's route a shard at Q = 1 and 16, bf16 (kernel 4 a shard) with and
+   without a folder mask, and over phase 3's 10M binary rows the binary
+   search at Q = 1, 4, 16 (kernels 6, 7) and the cascade shortlist (kernel
+   5), each with ids identical to the single-device search and a brute
+   force (scores within 1e-6, bf16 1e-5, binary equal), timed beside the
+   single-device search; (e, first half) an NCCL group of this one process
+   through ``maybe_distributed_init`` (``TPUCLIP_MULTIHOST=1``): the merge
+   through ``all_gather`` gives (a)'s results; (b) phase 12's IVF index
+   (K = 2,000, its centroids) sharded by cluster with embedded bf16 rows:
+   nprobe = K id-identical to the exact search, at the default nprobe the
+   p50 at Q = 1 and 64, recall@20 >= 0.90, bytes on the card; (c)
+   ``DeviceIndex(mesh=...)`` on phase 4's database (phase 5's binary-only
+   one for that mode) in int8, bf16, binary-only, cascade and ivf (both
+   indexes probing every bucket), through ``search_batch`` and the
+   engine's ``search_texts``, equal to the unsharded index, and
+   ``TPUCLIP_SHARDED_INDEX=1`` on one card building no mesh; (d) one
+   data-parallel AdamW step at SO400M width (4 layers a tower), batch 16
+   over ``make_mesh(["cuda:0"] * 2)``: loss, summed gradients and the
+   parameters after the step within 2e-2 of the single-device step's, the
+   replicas equal, step p50 and peak allocated bytes; (e, second half) two
+   processes (this script with ``--mesh-worker``) over gloo, two shards of
+   the card each: their int8 rerank ids identical to (a)'s. Kernels 1-7
+   must launch on the mesh path, kernel 8 not.
    Neither jax nor the JAX package (tpuclip) may ever have been imported.
 
 The last two lines are the kernels' JSON record and then
@@ -174,8 +201,10 @@ phase 4's path for kernels 1 and 2, and their ``launches_fused`` and
 ``launches_serve`` phases 8's and 9's; every kernel's ``launches_session``
 counts phase 10's session (0 where the session does not run it), its
 ``launches_naflex`` phase 11's NaFlex path, its ``launches_ivf`` phase
-12's IVF path and its ``launches_train`` phase 13's training; each count
-is zeroed just before its path runs. ``library_ms`` is null
+12's IVF path, its ``launches_train`` phase 13's training and its
+``launches_mesh`` phase 14's mesh path (one run of each case: the
+references and timing loops are not counted); each count is zeroed just
+before its path runs. ``library_ms`` is null
 (no single PyTorch call computes any of these functions) and
 ``nearest_ms`` times the nearest route of PyTorch calls, where there is
 one (kernel 1's: ``torch._int_mm`` at Q = 32, then the scales). Kernels 4 and 8 also carry ``kernel_ms``, the kernel's own launch
@@ -360,21 +389,28 @@ def ordered(scores, rows):
     return bool(((a > b) | ((a == b) & (rows[:, :-1] < rows[:, 1:]))).all())
 
 
-def phase_kernels(mods, gpu, variants):
-    """Phase 3, the dense kernels: returns ({kernel name: its record}, the
-    resident (bf16 rows, int8 matrix, scales), which phase 8 searches)."""
-    ops, tops, _ = mods
-    dev = torch.device("cuda")
+def main_rows(dev):
+    """The main path's rows: 1,000,000 unit bf16 rows x 1152 and 64 unit
+    fp32 queries on ``dev``, from numpy seed 0."""
     rng = np.random.default_rng(0)
     rows = torch.empty((N_ROWS, DIM), dtype=torch.bfloat16, device=dev)
     for s in range(0, N_ROWS, 65536):
         x = torch.from_numpy(rng.standard_normal((min(65536, N_ROWS - s), DIM), dtype=np.float32))
         x = x.to(dev)
         rows[s : s + len(x)] = x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    queries = torch.from_numpy(rng.standard_normal((64, DIM), dtype=np.float32)).to(dev)
+    return rows, queries / torch.linalg.vector_norm(queries, dim=1, keepdim=True)
+
+
+def phase_kernels(mods, gpu, variants):
+    """Phase 3, the dense kernels: returns ({kernel name: its record}, the
+    resident (bf16 rows, int8 matrix, scales, queries), which phases 8,
+    11 and 14 search)."""
+    ops, tops, _ = mods
+    dev = torch.device("cuda")
+    rows, queries = main_rows(dev)
     n_pad = -(-N_ROWS // ops.INT8_TILE_N) * ops.INT8_TILE_N
     m, scales = ops.derive_int8_matrix(rows, n_pad)
-    queries = torch.from_numpy(rng.standard_normal((64, DIM), dtype=np.float32)).to(dev)
-    queries = queries / torch.linalg.vector_norm(queries, dim=1, keepdim=True)
     torch.cuda.synchronize()
     print(f"[kernels] {N_ROWS:,} x {DIM} rows resident: bf16 {rows.numel() * 2 / 1e9:.2f} GB, "
           f"int8 {m.numel() / 1e9:.2f} GB (n_pad {n_pad:,})", flush=True)
@@ -505,7 +541,7 @@ def phase_kernels(mods, gpu, variants):
         ms = p50_ms(lambda: tops.topk_plain(q, rows, 200, N_ROWS), 10)
         print(f"[kernels] topk_plain (bf16 route, k > 128) Q={q_count} k=200: max score diff {err:.2e} "
               f"from the float64 reference, p50 {ms:.4f} ms  ({gpu})", flush=True)
-    return record, (rows, m, scales)
+    return record, (rows, m, scales, queries)
 
 
 def int_mm_route(qi, m, scales, want, gpu):
@@ -993,7 +1029,8 @@ def phase_patch_embed(pops, gpu, variants):
 
 def phase_binary_kernels(hops, gpu, variants):
     """Phase 3, the binary kernels on 10M packed rows of random bits (dense
-    ties): returns {kernel name: its record}; kernel 7 has two, at Q = 4,
+    ties): returns ({kernel name: its record}, (the padded words, the 64
+    queries)), which phase 14 searches; kernel 7 has two records, at Q = 4,
     k = 640 (a cascade batch at its default depth) and at Q = 16, k = 20."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1071,7 +1108,7 @@ def phase_binary_kernels(hops, gpu, variants):
         runs += [(f"kernel 7 Q={len(q)} k={k}", lambda q1f, bf, q=q, k=k: lambda: bf(q, words, k, n_valid))
                  for q, k in ((q4, 640), (q16, K), (queries, K))]
         time_turns(gpu, [(name, {label: make(*fns) for label, fns in variants}) for name, make in runs])
-    return record
+    return record, (words, queries)
 
 
 def write_jpegs(root, n):
@@ -1526,7 +1563,7 @@ def phase_fused_programs(mods, gpu, resident, engine):
     ops = mods[0]
     from tpuclip_torch.ops.graphs import FusedGraphs
 
-    rows, m, scales = resident
+    rows, m, scales = resident[:3]
     model = engine.model
     texts = [f"{TEXTS[i % len(TEXTS)]}, photo {i}" for i in range(64)]
     rng = np.random.default_rng(8)
@@ -2209,7 +2246,7 @@ def phase_naflex(mods, gpu, work, resident):
     from tpuclip_torch.serve import SearchServer, warm_programs
 
     ops = mods[0]
-    rows, m, scales = resident
+    rows, m, scales = resident[:3]
     root, db, cache = work / "naflex_images", str(work / "naflex.db"), str(work / "models")
     write_naflex_jpegs(root)
     files = sorted(root.rglob("*.jpg"))
@@ -2470,7 +2507,8 @@ def reaches_every_row_once(index, n):
 def phase_ivf(mods, gpu, work, db):
     """Phase 12: IVF at full width, then ``--mode ivf`` through the CLI and
     ``serve`` on phase 4's database; returns every counted kernel's
-    launches on the IVF path."""
+    launches on the IVF path, and the mixture's rows, queries, index and
+    exact results, which phase 14 shards."""
     import base64
 
     from tpuclip_torch import cli
@@ -2651,7 +2689,7 @@ def phase_ivf(mods, gpu, work, db):
         "gpu": gpu, "k_clusters": k_clusters, "capacity": cap, "nprobe": index.nprobe,
         "overflow_rows": overflow, "ivf_bytes": index.nbytes(), "build_s": build_s, "reuse_s": reuse_s,
         "queries": report, "launches": launches, "probe_launches": probes[0]}), flush=True)
-    return launches
+    return launches, {"rows": rows, "queries": queries, "index": index, "exact": exact, "exact_of": exact_of}
 
 
 # Training at full width (phase 13).
@@ -2714,6 +2752,8 @@ def phase_train(gpu, work):
         for optimizer in ("adamw", "auto"):
             out = work / f"train_{optimizer}"
             torch.cuda.reset_peak_memory_stats()
+            # Phases 3 and 12 keep their rows for phase 14: the peak counts above them too.
+            held = torch.cuda.memory_allocated()
             t0 = time.perf_counter()
             run_cli(cli, "train", str(data), "--output", str(out), "--model-cache", cache,
                     "--steps", str(TRAIN_STEPS), "--batch-size", str(TRAIN_BATCH), "--optimizer", optimizer)
@@ -2739,11 +2779,13 @@ def phase_train(gpu, work):
                   f"the trained model's embeddings are not unit rows ({norm_err})")
             del model, emb
             runs[optimizer] = {"optimizer": r.optimizer, "losses": r.losses, "step_p50_s": p50,
-                               "images_per_s": TRAIN_BATCH / p50, "peak_bytes": peak, "wall_s": wall}
+                               "images_per_s": TRAIN_BATCH / p50, "peak_bytes": peak, "held_bytes": held,
+                               "wall_s": wall}
             print(f"[train] train --optimizer {optimizer} ({r.optimizer}): {TRAIN_STEPS} steps of "
                   f"{TRAIN_BATCH} at SO400M (bf16 compute, fp32 parameters, layers checkpointed), step p50 "
                   f"{p50 * 1e3:.1f} ms after step 1 = {TRAIN_BATCH / p50:.1f} images/s; losses "
-                  f"{', '.join(f'{x:.6f}' for x in r.losses)}; peak {peak:,} bytes allocated; "
+                  f"{', '.join(f'{x:.6f}' for x in r.losses)}; peak {peak:,} bytes allocated ({peak - held:,} "
+                  f"above the {held:,} held before); "
                   f"{wall:.1f} s with model init and the checkpoints; model/ loads, unit rows "
                   f"(max |norm - 1| {norm_err:.1e})  ({gpu})", flush=True)
             shutil.rmtree(out)
@@ -2756,12 +2798,12 @@ def phase_train(gpu, work):
         pairs = train_mod.find_pairs(str(data))
         tokenizer = load_tokenizer(DEFAULT_MODEL, None, vocab_size=model.cfg.text.vocab_size)
         batches = train_mod._batches(pairs, TRAIN_BATCH, model.cfg.vision.image_size, tokenizer, 1, 0)
-        images, ids = next(batches)
+        images, ids, mask = next(batches)
         batches.close()
-        images, ids = torch.from_numpy(images).cuda(), torch.from_numpy(ids).cuda()
+        images, ids, mask = (torch.from_numpy(a).cuda() for a in (images, ids, mask))
         with torch.no_grad():
-            loss32 = sigmoid_contrastive_loss(model, images, ids, torch.float32).item()
-            loss16 = sigmoid_contrastive_loss(model, images, ids, torch.bfloat16).item()
+            loss32 = sigmoid_contrastive_loss(model, images, ids, torch.float32, mask).item()
+            loss16 = sigmoid_contrastive_loss(model, images, ids, torch.bfloat16, mask).item()
         rel = abs(loss16 - loss32) / abs(loss32)
         check(rel <= 2e-2, f"bf16 loss {loss16} off the fp32 loss {loss32} by {rel:.2e} relative")
         remat = {}
@@ -2769,7 +2811,7 @@ def phase_train(gpu, work):
             model.zero_grad(set_to_none=True)
             torch.cuda.reset_peak_memory_stats()
             with remat_scope(model) if on else nullcontext():
-                loss = sigmoid_contrastive_loss(model, images, ids, torch.bfloat16)
+                loss = sigmoid_contrastive_loss(model, images, ids, torch.bfloat16, mask)
             loss.backward()
             gnorm = torch.sqrt(sum((p.grad.float() ** 2).sum() for p in model.parameters())).item()
             torch.cuda.synchronize()
@@ -2785,7 +2827,7 @@ def phase_train(gpu, work):
             state = init_train_state(model, opt)
             step = make_train_step(opt, compute_dtype=torch.bfloat16)
             name = "adafactor" if factored else "adamw"
-            traces[name] = device_breakdown(lambda: step(state, images, ids), runs=2)
+            traces[name] = device_breakdown(lambda: step(state, images, ids, mask), runs=2)
             print_breakdown("train-trace", f"one {name} step, batch {TRAIN_BATCH}", traces[name], gpu)
             del state, step
         del model
@@ -2806,18 +2848,492 @@ def phase_train(gpu, work):
     return launches
 
 
+# The mesh (phase 14): four shards of the one card.
+MESH_SHARDS = 4
+MESH_QUERY_COUNTS = (1, 4, 16, 64)
+MESH_WORKER_TIMEOUT_S = 300
+DP_LAYERS = 4  # the data-parallel step's depth cut (SO400M width)
+DP_BATCH = 16
+DP_STEPS = 4
+
+
+@contextmanager
+def uncounted():
+    """A block whose kernel launches are not the mesh path's (the
+    single-device and brute-force references, the timing loops): every
+    launch counter is put back as it was."""
+    from tpuclip_torch.ops._counters import COUNTED
+
+    saved = [w.launches for w in COUNTED]
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize()
+        for w, n in zip(COUNTED, saved):
+            w.launches = n
+
+
+@contextmanager
+def environ(**values):
+    """Environment variables set for a block (None: unset), then restored."""
+    saved = {key: os.environ.get(key) for key in values}
+    try:
+        for key, value in values.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        yield
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def rescore_brute_force(ops, rows, q, k, chunk=512):
+    """(score desc, row asc) top-k over every row of the bf16-rounded
+    query's fp32 dots with the bf16 rows, summed over (Q, 512, D) blocks as
+    the exact rescore sums its 512-row gather, so the two round alike: the
+    int8 search's exact answer."""
+    qr = ops.round_f32_to_bf16_bits(q.float())
+    scores = torch.empty((q.shape[0], rows.shape[0]), device=q.device)
+    block = torch.zeros((chunk, rows.shape[1]), dtype=torch.float32, device=q.device)
+    for s0 in range(0, rows.shape[0], chunk):
+        part = rows[s0 : s0 + chunk]
+        block.zero_()
+        block[: len(part)] = part.float()
+        scores[:, s0 : s0 + len(part)] = (block[None] * qr[:, None, :]).sum(-1)[:, : len(part)]
+    idx = torch.arange(rows.shape[0], device=q.device).expand_as(scores)
+    return ops._final_merge(scores, idx, k)
+
+
+def same_ids_up_to_ties(s, i, s_ref, i_ref, tol):
+    """Ids identical to the reference's, except where two rows' scores tie
+    within ``tol`` in both (fp32 sums in another order may swap them);
+    returns the swapped positions' count."""
+    diff = (i != i_ref)
+    if not bool(diff.any()):
+        return 0
+    check(bool(((s - s_ref).abs()[diff] <= tol).all()), "ids differ away from a tie")
+    return int(diff.sum())
+
+
+def phase_mesh(mods, gpu, work, db, cache, resident, binary_rows, ivf_ctx):
+    """Phase 14: the mesh. Four shards of the one card over phase 3's rows,
+    phase 12's IVF index sharded by cluster, ``DeviceIndex(mesh=...)`` in
+    every mode on phases 4's and 5's databases, one data-parallel step over
+    two replicas, an NCCL group of one process and two processes over
+    gloo; returns every counted kernel's launches on the mesh path."""
+    import copy
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from tpuclip_torch.engine import ImageDatabase
+    from tpuclip_torch.index.search import DeviceIndex
+    from tpuclip_torch.models.configs import DEFAULT_MODEL, get_config
+    from tpuclip_torch.models.siglip import build_model, init_params_, remat_scope
+    from tpuclip_torch.ops._counters import COUNTED
+    from tpuclip_torch.parallel import sharded_search as sh
+    from tpuclip_torch.parallel import training as tr
+    from tpuclip_torch.parallel.mesh import DATA_AXIS, make_mesh, maybe_distributed_init
+    from tpuclip_torch.parallel.sharded_ivf import shard_ivf, sharded_ivf_search
+    from tpuclip_torch.pipelines import train as train_mod
+    from tpuclip_torch.text.tokenizer import load_tokenizer
+
+    ops, tops, hops = mods
+    rows, m, scales, queries = resident
+    dev = rows.device
+    mesh4 = make_mesh([dev] * MESH_SHARDS)
+    report = {"gpu": gpu, "shards": MESH_SHARDS}
+    for wrapper in COUNTED:
+        wrapper.launches = 0
+
+    # (a) the 1M rows over four shards: each shard 251,904 rows (the int8
+    # tile times 41), the last ones padding.
+    rows4, _ = sh.pad_for_mesh(rows, mesh4, ops.INT8_TILE_N)
+    m4, sc4 = ops.derive_int8_matrix(rows, len(rows4))
+    check(torch.equal(m4[:N_ROWS], m[:N_ROWS]) and torch.equal(sc4[:N_ROWS], scales[:N_ROWS]),
+          "the four-shard int8 matrix differs from phase 3's")
+    M, SC, R = (sh.shard_matrix(x, mesh4) for x in (m4, sc4, rows4))
+    print(f"[mesh] (a) {N_ROWS:,} x {DIM} rows over {MESH_SHARDS} shards of {dev} ({R.rows_per_shard:,} rows "
+          f"each, {R.shape[0] - N_ROWS:,} padding rows in the last)", flush=True)
+    rerank, cases = {}, []
+    for q_count in MESH_QUERY_COUNTS:
+        q = queries[:q_count]
+        s, i = sh.sharded_topk_int8_rerank(q, M, SC, R, K, mesh4, N_ROWS)
+        with uncounted():
+            s1, i1 = ops.topk_int8_rerank_fused_auto(q, m, scales, rows, K, n_valid=N_ROWS)
+            bs, bi = rescore_brute_force(ops, rows, q, K)
+            ms = p50_ms(lambda: sh.sharded_topk_int8_rerank(q, M, SC, R, K, mesh4, N_ROWS), 20)
+            ms1 = p50_ms(lambda: ops.topk_int8_rerank_fused_auto(q, m, scales, rows, K, n_valid=N_ROWS), 20)
+        err = max((s - s1).abs().max().item(), (s - bs).abs().max().item())
+        check(torch.equal(i, i1) and torch.equal(i, bi) and err <= 1e-6,
+              f"mesh int8 rerank Q={q_count}: ids differ from the single-device or brute-force search, "
+              f"or scores off by {err}")
+        rerank[q_count] = (s, i)
+        cases.append({"case": f"int8 rerank Q={q_count}", "ms": ms, "single_ms": ms1, "max_err": err})
+    for q_count in (1, 16):
+        if q_count == 1:  # one query, host-quantized, as DeviceIndex's single search
+            qi, qs = ops.quantize_query(queries[:1].cpu().numpy())
+            qi = qi.to(dev)
+        else:
+            qi, qs = ops.quantize_queries(queries[:q_count])
+        s, i = sh.sharded_topk_int8(qi, M, SC, qs, 4 * K, mesh4, N_ROWS)
+        with uncounted():
+            s1, i1 = ops.topk_int8(qi, m, scales, qs, 4 * K, N_ROWS)
+            with plain_kernels(mods):
+                sp, ip = ops.topk_int8_scores(qi, m, scales, qs, 4 * K, N_ROWS)
+            ms = p50_ms(lambda: sh.sharded_topk_int8(qi, M, SC, qs, 4 * K, mesh4, N_ROWS), 20)
+            ms1 = p50_ms(lambda: ops.topk_int8(qi, m, scales, qs, 4 * K, N_ROWS), 20)
+        err = max((s - s1).abs().max().item(), (s - sp).abs().max().item())
+        check(torch.equal(i, i1) and torch.equal(i, ip) and err <= 1e-6,
+              f"mesh int8 (kernel 3 a shard) Q={q_count}: ids differ or scores off by {err}")
+        cases.append({"case": f"int8 host route Q={q_count} k={4 * K}", "ms": ms, "single_ms": ms1, "max_err": err})
+    keep = torch.zeros(len(rows4), device=dev)
+    keep[torch.arange(len(rows4), device=dev) % 3 != 0] = float("-inf")
+    keep[N_ROWS:] = float("-inf")
+    for q_count, mask in ((1, None), (16, None), (1, keep), (16, keep)):
+        q = queries[:q_count]
+        s, i = sh.sharded_topk(q, R, K, mesh4, N_ROWS, mask=mask)
+        single_mask = None if mask is None else mask[:N_ROWS]
+        with uncounted():
+            s1, i1 = tops.cosine_topk(q, rows, K, N_ROWS, mask=single_mask)
+            plain = tops._scores_plain(q, rows, N_ROWS)
+            if mask is not None:
+                plain = plain + single_mask[None]
+            sp, ip = ops._final_merge(plain, torch.arange(N_ROWS, device=dev).expand_as(plain), K)
+            ms = p50_ms(lambda: sh.sharded_topk(q, R, K, mesh4, N_ROWS, mask=mask), 10)
+            ms1 = p50_ms(lambda: tops.cosine_topk(q, rows, K, N_ROWS, mask=single_mask), 10)
+        swaps = same_ids_up_to_ties(s, i, s1, i1, 1e-6)
+        err = max((s - s1).abs().max().item(), (s - sp).abs().max().item())
+        kth_ok = bool((plain.gather(1, i) >= sp[:, -1:] - 1e-5).all())
+        check(err <= 1e-5 and kth_ok and ordered(s, i) and (mask is None or bool((i % 3 == 0).all())),
+              f"mesh bf16 Q={q_count} mask={mask is not None}: scores off by {err}, or a row outside the top")
+        name = f"bf16 Q={q_count}" + (" folder mask" if mask is not None else "")
+        cases.append({"case": name, "ms": ms, "single_ms": ms1, "max_err": err, "tie_swaps": swaps})
+    del plain, keep
+    words, bq = binary_rows
+    blocks, brps, _ = sh.shard_words_grouped(words[:N_BINARY], mesh4)
+    for q_count in (1, 4, 16):
+        q = bq[:q_count]
+        s, i = sh.sharded_binary_topk(q, blocks, K, mesh4, N_BINARY)
+        with uncounted():
+            s1, i1 = hops.binary_topk(q, words, K, N_BINARY)
+            sp, ip = hops._binary_topk_plain(q, words, K, N_BINARY)
+            ms = p50_ms(lambda: sh.sharded_binary_topk(q, blocks, K, mesh4, N_BINARY), 10)
+            ms1 = p50_ms(lambda: hops.binary_topk(q, words, K, N_BINARY), 10)
+        check(torch.equal(s, s1) and torch.equal(i, i1) and torch.equal(s, sp) and torch.equal(i, ip),
+              f"mesh binary Q={q_count}: matches or rows differ from the single-device or brute-force search")
+        cases.append({"case": f"binary Q={q_count}", "ms": ms, "single_ms": ms1, "max_err": 0})
+    m_c = 2 * 640  # the cascade's single-query shortlist at k = 20
+    s, i = sh.sharded_binary_shortlist(bq[:1], blocks, m_c, mesh4, N_BINARY, brps)
+    with uncounted():
+        s1, i1 = hops.binary_shortlist_q1(bq[:1], words, m_c, N_BINARY)
+        ms = p50_ms(lambda: sh.sharded_binary_shortlist(bq[:1], blocks, m_c, mesh4, N_BINARY, brps), 10)
+        ms1 = p50_ms(lambda: hops.binary_shortlist_q1(bq[:1], words, m_c, N_BINARY), 10)
+    check(torch.equal(s, s1) and torch.equal(i, i1), "mesh cascade shortlist differs from the single-device one")
+    cases.append({"case": f"cascade shortlist m={m_c}", "ms": ms, "single_ms": ms1, "max_err": 0})
+    with uncounted():
+        traces = {q_count: device_breakdown(lambda: sh.sharded_topk_int8_rerank(
+            queries[:q_count], M, SC, R, K, mesh4, N_ROWS)) for q_count in (1, 64)}
+    for q_count, trace in traces.items():
+        print_breakdown("mesh-trace", f"int8 rerank over {MESH_SHARDS} shards Q={q_count} k={K}", trace, gpu)
+    report["a_trace"] = traces
+    for c in cases:
+        print(f"[mesh] (a) {c['case']}: equal to the single-device search and the brute force "
+              f"(max diff {c['max_err']:.2e}{', %d tie swaps' % c['tie_swaps'] if c.get('tie_swaps') else ''}); "
+              f"p50 {c['ms']:.4f} ms over {MESH_SHARDS} shards vs {c['single_ms']:.4f} ms on one  ({gpu})",
+              flush=True)
+    report["a"] = cases
+
+    # (e) first half: an NCCL group of one process; its cross-process merge
+    # gives (a)'s results.
+    with environ(TPUCLIP_MULTIHOST="1", JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{free_port()}",
+                 JAX_NUM_PROCESSES="1", JAX_PROCESS_ID="0"):
+        maybe_distributed_init()
+        try:
+            backend = "nccl" if dev.type == "cuda" else "gloo"
+            check(dist.get_backend() == backend and dist.get_world_size() == 1, "maybe_distributed_init: no NCCL group")
+            group_mesh = make_mesh([dev] * MESH_SHARDS)
+            check(group_mesh.group is not None and group_mesh.shape[DATA_AXIS] == MESH_SHARDS,
+                  f"the mesh did not join the group: {group_mesh}")
+            for q_count in MESH_QUERY_COUNTS:
+                s, i = sh.sharded_topk_int8_rerank(queries[:q_count], M, SC, R, K, group_mesh, N_ROWS)
+                check(torch.equal(i, rerank[q_count][1]) and torch.equal(s, rerank[q_count][0]),
+                      f"NCCL world 1 Q={q_count}: the merge through the group differs from (a)'s")
+        finally:
+            dist.destroy_process_group()
+    print(f"[mesh] (e) NCCL group of one process (maybe_distributed_init, TPUCLIP_MULTIHOST=1): the int8 "
+          f"rerank at Q={', '.join(map(str, MESH_QUERY_COUNTS))} through all_gather equals (a)'s", flush=True)
+    del M, SC, R, rows4, m4, sc4, blocks
+    torch.cuda.empty_cache()
+
+    # (b) phase 12's IVF index (K = 2,000, its centroids) sharded by cluster.
+    rows_i, q_i, index = ivf_ctx["rows"], ivf_ctx["queries"], ivf_ctx["index"]
+    k_clusters = index.centroids.shape[0]
+    t0 = time.perf_counter()
+    sivf = shard_ivf(index, rows_i, mesh4)
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    for q_count in (1, 16):
+        s, i = sharded_ivf_search(sivf, q_i[:q_count], K, nprobe=k_clusters)
+        want_s, want_i = ivf_ctx["exact"][q_count]
+        err = (s - want_s).abs().max().item()
+        check(torch.equal(i, want_i) and err <= 1e-6,
+              f"sharded IVF nprobe=K Q={q_count}: ids differ from the exact search, or scores by {err}")
+    ivf_report = {"bytes": sivf.nbytes(), "shard_s": shard_s, "k_clusters": k_clusters, "nprobe": sivf.nprobe}
+    for q_count in (1, 64):
+        q = q_i[:q_count]
+        s, i = sharded_ivf_search(sivf, q, K)
+        err = (s - ivf_ctx["exact_of"](q, i)).abs().max().item()
+        want = ivf_ctx["exact"][q_count][1]
+        recall = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / K for a, b in zip(i, want)]))
+        check(err <= 1e-6 and recall >= 0.90 and ordered(s, i),
+              f"sharded IVF Q={q_count}: recall@{K} {recall:.4f}, scores off the exact path's by {err}")
+        with uncounted():
+            ms = p50_ms(lambda: sharded_ivf_search(sivf, q, K), 10)
+        ivf_report[q_count] = {"ms": ms, "recall": recall, "max_score_err": err}
+        print(f"[mesh] (b) sharded IVF Q={q_count} k={K} (nprobe {sivf.nprobe}: {-(-sivf.nprobe // MESH_SHARDS)} "
+              f"buckets a shard): p50 {ms:.4f} ms, recall@{K} {recall:.4f} against the exact search, scores "
+              f"within {err:.2e} of the exact path's  ({gpu})", flush=True)
+    print(f"[mesh] (b) K={k_clusters} over {MESH_SHARDS} shards, embedded bf16 rows: {ivf_report['bytes']:,} bytes "
+          f"on the card, resharded in {shard_s:.3f} s; nprobe = K at Q=1 and 16: ids identical to the exact "
+          f"search  ({gpu})", flush=True)
+    report["b"] = ivf_report
+    del sivf
+    torch.cuda.empty_cache()
+
+    # (c) DeviceIndex(mesh=...) on phase 4's database (and phase 5's
+    # binary-only one), through search_batch and the engine.
+    bin_db = str(work / "binary.db")
+    engines = {path: ImageDatabase(path, cache, inference_batch_size=64) for path in (db, bin_db)}
+    q_vecs = engines[db].embed_texts(TEXTS)
+    modes = (("int8", {}, db), ("bf16", {"TPUCLIP_SEARCH_PRECISION": "bf16"}, db), ("binary-only", {}, bin_db),
+             ("cascade", {"TPUCLIP_SEARCH_MODE": "cascade"}, db), ("ivf", {"TPUCLIP_SEARCH_MODE": "ivf", "TPUCLIP_DEVICE_RERANK": "1"}, db))
+    index_report = {}
+    for name, env, path in modes:
+        values = {"TPUCLIP_SEARCH_PRECISION": "int8", "TPUCLIP_SEARCH_MODE": "exact", "TPUCLIP_DEVICE_RERANK": None,
+                  "TPUCLIP_SHARDED_INDEX": None, **env}
+        engine = engines[path]
+        with environ(**values):
+            single, meshed = DeviceIndex(engine.store, device=dev), DeviceIndex(engine.store, mesh=mesh4)
+            with uncounted():
+                single.refresh()
+            meshed.refresh()
+            if name == "ivf":
+                check(single._ivf is not None and meshed._ivf_sharded is not None, "ivf mode built no IVF index")
+                # Both builds are approximate (the device build's torch.Generator start,
+                # the host build's numpy one): probe every bucket.
+                single._ivf = single._ivf._replace(nprobe=single._ivf.centroids.shape[0])
+                meshed._ivf_sharded = meshed._ivf_sharded._replace(nprobe=meshed._ivf_sharded.k_real)
+            with uncounted():
+                want_batch = single.search_batch(q_vecs, K)
+                engine.index = single
+                want_engine = engine.search_texts(TEXTS, K)
+            got_batch = meshed.search_batch(q_vecs, K)
+            engine.index = meshed
+            got_engine = engine.search_texts(TEXTS, K)
+            check(not meshed.can_fuse_text_search(K, None), "the fused gate is open under a mesh")
+            errs = [0.0]
+            tol = 1e-5 if name == "bf16" else 1e-6
+            for got, want in zip(got_batch + got_engine, want_batch + want_engine):
+                check(got and [p for p, _ in got] == [p for p, _ in want],
+                      f"DeviceIndex(mesh) {name}: paths differ from the unsharded index's")
+                errs.append(max(abs(a - b) for (_, a), (_, b) in zip(got, want)))
+            check(max(errs) <= tol, f"DeviceIndex(mesh) {name}: scores off the unsharded index's by {max(errs)}")
+            index_report[name] = {"max_err": max(errs), "resident_bytes": meshed.resident_bytes(),
+                                  "single_resident_bytes": single.resident_bytes()}
+            print(f"[mesh] (c) DeviceIndex(mesh) {name} on {Path(path).name} ({meshed.num_full or meshed.num_binary} "
+                  f"rows): search_batch and the engine's search_texts equal to the unsharded index's (max diff "
+                  f"{max(errs):.2e}); resident {meshed.resident_bytes():,} bytes over {MESH_SHARDS} shards "
+                  f"(unsharded {single.resident_bytes():,})", flush=True)
+    with environ(TPUCLIP_SHARDED_INDEX="1", TPUCLIP_SEARCH_PRECISION="int8", TPUCLIP_SEARCH_MODE="exact"), uncounted():
+        auto = DeviceIndex(engines[db].store, device=dev)
+        got = auto.search_batch(q_vecs, K)
+        want = DeviceIndex(engines[db].store, device=dev).search_batch(q_vecs, K)
+        check(auto.mesh is None and all([p for p, _ in a] == [p for p, _ in b] for a, b in zip(got, want)),
+              f"TPUCLIP_SHARDED_INDEX=1 on {torch.cuda.device_count()} card(s) built a mesh or changed results")
+    print(f"[mesh] (c) TPUCLIP_SHARDED_INDEX=1 with {torch.cuda.device_count()} card: no mesh, the single-device "
+          f"route, the same results", flush=True)
+    report["c"] = index_report
+    del engines, auto
+    torch.cuda.empty_cache()
+
+    # (d) one data-parallel step over two replicas on the card, SO400M width
+    # at a cut depth, batch 16, AdamW.
+    full = get_config(DEFAULT_MODEL)
+    cfg = dataclasses.replace(full, vision=dataclasses.replace(full.vision, num_layers=DP_LAYERS),
+                              text=dataclasses.replace(full.text, num_layers=DP_LAYERS))
+    base = init_params_(build_model(cfg, dev, torch.float32), torch.Generator(device=dev).manual_seed(14))
+    tokenizer = load_tokenizer(DEFAULT_MODEL, None, vocab_size=cfg.text.vocab_size)
+    batches = train_mod._batches(train_mod.find_pairs(str(work / "train_pairs")), DP_BATCH,
+                                 cfg.vision.image_size, tokenizer, 1, 0)
+    images, ids, mask = (torch.from_numpy(a).to(dev) for a in next(batches))
+    batches.close()
+    single = copy.deepcopy(base).requires_grad_(True)
+    with remat_scope(single):
+        loss_g = tr.sigmoid_contrastive_loss(single, images, ids, torch.bfloat16, mask)
+    loss_g.backward()
+    grads_s = {n: p.grad for n, p in single.named_parameters()}
+    opt = tr.make_optimizer(learning_rate=1e-5)
+    state_s = tr.init_train_state(copy.deepcopy(base), opt)
+    state_s, loss_s = tr.make_train_step(opt, torch.bfloat16)(state_s, images, ids, mask)
+    params_s = {n: p.detach().clone() for n, p in state_s.model.named_parameters()}
+    del state_s
+    mesh2 = make_mesh([dev, dev])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # earlier phases' tensors and this phase's references
+    opt_d = tr.make_optimizer(learning_rate=1e-5)
+    state_d = tr.init_train_state(copy.deepcopy(base), opt_d, mesh=mesh2)
+    loss_dg, grads_d = tr.data_parallel_value_and_grad(state_d, mesh2, images, ids, mask, torch.bfloat16)
+    num = sum(float(((grads_d[n] - g) ** 2).sum()) for n, g in grads_s.items())
+    den = sum(float((g ** 2).sum()) for g in grads_s.values())
+    grad_rel = (num / den) ** 0.5
+    del grads_d, grads_s, single
+    step_d = tr.make_train_step(opt_d, torch.bfloat16, mesh=mesh2)
+    times, losses = [], []
+    for _ in range(DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state_d, loss_d = step_d(state_d, images, ids, mask)
+        losses.append(loss_d.item())
+        times.append(time.perf_counter() - t0)
+        if len(losses) == 1:
+            param_rel = (sum(float((p - params_s[n]).pow(2).sum()) for n, p in state_d.model.named_parameters())
+                         / sum(float(p.pow(2).sum()) for p in params_s.values())) ** 0.5
+            upd = sum(float(((p - base.get_parameter(n)) - (params_s[n] - base.get_parameter(n))).pow(2).sum())
+                      for n, p in state_d.model.named_parameters())
+            upd_den = sum(float((params_s[n] - base.get_parameter(n)).pow(2).sum()) for n in params_s)
+            replicas_equal = all(torch.equal(p, state_d.model.get_parameter(n))
+                                 for n, p in state_d.replicas[1].named_parameters())
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    loss_rel = abs(losses[0] - loss_s.item()) / abs(loss_s.item())
+    step_p50 = statistics.median(times[1:])
+    check(loss_rel <= 2e-2 and abs(loss_dg.item() - loss_g.item()) <= 2e-2 * abs(loss_g.item()),
+          f"data-parallel loss {losses[0]} off the single-device step's {loss_s.item()} by {loss_rel:.2e}")
+    check(grad_rel <= 2e-2 and param_rel <= 2e-2 and replicas_equal and all(np.isfinite(losses)),
+          f"data-parallel gradients {grad_rel:.2e} or parameters {param_rel:.2e} off the single-device step's, "
+          f"or the replicas differ ({replicas_equal})")
+    report["d"] = {"layers": DP_LAYERS, "batch": DP_BATCH, "replicas": 2, "loss_single": loss_s.item(),
+                   "losses": losses, "loss_rel": loss_rel, "grad_rel": grad_rel, "param_rel": param_rel,
+                   "update_rel": (upd / upd_den) ** 0.5, "step_p50_s": step_p50, "peak_bytes": peak,
+                   "held_bytes": held}
+    print(f"[mesh] (d) data-parallel step, SO400M width ({cfg.vision.hidden_size} hidden, {cfg.vision.num_heads} "
+          f"heads, MLP {cfg.vision.intermediate_size}), {DP_LAYERS} layers a tower, batch {DP_BATCH} over 2 replicas "
+          f"of {dev}, AdamW, bf16: first loss {losses[0]:.6f} vs one device {loss_s.item():.6f} ({loss_rel:.2e} "
+          f"relative); summed gradients {grad_rel:.2e} relative off one device's; parameters after the step "
+          f"{param_rel:.2e} relative off one device's (the update itself {report['d']['update_rel']:.2e}: AdamW's "
+          f"first step is ~lr x sign(g), so bf16 noise flips near-zero gradients); replicas equal; losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)}; step p50 {step_p50 * 1e3:.1f} ms after step 1; peak "
+          f"{peak:,} bytes allocated by the replicas and the steps (over {held:,} held before)  ({gpu})", flush=True)
+    del state_d, base, params_s
+    torch.cuda.empty_cache()
+
+    # (e) second half: two processes over gloo, two shards of the card
+    # each: four global shards over the 1M rows.
+    port = free_port()
+    outs = [work / f"mesh_worker_{r}.json" for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-worker", str(r), str(port),
+                               str(outs[r])], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    t0 = time.perf_counter()
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=MESH_WORKER_TIMEOUT_S)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    workers_s = time.perf_counter() - t0
+    for r, (proc, log) in enumerate(zip(procs, logs)):
+        check(proc.returncode == 0, f"mesh worker {r} exited {proc.returncode}\n{log[-3000:]}")
+    for r in range(2):
+        got = json.loads(outs[r].read_text())
+        for q_count in MESH_QUERY_COUNTS:
+            s, i = rerank[q_count]
+            check(got[str(q_count)]["ids"] == i.cpu().tolist()
+                  and np.abs(np.array(got[str(q_count)]["scores"]) - s.cpu().numpy()).max() <= 1e-6,
+                  f"gloo worker {r} Q={q_count}: ids differ from (a)'s")
+    print(f"[mesh] (e) 2 processes over gloo (TPUCLIP_MULTIHOST=1, JAX_* coordinator variables), 2 shards of {dev} "
+          f"each = {MESH_SHARDS} global shards: int8 rerank ids at Q={', '.join(map(str, MESH_QUERY_COUNTS))} "
+          f"identical to (a)'s, in {workers_s:.1f} s with their start-up", flush=True)
+    report["e"] = {"nccl_world_1": True, "gloo_workers_s": workers_s}
+
+    torch.cuda.synchronize()
+    launches = {wrapper.__name__: wrapper.launches for wrapper in COUNTED}
+    print(f"[mesh] kernel launches on the mesh path: {launches}", flush=True)
+    check(all(n > 0 for name, n in launches.items() if name != "patch_embed_fused"),
+          f"a kernel of the mesh path was not launched: {launches}")
+    check(launches["patch_embed_fused"] == 0, f"kernel 8 ran on the mesh path: {launches}")
+    report["launches"] = launches
+    print("[phase14-json] " + json.dumps(report), flush=True)
+    return launches
+
+
+def mesh_worker(rank, port, out):
+    """One of phase 14's two gloo processes: two shards of the card, joined
+    by ``maybe_distributed_init`` into four global shards over phase 3's
+    rows; writes its int8 rerank results at each query count to ``out``."""
+    import torch.distributed as dist
+
+    from tpuclip_torch.ops import topk_int8 as ops
+    from tpuclip_torch.parallel import sharded_search as sh
+    from tpuclip_torch.parallel.mesh import DATA_AXIS, make_mesh, maybe_distributed_init
+
+    os.environ.update(TPUCLIP_MULTIHOST="1", JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                      JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(rank))
+    maybe_distributed_init(backend="gloo", timeout_s=MESH_WORKER_TIMEOUT_S)
+    try:
+        dev = torch.device("cuda", 0)
+        mesh = make_mesh([dev, dev])
+        check(mesh.shape[DATA_AXIS] == MESH_SHARDS and mesh.rank == rank, f"worker mesh {mesh}")
+        rows, queries = main_rows(dev)
+        rows4, _ = sh.pad_for_mesh(rows, mesh, ops.INT8_TILE_N)
+        m4, sc4 = ops.derive_int8_matrix(rows, len(rows4))
+        del rows
+        M, SC, R = (sh.shard_matrix(x, mesh) for x in (m4, sc4, rows4))
+        result = {}
+        for q_count in MESH_QUERY_COUNTS:
+            s, i = sh.sharded_topk_int8_rerank(queries[:q_count], M, SC, R, K, mesh, N_ROWS)
+            result[q_count] = {"ids": i.cpu().tolist(), "scores": s.cpu().tolist()}
+        Path(out).write_text(json.dumps(result))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ab", action="append", default=[], metavar="LABEL:PATH",
                         help="another int8_scan.cu (kernels 2 and 3), binary_scan.cu (kernels 6 "
                              "and 7), topk_bf16.cu (kernel 4) or patch_embed.cu (kernel 8) to time "
                              "against this tree's, in turns")
+    parser.add_argument("--mesh-worker", nargs=3, metavar=("RANK", "PORT", "OUT"),
+                        help="run as one of phase 14's two gloo processes (started by the smoke itself)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    if args.mesh_worker:
+        rank, port, out = args.mesh_worker
+        return mesh_worker(int(rank), port, out)
     from tpuclip_torch.ops import _build
     from tpuclip_torch.ops import hamming as hops
     from tpuclip_torch.ops import patch_embed as pops
@@ -2846,7 +3362,8 @@ def main():
     torch.cuda.empty_cache()
     phase_int8_4m(ops, gpu, variants.get("int8_scan.cu"))
     torch.cuda.empty_cache()
-    record.update(phase_binary_kernels(hops, gpu, variants.get("binary_scan.cu")))
+    binary, binary_rows = phase_binary_kernels(hops, gpu, variants.get("binary_scan.cu"))
+    record.update(binary)
     torch.cuda.empty_cache()
     record["patch_embed_fused"] = phase_patch_embed(pops, gpu, variants.get("patch_embed.cu"))
     torch.cuda.empty_cache()
@@ -2862,11 +3379,13 @@ def main():
         session = phase_cli(gpu, Path(tmp), db)
         del engine
         naflex = phase_naflex(mods, gpu, Path(tmp), resident)
-        del resident
         torch.cuda.empty_cache()
-        ivf = phase_ivf(mods, gpu, Path(tmp), db)
+        ivf, ivf_ctx = phase_ivf(mods, gpu, Path(tmp), db)
         torch.cuda.empty_cache()
         train = phase_train(gpu, Path(tmp))
+        torch.cuda.empty_cache()
+        mesh = phase_mesh(mods, gpu, Path(tmp), db, cache, resident, binary_rows, ivf_ctx)
+        del resident, binary_rows, ivf_ctx
 
     sources = {
         "int8_scores": ("tpuclip_torch/csrc/int8_scan.cu", "tpuclip/ops/topk_int8.py:340"),
@@ -2886,7 +3405,8 @@ def main():
          "launches_session": session[name.removesuffix("_q16")],
          "launches_naflex": naflex[name.removesuffix("_q16")],
          "launches_ivf": ivf[name.removesuffix("_q16")],
-         "launches_train": train[name.removesuffix("_q16")], **record[name]}
+         "launches_train": train[name.removesuffix("_q16")],
+         "launches_mesh": mesh[name.removesuffix("_q16")], **record[name]}
         for name, (source, replaces) in sources.items()
     ]
     check("jax" not in sys.modules, "the port loaded jax")

@@ -246,13 +246,15 @@ def test_random_init_is_seeded_and_scaled():
 def test_serving_modules_import_neither_tpuclip_nor_jax():
     """The server, its UI and client, the classify pipeline, the CUDA graph
     runner, the CLI, selftest, the duplicate finder, the checkpoint writer,
-    the CLI's copied pipelines, the NaFlex tower, the IVF index and the
-    training modules, imported one by one in a fresh process, checked after
-    each."""
+    the CLI's copied pipelines, the NaFlex tower, the IVF index, the
+    training modules and the mesh (``parallel`` and each of its modules),
+    imported one by one in a fresh process, checked after each."""
     names = ("serve", "serve_ui", "client", "pipelines.classify", "ops.graphs", "cli", "selftest",
              "pipelines.duplicates", "models.checkpoint", "index.migrate", "pipelines.check",
              "pipelines.prune", "pipelines.export", "pipelines.merge", "models.naflex",
-             "index.ivf", "parallel.training", "parallel.checkpoint", "pipelines.train")
+             "index.ivf", "parallel.training", "parallel.checkpoint", "pipelines.train",
+             "parallel.mesh", "parallel.sharded_search", "parallel.sharded_ivf", "parallel.sharding",
+             "parallel")
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"

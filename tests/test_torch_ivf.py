@@ -455,3 +455,58 @@ def test_every_entry_point_probes_the_buckets(world, counted_ivf, monkeypatch):
     for got, ref in zip(batch, eng_t.index.search_batch(eng_t.embed_texts_cached(texts), 3)):
         close(rows(got), ref)
     close(rows(by_image), want)
+
+
+# ============================================================ on the card
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: kernel 1 has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_probe_matches_plain_route(cuda_device, data, host_builds):
+    """``ivf_search`` on the card with kernel 1 against the same search with
+    kernel 1's plain version on the same CUDA tensors: ids and scores
+    identical, at Q = 1 and 8."""
+    rows, queries = data
+    cpu = host_builds[1]
+    index = pt_ivf.IVFIndex(*(t.to(cuda_device) for t in cpu[:7]), cpu.nprobe)
+    rows_d = torch.from_numpy(rows).to(cuda_device, torch.bfloat16)
+    q = torch.from_numpy(queries).to(cuda_device)
+    before = pt_ivf.int8_scores.launches
+    got = [pt_ivf.ivf_search(index, rows_d, q[:n], 10) for n in (1, 8)]
+    assert pt_ivf.int8_scores.launches == before + (1 + 1) + (8 + 1)
+    from tpuclip_torch.ops.topk_int8 import _int8_scores_plain
+
+    kernel = pt_ivf.int8_scores
+    pt_ivf.int8_scores = _int8_scores_plain
+    try:
+        want = [pt_ivf.ivf_search(index, rows_d, q[:n], 10) for n in (1, 8)]
+    finally:
+        pt_ivf.int8_scores = kernel
+    for (s, i), (s_p, i_p) in zip(got, want):
+        assert torch.equal(i, i_p) and torch.equal(s, s_p)
+
+
+@pytest.mark.cuda
+def test_cuda_device_build_from_centroids_matches_host(cuda_device, data, host_builds):
+    """The device build on the card from given centroids: field for field
+    the CPU's device build from them (held to tpuclip's above), and the
+    same bucket and overflow rows as the host build from them."""
+    rows, _ = data
+    cent = host_builds[1].centroids
+    got = pt_ivf.build_ivf_device(torch.from_numpy(rows).to(cuda_device), k_clusters=64,
+                                  centroids=cent.to(cuda_device))
+    want = pt_ivf.build_ivf_device(torch.from_numpy(rows), k_clusters=64, centroids=cent)
+    for a, b, name in zip(got[:7], want[:7], pt_ivf.IVFIndex._fields):
+        assert torch.equal(a.cpu(), b), name
+    host = pt_ivf.build_ivf(rows, k_clusters=64, centroids=cent.numpy(), device="cuda")
+    assert torch.equal(got.bucket_rows.cpu(), host.bucket_rows.cpu())
+    spilled = host.over_rows[host.over_rows >= 0].cpu()
+    assert torch.equal(got.over_rows[got.over_rows >= 0].cpu(), spilled)

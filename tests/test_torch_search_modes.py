@@ -249,9 +249,11 @@ def test_index_hbm_cap_matches_tpuclip(tmp_path, vecs, monkeypatch, cap):
 
 
 def test_unknown_settings_raise(tmp_path, vecs, monkeypatch):
-    """Unknown modes and precisions raise, and so does the mesh-sharded
-    index (not ported). ``ivf`` is ported: on 10 rows (under the 64 an IVF
-    index needs) both packages take the exact route and agree."""
+    """Unknown modes and precisions raise. ``ivf`` is ported: on 10 rows
+    (under the 64 an IVF index needs) both packages take the exact route
+    and agree. The mesh-sharded index is ported: ``TPUCLIP_SHARDED_INDEX=1``
+    with one device (the CPU) builds no mesh, as tpuclip's rule, and agrees
+    with tpuclip's (sharded over its 8 virtual devices)."""
     store = _build_db(tmp_path, vecs[:10])
     monkeypatch.setenv("TPUCLIP_SEARCH_MODE", "ivf")
     queries = _unit(np.random.default_rng(16), 2)
@@ -259,8 +261,10 @@ def test_unknown_settings_raise(tmp_path, vecs, monkeypatch):
     _assert_same(tx.search_batch(queries, 5), jax_search.DeviceIndex(store).search_batch(queries, 5), atol=1e-6)
     assert tx._ivf is None
     monkeypatch.setenv("TPUCLIP_SHARDED_INDEX", "1")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TorchIndex(store, device="cpu")
+    tx = TorchIndex(store, device="cpu")
+    jx = jax_search.DeviceIndex(store)
+    assert tx.mesh is None and jx.mesh is not None
+    _assert_same(tx.search_batch(queries, 5), jx.search_batch(queries, 5), atol=1e-6)
     monkeypatch.delenv("TPUCLIP_SHARDED_INDEX")
     monkeypatch.setenv("TPUCLIP_SEARCH_MODE", "nearest")
     with pytest.raises(ValueError):

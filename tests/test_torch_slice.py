@@ -115,7 +115,9 @@ def test_cli_refuses_what_is_not_ported(world, monkeypatch, capsys):
     """The session, ``train`` and ``--mode ivf`` are ported: ``search --mode
     ivf`` gives tpuclip's results (13 rows, under the 64 an IVF index
     needs: the exact route in both), and ``train`` on a tree without
-    captions gives tpuclip's refusal. The mesh-sharded index is refused."""
+    captions gives tpuclip's refusal. The mesh-sharded index is ported:
+    ``TPUCLIP_SHARDED_INDEX=1`` on the CPU (one device) serves the
+    single-device route, with tpuclip's results."""
     tmp_path, cache, root = world
     monkeypatch.setenv("TPUCLIP_SEARCH_MODE", "exact")  # the CLI sets it; restored afterwards
     flags = ["--mode", "ivf"]
@@ -138,8 +140,11 @@ def test_cli_refuses_what_is_not_ported(world, monkeypatch, capsys):
     assert not (tmp_path / "out_torch").exists()
 
     monkeypatch.setenv("TPUCLIP_SHARDED_INDEX", "1")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        torch_cli.main(["search", "a red car", "--no-session", *common])
+    monkeypatch.setenv("TPUCLIP_SEARCH_MODE", "exact")
+    _, res_t = _scan_and_search(torch_cli, tmp_path, cache, root, "torch_sharded", ["--device", "cpu"], monkeypatch, [])
+    _, res_j = _scan_and_search(jax_cli, tmp_path, cache, root, "jax_sharded", [], monkeypatch, [])
+    assert [p for p, _ in res_t] == [p for p, _ in res_j] and len(res_t) == 5
+    np.testing.assert_allclose([s for _, s in res_t], [s for _, s in res_j], rtol=0, atol=1e-5)
 
 
 def test_cli_folder_filter_matches_tpuclip(world, monkeypatch):

@@ -11,13 +11,14 @@ original by a test. Environment variables, the SQLite schema, the
 matrix-cache files and the cache paths are the same, so a database written
 by one package opens in the other.
 
-Ported so far: ``scan``, ``search`` (int8 with an exact rescore, bf16,
-binary-only, the cascade, folder filters), ``serve`` and the rest of the
-CLI on the SigLIP towers and SigLIP2's NaFlex towers
-(``models/naflex.py``), with tpuclip's fused query programs as CUDA graphs
-(``ops/graphs.py``) and every Pallas kernel of tpuclip in CUDA
-(``csrc/``); IVF, training and multi-GPU are still to come (ROADMAP
-Queue 1).
+Ported: ``scan``, ``search`` (int8 with an exact rescore, bf16,
+binary-only, the cascade, IVF, folder filters), ``serve`` and the rest of
+the CLI, ``train`` included, on the SigLIP towers and SigLIP2's NaFlex
+towers (``models/naflex.py``), with tpuclip's fused query programs as CUDA
+graphs (``ops/graphs.py``), every Pallas kernel of tpuclip in CUDA
+(``csrc/``) and the mesh (``parallel/``: row-sharded searches,
+cluster-sharded IVF, the multi-host bootstrap, data-parallel training).
+Not ported: tensor-parallel towers (ROADMAP Queue 1 item 16).
 """
 
 __version__ = "0.1.0"

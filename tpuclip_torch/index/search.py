@@ -61,8 +61,20 @@ needs; every search then runs on the device. What is ported:
   (:class:`~tpuclip_torch.ops.graphs.FusedGraphs`), dropped whenever
   ``refresh`` re-uploads; on the CPU they run eager.
 
-Not ported yet, raising ``NotImplementedError`` instead of running a
-slower path: mesh sharding (ROADMAP Queue 1 item 10).
+- **mesh** (``DeviceIndex(mesh=...)``, or ``TPUCLIP_SHARDED_INDEX=1``,
+  which builds ``make_mesh()`` over every local CUDA device when there is
+  more than one, times the world size of an initialized process group):
+  every resident array is row-sharded over the mesh's data axis, each
+  shard's rows padded to the kernel tile (``tpuclip_torch.parallel``). The
+  int8 matrix is quantized from the fp32 originals, as tpuclip's mesh path
+  does, and the rerank rows are uploaded beside it under the gate, which
+  counts per-device bytes (÷ ndev). Unmasked int8 searches with k <= 128
+  take ``sharded_topk_int8_rerank`` (or ``sharded_ivf_search`` over a
+  cluster-sharded IVF index built on the host, under ``ivf``), the rest
+  ``sharded_topk_int8`` and the host rescore; bf16 takes
+  ``sharded_topk``; binary rows and the cascade take
+  ``sharded_binary_topk`` / ``sharded_binary_shortlist``. The fused gate
+  stays closed, so no CUDA graph holds a sharded tensor.
 """
 
 from __future__ import annotations
@@ -73,9 +85,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpuclip_torch.index.cache import MatrixCache
-from tpuclip_torch.index.ivf import build_ivf_device, default_clusters, ivf_search
+from tpuclip_torch.index.ivf import build_ivf, build_ivf_device, default_clusters, ivf_search
 from tpuclip_torch.index.store import MetadataStore
 from tpuclip_torch.utils.bucketing import batch_bucket
 from tpuclip_torch.utils.logging import log
@@ -90,6 +103,17 @@ from tpuclip_torch.ops.hamming import (
 )
 from tpuclip_torch.ops.graphs import FusedGraphs
 from tpuclip_torch.ops.topk import DEFAULT_TILE_N, cosine_topk
+from tpuclip_torch.parallel.mesh import DATA_AXIS, Mesh, make_mesh
+from tpuclip_torch.parallel.sharded_ivf import shard_ivf, sharded_ivf_search
+from tpuclip_torch.parallel.sharded_search import (
+    ShardedTensor,
+    shard_words_grouped,
+    sharded_binary_shortlist,
+    sharded_binary_topk,
+    sharded_topk,
+    sharded_topk_int8,
+    sharded_topk_int8_rerank,
+)
 from tpuclip_torch.ops.topk_int8 import (
     INT8_TILE_N,
     derive_int8_matrix,
@@ -116,8 +140,14 @@ _FUSED_MAX_K = 128
 _INDEX_HBM_GB_DEFAULT = 12.0
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to tpuclip_torch yet ({item})")
+def _auto_mesh(device: DeviceLike):
+    """``TPUCLIP_SHARDED_INDEX=1``: tpuclip's rule, a mesh over every device
+    only when there is more than one (the local CUDA devices times the
+    world size of an initialized process group); the CPU is one device."""
+    if resolve_device(device).type != "cuda":
+        return None
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    return make_mesh() if torch.cuda.device_count() * world > 1 else None
 
 
 class DeviceIndex:
@@ -128,10 +158,16 @@ class DeviceIndex:
         store: MetadataStore,
         device: DeviceLike = None,
         matrix_dtype: Optional[torch.dtype] = None,
+        mesh: Optional[Mesh] = None,
     ):
         self.store = store
         self.cache = MatrixCache(store)
-        self.device = resolve_device(device)
+        # Mesh-sharded index: opt-in with mesh= or TPUCLIP_SHARDED_INDEX=1;
+        # the single-device behaviour is unchanged without one.
+        if mesh is None and os.environ.get("TPUCLIP_SHARDED_INDEX") == "1":
+            mesh = _auto_mesh(device)
+        self.mesh = mesh
+        self.device = mesh.lead if mesh is not None else resolve_device(device)
         self.matrix_dtype = matrix_dtype or default_dtype(self.device)
         self.precision = os.environ.get("TPUCLIP_SEARCH_PRECISION", "int8")
         if self.precision not in ("int8", "bf16"):
@@ -145,14 +181,15 @@ class DeviceIndex:
         self.search_mode = os.environ.get("TPUCLIP_SEARCH_MODE", "exact")
         if self.search_mode not in ("exact", "ivf", "cascade"):
             raise ValueError(f"TPUCLIP_SEARCH_MODE must be exact, ivf or cascade, got {self.search_mode!r}")
-        if os.environ.get("TPUCLIP_SHARDED_INDEX") == "1":
-            raise _not_ported("the mesh-sharded index", "ROADMAP Queue 1 item 10")
         self._cascade = False
         self._ivf = None  # IVFIndex over _rows_device, ivf mode
         self._ivf_trained_n = 0  # rows at the last k-means training
+        self._ivf_sharded = None  # the mesh's cluster-sharded IVF index
+        self._ivf_sharded_trained_n = 0
         self._ids: Optional[np.ndarray] = None  # row -> image_id
         self._host_vectors = None  # fp32 memmap, row-aligned with _ids
-        self._rows_device: Optional[torch.Tensor] = None  # (N, D) storage dtype, int8 mode
+        # Under a mesh each of these is a ShardedTensor of the same global shape.
+        self._rows_device: Optional[torch.Tensor] = None  # (N, D) storage dtype, int8 mode (mesh: N_pad)
         self._matrix: Optional[torch.Tensor] = None  # (N_pad, D) int8 or matrix_dtype
         self._scales: Optional[torch.Tensor] = None  # (N_pad,) f32, int8 mode
         self._n_valid = 0
@@ -172,15 +209,59 @@ class DeviceIndex:
         """(count, max_id, sum_id) of embeddings then of binary_embeddings."""
         return self.store.embeddings_fingerprint() + self.store.binary_fingerprint()
 
-    def _upload(self, vectors, n_pad: int) -> torch.Tensor:
-        """Host fp32 rows → (n_pad, D) ``matrix_dtype`` on the device, zero
-        rows past N, converted and copied in steps."""
+    def _upload(self, vectors, n_pad: int, device: Optional[torch.device] = None) -> torch.Tensor:
+        """Host fp32 rows → (n_pad, D) ``matrix_dtype`` on ``device`` (the
+        index's by default), zero rows past N, converted and copied in steps."""
+        device = device or self.device
         n, d = vectors.shape
-        rows = torch.zeros((n_pad, d), dtype=self.matrix_dtype, device=self.device)
+        rows = torch.zeros((n_pad, d), dtype=self.matrix_dtype, device=device)
         for s in range(0, n, _UPLOAD_ROWS):
             chunk = np.array(vectors[s : s + _UPLOAD_ROWS], np.float32)  # writable copy
-            rows[s : s + len(chunk)] = torch.from_numpy(chunk).to(self.device)
+            rows[s : s + len(chunk)] = torch.from_numpy(chunk).to(device)
         return rows
+
+    def _per_shard(self, vectors, tile: int, make):
+        """(rows per shard, [``make(the shard's host rows, rows per shard,
+        its device)`` for each local shard]), the rows padded to the data
+        axis times ``tile``: each shard gets only its own rows."""
+        mesh = self.mesh
+        unit = mesh.shape[DATA_AXIS] * tile
+        rps = -(-len(vectors) // unit) * unit // mesh.shape[DATA_AXIS]
+        starts = [mesh.shard_index(j) * rps for j in range(len(mesh.data_devices))]
+        return rps, [make(vectors[lo : lo + rps], rps, dev) for lo, dev in zip(starts, mesh.data_devices)]
+
+    def _refresh_sharded(self, vectors, n: int, prev_sharded) -> None:
+        """The mesh's dense upload (tpuclip's mesh branch of ``refresh``):
+        int8 quantized from the fp32 originals per shard, and the rerank
+        rows beside it under the gate; then, under ``ivf``, the host IVF
+        build (centroids reused under the growth threshold) resharded by
+        cluster with the rows embedded; bf16 rows otherwise."""
+        mesh = self.mesh
+        if self.precision != "int8":
+            rps, rows = self._per_shard(vectors, DEFAULT_TILE_N, self._upload)
+            self._matrix = ShardedTensor(rows, rps, mesh)
+            return
+        rps, int8 = self._per_shard(vectors, INT8_TILE_N, quantize_matrix)
+        self._matrix = ShardedTensor([m for m, _ in int8], rps, mesh)
+        self._scales = ShardedTensor([sc for _, sc in int8], rps, mesh)
+        if not (self.rerank and self._want_device_rerank(n)):
+            return
+        self._rows_device = ShardedTensor(self._per_shard(vectors, INT8_TILE_N, self._upload)[1], rps, mesh)
+        if self.search_mode != "ivf" or n < 64:
+            return
+        trained = self._ivf_sharded_trained_n
+        prev_cent = None
+        if (prev_sharded is not None and trained and n >= trained
+                and (n - trained) / trained < self._IVF_RETRAIN_GROWTH):
+            prev_cent = prev_sharded.centroids[0][: prev_sharded.k_real].cpu().numpy()
+        ivf_host = build_ivf(np.asarray(vectors, np.float32), centroids=prev_cent, device=self.device)
+        self._ivf_sharded = shard_ivf(ivf_host, vectors, self.mesh, dtype=self.matrix_dtype)
+        if prev_cent is None:
+            self._ivf_sharded_trained_n = n
+        log(
+            f"  sharded IVF index built: {ivf_host.centroids.shape[0]} buckets over "
+            f"{self.mesh.shape[DATA_AXIS]} devices, nprobe {ivf_host.nprobe}"
+        )
 
     def refresh(self, force: bool = False) -> None:
         fp = self._current_fingerprint()
@@ -196,6 +277,7 @@ class DeviceIndex:
         # No path out of here may keep an IVF index over the previous rows'
         # numbering; the previous one is kept only to reuse its centroids.
         prev_ivf, self._ivf = self._ivf, None
+        prev_sharded, self._ivf_sharded = self._ivf_sharded, None
         # The graphs hold the old tensors' pointers and n_valid, so each
         # program shape is captured again at its next call (tpuclip passes
         # both to its jitted programs as arguments and recompiles nothing).
@@ -213,7 +295,10 @@ class DeviceIndex:
                     "  [WARNING] cascade search mode needs binary rows aligned "
                     "with full rows; falling back to the exact scan"
                 )
-        if len(ids) and not self._cascade:
+        if len(ids) and not self._cascade and self.mesh is not None:
+            self._refresh_sharded(vectors, len(ids), prev_sharded)
+            self._n_valid = len(ids)
+        elif len(ids) and not self._cascade:
             if not self._flat_matrix_fits(len(ids)):
                 fallback = (
                     "serving from the binary index"
@@ -252,8 +337,13 @@ class DeviceIndex:
             pad = (-words.shape[-1]) % 4
             if pad:
                 words = np.pad(words, ((0, 0), (0, pad)))
-            padded, _ = pad_words(torch.from_numpy(words.view(np.int32)), BINARY_TILE_N)
-            self._bin_matrix = padded.to(self.device)
+            if self.mesh is not None:
+                # Row blocks of a tile-aligned size, one a shard: binary
+                # search and the cascade share them (tpuclip keeps two layouts).
+                self._bin_matrix, _, _ = shard_words_grouped(words.view(np.int32), self.mesh)
+            else:
+                padded, _ = pad_words(torch.from_numpy(words.view(np.int32)), BINARY_TILE_N)
+                self._bin_matrix = padded.to(self.device)
         self._fingerprint = fp
         self._mask_cache.clear()
         if len(ids) or len(bin_ids):
@@ -326,10 +416,16 @@ class DeviceIndex:
             return False
         itemsize = torch.finfo(self.matrix_dtype).bits // 8
         d = self.store.embedding_dim
-        total_bytes = n_rows * d * (1 + itemsize)
+        ndev = self.mesh.shape[DATA_AXIS] if self.mesh is not None else 1
+        # Per-device bytes: under a mesh the matrix and the rows shard.
+        total_bytes = n_rows * d * (1 + itemsize) / ndev
         if self.search_mode == "ivf":
-            # The IVF blocks live beside the int8 matrix and the rows.
-            total_bytes += self._ivf_footprint_bytes(n_rows, d)
+            # The IVF blocks live beside the int8 matrix and the rows; the
+            # mesh's embeds a storage-dtype row per bucket slot besides.
+            extra = self._ivf_footprint_bytes(n_rows, d)
+            if self.mesh is not None:
+                extra += int(n_rows * 1.5) * d * itemsize
+            total_bytes += extra / ndev
         budget = float(os.environ.get("TPUCLIP_DEVICE_RERANK_MAX_GB", "8"))
         return total_bytes / 1e9 <= budget
 
@@ -342,10 +438,14 @@ class DeviceIndex:
         return 0 if self._bin_ids is None else len(self._bin_ids)
 
     def resident_bytes(self) -> int:
-        """Bytes of the index's tensors on the device (masks aside)."""
+        """Bytes of the index's tensors on the device (masks aside); under a
+        mesh, of every local shard."""
         tensors = (self._rows_device, self._matrix, self._scales, self._bin_matrix)
-        ivf = self._ivf.nbytes() if self._ivf is not None else 0
-        return ivf + sum(t.numel() * t.element_size() for t in tensors if t is not None)
+        ivf = sum(x.nbytes() for x in (self._ivf, self._ivf_sharded) if x is not None)
+        return ivf + sum(
+            t.nbytes() if isinstance(t, ShardedTensor) else t.numel() * t.element_size()
+            for t in tensors if t is not None
+        )
 
     # ----------------------------------------------------------------- masks
 
@@ -437,6 +537,8 @@ class DeviceIndex:
             else None
         )
         q = torch.from_numpy(q_host).to(self.device)
+        if self.mesh is not None:
+            return self._search_dense_mesh(q_host, q, k, mask, single)
         if self.precision == "bf16":
             s, r = cosine_topk(q, self._matrix, k, n_valid=self._n_valid, mask=mask)
             return s.cpu().numpy(), r.cpu().numpy()
@@ -464,6 +566,28 @@ class DeviceIndex:
         if self.rerank:
             return self._exact_rerank_batch(q_host, s, r, k)
         return s, r
+
+    def _search_dense_mesh(self, q_host: np.ndarray, q: torch.Tensor, k: int, mask, single: bool):
+        """:meth:`_search_dense` under a mesh, by tpuclip's mesh branches:
+        bf16 ``sharded_topk``; int8 unmasked with k <= 128 the sharded IVF
+        or ``sharded_topk_int8_rerank``; the rest ``sharded_topk_int8`` at
+        depth max(4k, 64) (one query host-quantized, a batch on the device)
+        and the fp32 rescore from the host memmap."""
+        mesh, n_valid = self.mesh, self._n_valid
+        if self.precision == "bf16":
+            s, r = sharded_topk(q, self._matrix, k, mesh, n_valid, mask=mask)
+        elif mask is None and self._ivf_sharded is not None and k <= _FUSED_MAX_K:
+            s, r = sharded_ivf_search(self._ivf_sharded, q, k)
+        elif mask is None and self._rows_device is not None and k <= _FUSED_MAX_K:
+            s, r = sharded_topk_int8_rerank(q, self._matrix, self._scales, self._rows_device, k, mesh, n_valid)
+        else:
+            do_rerank = self.rerank and self._host_vectors is not None
+            k_short = max(4 * k, 64) if do_rerank else k
+            qi, qs = quantize_query(q_host) if single else quantize_queries(q)
+            s, r = sharded_topk_int8(qi, self._matrix, self._scales, qs, k_short, mesh, n_valid, mask=mask)
+            if do_rerank:
+                return self._exact_rerank_batch(q_host, s.cpu().numpy(), r.cpu().numpy(), k)
+        return s.cpu().numpy(), r.cpu().numpy()
 
     def _exact_rerank_batch(self, qn, scores, rows, k):
         """Exact fp32 rescoring of (Q, m) shortlists from the memmapped
@@ -520,6 +644,7 @@ class DeviceIndex:
             and self._matrix is not None
             and self._rows_device is not None
             and self._ivf is None
+            and self.mesh is None
             and k <= _FUSED_MAX_K
         )
 
@@ -628,10 +753,7 @@ class DeviceIndex:
         matches / D."""
         qwords = self._query_words(queries_2d)
         mask = self._binary_mask(filter_folders)
-        if mask is None:
-            matches, rows = binary_topk(qwords, self._bin_matrix, k, len(self._bin_ids))
-        else:
-            matches, rows = binary_topk_masked(qwords, self._bin_matrix, k, len(self._bin_ids), mask)
+        matches, rows = self._binary_topk_any(qwords, k, mask)
         matches, rows = matches.cpu().numpy(), rows.cpu().numpy()
         dim = self.store.embedding_dim
         out = []
@@ -647,6 +769,16 @@ class DeviceIndex:
                 ]
             )
         return out
+
+    def _binary_topk_any(self, qwords: torch.Tensor, k: int, mask: Optional[torch.Tensor]):
+        """Exact binary top-k on the resident words: kernels 6 / 7 (5 under
+        a mask), per shard under a mesh."""
+        n_valid = len(self._bin_ids)
+        if self.mesh is not None:
+            return sharded_binary_topk(qwords, self._bin_matrix, k, self.mesh, n_valid, mask=mask)
+        if mask is None:
+            return binary_topk(qwords, self._bin_matrix, k, n_valid)
+        return binary_topk_masked(qwords, self._bin_matrix, k, n_valid, mask)
 
     # --------------------------------------------------------------- cascade
 
@@ -682,12 +814,15 @@ class DeviceIndex:
         )
         n_valid = len(self._bin_ids)
         if eligible:
-            s, i = binary_shortlist_q1(qwords, self._bin_matrix, min(2 * depth, n_valid), n_valid)
+            m = min(2 * depth, n_valid)
+            if self.mesh is not None:
+                s, i = sharded_binary_shortlist(
+                    qwords, self._bin_matrix, m, self.mesh, n_valid, self._bin_matrix.rows_per_shard
+                )
+            else:
+                s, i = binary_shortlist_q1(qwords, self._bin_matrix, m, n_valid)
             return s.cpu().numpy(), i.cpu().numpy()
-        if mask is None:
-            matches, rows = binary_topk(qwords, self._bin_matrix, depth, n_valid)
-        else:
-            matches, rows = binary_topk_masked(qwords, self._bin_matrix, depth, n_valid, mask)
+        matches, rows = self._binary_topk_any(qwords, depth, mask)
         matches = matches.cpu().numpy().astype(np.float32)
         # INT32_MIN marks rows past n_valid and masked rows: -inf for the rescore.
         matches[matches <= _INT32_MIN + 1] = -np.inf

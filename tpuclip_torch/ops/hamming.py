@@ -154,7 +154,7 @@ def binary_scores(qwords: torch.Tensor, words: torch.Tensor, n_valid: Optional[i
     with torch.cuda.device(w.device):
         rc = library().tpuclip_binary_scores(
             q.data_ptr(), w.data_ptr(), out.data_ptr(), n, w_words, n_valid,
-            torch.cuda.current_stream().cuda_stream,
+            torch.cuda.current_stream(w.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"binary_scores kernel launch failed: cudaError {rc}")
@@ -231,7 +231,7 @@ def _binary_topk_cuda(entry: str, qwords, words, k, n_valid):
     scratch = torch.empty(n_bytes, dtype=torch.uint8, device=w.device)
     fn = getattr(library(), entry)
     with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(w.device).cuda_stream
         for g0 in range(0, q_count, group):
             g = min(group, q_count - g0)
             args = [q[g0].data_ptr(), w.data_ptr(), scratch.data_ptr(), out_m[g0].data_ptr(),

@@ -106,7 +106,7 @@ def patch_embed_fused(
         rc = library().tpuclip_patch_embed(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), rows, k, d,
             int(out_dtype == torch.float32), int(b.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"patch_embed kernel launch failed: cudaError {rc}")

@@ -159,7 +159,7 @@ def topk_tiles(
         rc = library().tpuclip_topk_tiles(
             q.data_ptr(), matrix.data_ptr(), cand_s.data_ptr(), cand_i.data_ptr(),
             q_count, n, d, n_valid, DEFAULT_TILE_N, k_eff,
-            torch.cuda.current_stream().cuda_stream,
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"topk_tiles kernel launch failed: cudaError {rc}")

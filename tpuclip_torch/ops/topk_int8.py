@@ -236,7 +236,7 @@ def int8_scores(
     with torch.cuda.device(q_int8.device):
         rc = library().tpuclip_int8_scores(
             q_int8.data_ptr(), m_int8.data_ptr(), scales.data_ptr(), out.data_ptr(),
-            q_count, n, d, int(n_valid), torch.cuda.current_stream().cuda_stream,
+            q_count, n, d, int(n_valid), torch.cuda.current_stream(q_int8.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"int8_scores kernel launch failed: cudaError {rc}")
@@ -309,7 +309,7 @@ def int8_candidates_packed(
         rc = library().tpuclip_int8_candidates_packed(
             q_int8.data_ptr(), m_int8.data_ptr(), scales.data_ptr(), out.data_ptr(),
             q_count, n, d, int(n_valid), tile, k_tile, k_pad,
-            torch.cuda.current_stream().cuda_stream,
+            torch.cuda.current_stream(q_int8.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"int8_candidates_packed kernel launch failed: cudaError {rc}")
@@ -377,7 +377,7 @@ def int8_candidates(
         rc = library().tpuclip_int8_candidates(
             q_int8.data_ptr(), m_int8.data_ptr(), scales.data_ptr(), out_s.data_ptr(),
             out_i.data_ptr(), q_count, n, d, int(n_valid), tile, k_tile, k_pad,
-            torch.cuda.current_stream().cuda_stream,
+            torch.cuda.current_stream(q_int8.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"int8_candidates kernel launch failed: cudaError {rc}")
@@ -516,15 +516,25 @@ def topk_int8_rerank_fused(
     kernel 2's per-tile top-``k_tile`` keys, k_tile = min(128, max(4k,
     2*ceil(m/tiles))) as in tpuclip; above k = 128 the per-tile depth could
     not cover k, so ``exact`` serves instead."""
-    q_count = q_f32.shape[0]
     n = m_int8.shape[0]
-    n_valid = n if n_valid is None else int(n_valid)
     k_eff = min(k, n)
     if k_eff <= 0:
-        empty = torch.zeros((q_count, 0), device=q_f32.device)
+        empty = torch.zeros((q_f32.shape[0], 0), device=q_f32.device)
         return empty, empty.long()
+    return rerank_at_depth(
+        q_f32, m_int8, scales, rows_full, k_eff, min(max(shortlist, 4 * k_eff), n),
+        n if n_valid is None else int(n_valid), shortlist_method,
+    )
+
+
+def rerank_at_depth(q_f32, m_int8, scales, rows_full, k_eff: int, m: int, n_valid: int, shortlist_method: str):
+    """The body of :func:`topk_int8_rerank_fused` at a given shortlist depth
+    ``m`` (1 <= k_eff <= m <= N): the int8 shortlist on kernel 1
+    (``exact``) or kernel 2 (``extract``), then the exact rescore of its
+    ``m`` rows. The mesh's per-shard search takes tpuclip's depth,
+    min(max(shortlist, k), shard rows), through here."""
+    n = m_int8.shape[0]
     qi, _ = quantize_queries(q_f32)
-    m = min(max(shortlist, 4 * k_eff), n)
     method = "exact" if shortlist_method == "extract" and k_eff > 128 else shortlist_method
     if method == "exact":
         return topk_exact_from_scores(

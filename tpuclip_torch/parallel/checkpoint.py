@@ -81,4 +81,5 @@ def restore_train_state(directory: str, template: TrainState) -> TrainState:
 
     template.opt_state = load(blob["opt_state"])
     template.step = int(blob["step"])
+    template.sync_replicas()
     return template

@@ -19,21 +19,34 @@ is taken on its stacked (layers, ...) arrays, where an encoder layer's
 biases and LayerNorm scales are two-dimensional and so are decayed, against
 its own rule; the port does not copy that.
 
-One device; the mesh branch (data and model parallel) is not ported
-(ROADMAP Queue 1 item 10).
+The text tower takes the captions' attention mask when one is given, as
+search embeds them. tpuclip's loss embeds its captions unmasked, so it
+fits other text features than its search uses; the port does not copy
+that (ROADMAP Queue 3).
+
+With a mesh (``parallel/mesh.py``) the step is data parallel: one replica
+of the model per data shard (``sharding.shard_params``), the global batch
+split over them. SigLIP's loss couples every pair of the global batch, so
+the replicas' unit features are gathered on the lead device (and across
+the processes of the mesh's group) before the loss; the replicas'
+gradients are summed there, clipped and applied once, and the updated
+parameters copied back to every replica. The gradients equal the
+single-device step's on the same batch.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from tpuclip_torch.models.siglip import SiglipModel, remat_scope
+from tpuclip_torch.parallel.mesh import DATA_AXIS, Mesh
 
 Params = Dict[str, torch.Tensor]
 # optax's adamw defaults.
@@ -44,21 +57,32 @@ def _unit(x: torch.Tensor) -> torch.Tensor:
     return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp_min(1e-12)
 
 
+def _features(model: SiglipModel, images, input_ids, attention_mask, compute_dtype):
+    """Unit fp32 image and text features (divided by max(norm, 1e-12))."""
+    img = _unit(model.vision(images, compute_dtype).float())
+    txt = _unit(model.text(input_ids, compute_dtype, attention_mask).float())
+    return img, txt
+
+
+def _pair_loss(img: torch.Tensor, txt: torch.Tensor, model: SiglipModel) -> torch.Tensor:
+    logits = txt @ img.T
+    logits = logits * model.logit_scale.float().exp() + model.logit_bias.float()
+    z = 2.0 * torch.eye(logits.shape[0], device=logits.device) - 1.0
+    return -F.logsigmoid(z * logits).sum(dim=-1).mean()
+
+
 def sigmoid_contrastive_loss(
     model: SiglipModel,
     images: torch.Tensor,
     input_ids: torch.Tensor,
     compute_dtype: torch.dtype = torch.bfloat16,
+    attention_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """SigLIP loss: -mean_i sum_j log sigmoid(z_ij (scale sim_ij + bias)),
-    z = 2I - 1. Embeddings are divided by max(norm, 1e-12), and the text
-    tower runs without an attention mask, as tpuclip's train step does."""
-    img = _unit(model.vision(images, compute_dtype).float())
-    txt = _unit(model.text(input_ids, compute_dtype).float())
-    logits = txt @ img.T
-    logits = logits * model.logit_scale.float().exp() + model.logit_bias.float()
-    z = 2.0 * torch.eye(logits.shape[0], device=logits.device) - 1.0
-    return -F.logsigmoid(z * logits).sum(dim=-1).mean()
+    z = 2I - 1, over unit features. ``attention_mask`` (B, S) of 1/0 masks
+    the captions' padding keys in the text tower, as search's embedding
+    does; without it the tower runs unmasked, as tpuclip's train step."""
+    return _pair_loss(*_features(model, images, input_ids, attention_mask, compute_dtype), model)
 
 
 # =============================================================================
@@ -219,38 +243,146 @@ def apply_updates(params: Params, updates: Params) -> None:
 
 @dataclass
 class TrainState:
-    model: SiglipModel  # fp32 parameters that require grad
+    model: SiglipModel  # fp32 parameters that require grad (the lead replica under a mesh)
     opt_state: dict
     step: int = 0
+    # Under a mesh: every replica, ``model`` first, one per local data shard.
+    replicas: Optional[List[SiglipModel]] = None
 
     def params(self) -> Params:
         return dict(self.model.named_parameters())
 
+    @torch.no_grad()
+    def sync_replicas(self) -> None:
+        """Copy the lead replica's parameters into the others."""
+        lead = self.params()
+        for replica in (self.replicas or [])[1:]:
+            for name, p in replica.named_parameters():
+                p.copy_(lead[name])
 
-def init_train_state(model: SiglipModel, optimizer: Optimizer) -> TrainState:
+
+def init_train_state(model: SiglipModel, optimizer: Optimizer, mesh: Optional[Mesh] = None) -> TrainState:
+    """The state of ``model`` (and, with a mesh, its replicas: one per local
+    data shard, ``sharding.shard_params``); the optimizer's state lives with
+    the lead replica."""
     model.requires_grad_(True)
-    return TrainState(model, optimizer.init(dict(model.named_parameters())), 0)
+    replicas = None
+    if mesh is not None:
+        from tpuclip_torch.parallel.sharding import shard_params
+
+        replicas = shard_params(model, mesh)
+        model = replicas[0]
+    return TrainState(model, optimizer.init(dict(model.named_parameters())), 0, replicas)
 
 
-def make_train_step(optimizer: Optimizer, compute_dtype: torch.dtype = torch.bfloat16):
-    """``step(state, images, input_ids) -> (state, loss)``: the loss and its
-    gradients with each encoder layer checkpointed (recomputed in the
-    backward pass, tpuclip's ``remat_scope``), then one optimizer update of
-    the parameters in place."""
+def _all_gather_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """(b, D) → (world * b, D), rank-major, differentiable: the backward of
+    ``torch.distributed.nn``'s all_gather sums each slice's gradient over
+    the processes (gloo on host tensors)."""
+    from torch.distributed.nn.functional import all_gather
 
-    def step(state: TrainState, images: torch.Tensor, input_ids: torch.Tensor):
+    on_host = dist.get_backend(mesh.group) != "nccl"
+    parts = all_gather(x.cpu() if on_host else x, group=mesh.group)
+    return torch.cat(parts).to(x.device)
+
+
+def data_parallel_value_and_grad(
+    state: TrainState,
+    mesh: Mesh,
+    images: torch.Tensor,
+    input_ids: torch.Tensor,
+    attention_mask: Optional[torch.Tensor] = None,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> Tuple[torch.Tensor, Params]:
+    """The loss over the global batch and its gradients, summed over the
+    replicas (and the processes), on the lead device; equal to the
+    single-device loss and gradients on the same batch.
+
+    Global shard ``s`` takes rows [s * b, (s + 1) * b) of the batch (b =
+    B / ndev). Each replica's unit features go to the lead device (and
+    through an all_gather over the group); every process computes the same
+    loss, and backpropagates it divided by the world size, since the
+    all_gather's backward sums the processes' gradients of each slice. The
+    replicas' checkpointed layers recompute in the backward pass."""
+    ndev = mesh.shape[DATA_AXIS]
+    batch = images.shape[0]
+    if batch % ndev:
+        raise ValueError(f"a batch of {batch} does not split over {ndev} data shards")
+    b = batch // ndev
+    lead = mesh.lead
+    for replica in state.replicas:
+        replica.zero_grad(set_to_none=True)
+    imgs, txts = [], []
+    for j, (replica, dev) in enumerate(zip(state.replicas, mesh.data_devices)):
+        rows = slice(mesh.shard_index(j) * b, (mesh.shard_index(j) + 1) * b)
+        mask = None if attention_mask is None else attention_mask[rows].to(dev)
+        with remat_scope(replica):
+            img, txt = _features(replica, images[rows].to(dev), input_ids[rows].to(dev), mask, compute_dtype)
+        imgs.append(img.to(lead))
+        txts.append(txt.to(lead))
+    img, txt = torch.cat(imgs), torch.cat(txts)
+    if mesh.group is not None:
+        img, txt = _all_gather_rows(mesh, img), _all_gather_rows(mesh, txt)
+    loss = _pair_loss(img, txt, state.model)
+    (loss / mesh.world_size).backward()
+    grads = {}
+    for name, p in state.model.named_parameters():
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        for replica in state.replicas[1:]:
+            other = replica.get_parameter(name).grad
+            if other is not None:
+                g = g + other.to(lead)
+        grads[name] = g
+    if mesh.group is not None:
+        names = list(grads)
+        flat = torch.cat([grads[n].reshape(-1) for n in names])
+        on_host = dist.get_backend(mesh.group) != "nccl"
+        buf = flat.cpu() if on_host else flat
+        dist.all_reduce(buf, group=mesh.group)
+        flat = buf.to(lead)
+        offset = 0
+        for n in names:
+            size = grads[n].numel()
+            grads[n] = flat[offset : offset + size].view_as(grads[n])
+            offset += size
+    for replica in state.replicas:
+        replica.zero_grad(set_to_none=True)
+    return loss.detach(), grads
+
+
+def make_train_step(
+    optimizer: Optimizer, compute_dtype: torch.dtype = torch.bfloat16, mesh: Optional[Mesh] = None
+):
+    """``step(state, images, input_ids, attention_mask=None) -> (state,
+    loss)``: the loss and its gradients with each encoder layer checkpointed
+    (recomputed in the backward pass, tpuclip's ``remat_scope``), then one
+    optimizer update of the parameters in place. With a mesh, the state
+    must come from ``init_train_state(..., mesh)``: the gradients are
+    :func:`data_parallel_value_and_grad`'s, and the update is copied to
+    every replica."""
+
+    def step(state: TrainState, images: torch.Tensor, input_ids: torch.Tensor,
+             attention_mask: Optional[torch.Tensor] = None):
         params = state.params()
-        for p in params.values():
-            p.grad = None
-        with remat_scope(state.model):
-            loss = sigmoid_contrastive_loss(state.model, images, input_ids, compute_dtype)
-        loss.backward()
-        grads = {n: p.grad for n, p in params.items()}
-        apply_updates(params, optimizer.update(grads, state.opt_state, params))
-        for p in params.values():
-            p.grad = None
+        if mesh is not None:
+            loss, grads = data_parallel_value_and_grad(
+                state, mesh, images, input_ids, attention_mask, compute_dtype
+            )
+            apply_updates(params, optimizer.update(grads, state.opt_state, params))
+            state.sync_replicas()
+        else:
+            for p in params.values():
+                p.grad = None
+            with remat_scope(state.model):
+                loss = sigmoid_contrastive_loss(state.model, images, input_ids, compute_dtype, attention_mask)
+            loss.backward()
+            grads = {n: p.grad for n, p in params.items()}
+            apply_updates(params, optimizer.update(grads, state.opt_state, params))
+            for p in params.values():
+                p.grad = None
+            loss = loss.detach()
         state.step += 1
-        return state, loss.detach()
+        return state, loss
 
     return step
 

@@ -3,8 +3,12 @@
 Dataset convention: a directory of images with sidecar captions,
 ``photo.jpg`` + ``photo.txt`` (one caption). Pairs go through the scan's
 threaded decode prefetcher (the copied ``io/prefetch.py``) into the SigLIP
-sigmoid loss (``tpuclip_torch.parallel.training``), on one device: bf16
-compute on CUDA, fp32 on the CPU, fp32 parameters either way.
+sigmoid loss (``tpuclip_torch.parallel.training``), the captions with the
+attention mask search embeds them with: bf16 compute on CUDA, fp32 on the
+CPU, fp32 parameters either way. As tpuclip's ``train``, it runs data
+parallel over the largest count of the local CUDA devices (times the
+process group's world size, when one is initialized) that divides the
+batch, and on one device when that count is 1.
 
 Outputs: the model in tpuclip's checkpoint format (``<output>/model``,
 which both packages load) and the port's train state for an exact resume
@@ -52,11 +56,11 @@ def _batches(
     tokenizer,
     steps: int,
     seed: int,
-) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """Shuffled epochs (``random.Random(seed)``, tpuclip's order) →
-    ``steps`` batches of (uint8 images (B, S, S, 3), ids (B, 64)); a batch
-    with a decode failure is skipped, and two epochs' worth of failed
-    batches in a row raise."""
+    ``steps`` batches of (uint8 images (B, S, S, 3), ids (B, 64), the ids'
+    1/0 attention mask (B, 64)); a batch with a decode failure is skipped,
+    and two epochs' worth of failed batches in a row raise."""
     from tpuclip_torch.io.prefetch import prefetch_batches
 
     rng = random.Random(seed)
@@ -82,11 +86,29 @@ def _batches(
                 )
             continue  # pairs must stay aligned
         consecutive_skips = 0
-        ids = tokenizer.encode_batch([caption_of[item.path].lower() for item in batch.items])
-        yield batch.pixels, ids
+        ids, mask = tokenizer.encode_batch_with_mask([caption_of[item.path].lower() for item in batch.items])
+        yield batch.pixels, ids, mask
         produced += 1
         if produced >= steps:
             return
+
+
+def _train_mesh(device: torch.device, batch_size: int):
+    """tpuclip's rule: the largest count of devices that divides the batch
+    (the local CUDA devices, ``device`` first, times the world size of an
+    initialized process group); None when that count is 1."""
+    import torch.distributed as dist
+
+    from tpuclip_torch.parallel.mesh import make_mesh
+
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    local = [device]
+    if device.type == "cuda":
+        local += [torch.device("cuda", i) for i in range(torch.cuda.device_count()) if i != device.index]
+    usable = next((d for d in range(min(len(local), batch_size), 0, -1) if batch_size % (d * world) == 0), 0)
+    if usable == 0:
+        raise ValueError(f"a batch of {batch_size} does not split over {world} processes")
+    return make_mesh(local[:usable]) if usable * world > 1 else None
 
 
 @dataclass
@@ -147,10 +169,15 @@ def train(
     )
     compute_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
 
+    # Data parallel over the largest device count that divides the batch.
+    mesh = _train_mesh(device, batch_size)
+    if mesh is not None:
+        log(f"Mesh: {mesh.shape}")
+
     if optimizer == "auto":
         param_bytes = sum(p.numel() * 4 for p in model.parameters())
-        # params + grads + two moments, fp32
-        factored = device.type == "cuda" and param_bytes * 4 > _ADAMW_MAX_BYTES
+        # params + grads + two moments, fp32; a mesh keeps AdamW
+        factored = mesh is None and device.type == "cuda" and param_bytes * 4 > _ADAMW_MAX_BYTES
     else:
         factored = optimizer == "adafactor"
     if factored:
@@ -162,21 +189,19 @@ def train(
         total_steps=steps,
         factored=factored,
     )
-    state = init_train_state(model, opt)
+    state = init_train_state(model, opt, mesh=mesh)
     if resume:
         state = restore_train_state(resume, state)
         log(f"Resumed from {resume} at step {state.step}")
-    step_fn = make_train_step(opt, compute_dtype=compute_dtype)
+    step_fn = make_train_step(opt, compute_dtype=compute_dtype, mesh=mesh)
 
     report = TrainReport(optimizer="adafactor" if factored else "adamw")
     t0 = time.time()
-    for i, (images, ids) in enumerate(
+    for i, batch in enumerate(
         _batches(pairs, batch_size, cfg.vision.image_size, tokenizer, steps, seed)
     ):
         t_step = time.perf_counter()
-        state, loss = step_fn(
-            state, torch.from_numpy(images).to(device), torch.from_numpy(ids).to(device)
-        )
+        state, loss = step_fn(state, *(torch.from_numpy(a).to(device) for a in batch))
         report.losses.append(float(loss))
         report.step_seconds.append(time.perf_counter() - t_step)
         if (i + 1) % log_every == 0 or i == 0:
