@@ -185,7 +185,28 @@ Phases, each printing its own lines; any failure exits non-zero:
    replicas equal, step p50 and peak allocated bytes; (e, second half) two
    processes (this script with ``--mesh-worker``) over gloo, two shards of
    the card each: their int8 rerank ids identical to (a)'s. Kernels 1-7
-   must launch on the mesh path, kernel 8 not.
+   must launch on the mesh path, kernel 8 not;
+15. the shortlist methods (``TPUCLIP_SHORTLIST``), run after phase 9 while
+   phase 4's engine and phase 3's 1M rows are resident: (a) 256 seeded
+   single queries through ``topk_int8_rerank_fused_auto`` under ``exact``,
+   ``approx`` and ``verified`` and batches at Q = 4, 16, 64 under
+   ``extract`` and ``approx``: L (15,744 bins at 1,001,472 rows), the
+   proof's pass rate and the fallbacks; every shortlist that passes holds
+   the exact int8 top-J of kernel 1's scores; verified's ids equal
+   exact's but for rows ranked below J in the int8 scores (counted); every
+   score within 1e-6 of its row's exact score; recall@20 of each method
+   against ``exact``; (b) "a red car"'s text embedding copied into rows j
+   and j + L (one bin): ``approx`` drops one, ``verified`` falls back once
+   and equals ``exact`` (the rows are put back); (c) the fused text graph
+   at buckets 1 and 16 under ``verified`` with one resident scores buffer,
+   bit-equal to eager, the fallback over its device buffers equal to the
+   exact program, the pool's bytes; (d) ``serve`` under ``verified`` on
+   phase 4's database: 20 sequential text /search and ``/stats`` carrying
+   ``verified_queries`` and ``shortlist_fallbacks``; (e) CUDA-event p50s
+   of the fused search per method at Q = 1, 16, 64 and of the bucket-1
+   text graph per method, the auto wrapper's host-to-host p50 at Q = 1
+   under exact and verified, and a torch.profiler breakdown of both at
+   Q = 1. Kernels 1 and 2 must launch in the phase.
    Neither jax nor the JAX package (tpuclip) may ever have been imported.
 
 The last two lines are the kernels' JSON record and then
@@ -201,9 +222,10 @@ phase 4's path for kernels 1 and 2, and their ``launches_fused`` and
 ``launches_serve`` phases 8's and 9's; every kernel's ``launches_session``
 counts phase 10's session (0 where the session does not run it), its
 ``launches_naflex`` phase 11's NaFlex path, its ``launches_ivf`` phase
-12's IVF path, its ``launches_train`` phase 13's training and its
+12's IVF path, its ``launches_train`` phase 13's training, its
 ``launches_mesh`` phase 14's mesh path (one run of each case: the
-references and timing loops are not counted); each count is zeroed just
+references and timing loops are not counted) and its ``launches_shortlist``
+phase 15's (its checks and timing loops not counted); each count is zeroed just
 before its path runs. ``library_ms`` is null
 (no single PyTorch call computes any of these functions) and
 ``nearest_ms`` times the nearest route of PyTorch calls, where there is
@@ -2219,8 +2241,8 @@ def search_runs(ops):
             runs[kernel_of[kwargs.get("shortlist_method", "extract")]] += 1
         return search(*args, **kwargs)
 
-    def run_spy(self, key, program, host_inputs):
-        out = run(self, key, program, host_inputs)
+    def run_spy(self, key, program, host_inputs, *tail):
+        out = run(self, key, program, host_inputs, *tail)
         runs[kernel_of[key[-1]]] += 1
         return out
 
@@ -2859,9 +2881,9 @@ DP_STEPS = 4
 
 @contextmanager
 def uncounted():
-    """A block whose kernel launches are not the mesh path's (the
-    single-device and brute-force references, the timing loops): every
-    launch counter is put back as it was."""
+    """A block whose kernel launches are not the path's under count (the
+    references, the checks, the timing loops): every launch counter is put
+    back as it was."""
     from tpuclip_torch.ops._counters import COUNTED
 
     saved = [w.launches for w in COUNTED]
@@ -3317,6 +3339,265 @@ def mesh_worker(rank, port, out):
     return 0
 
 
+# The shortlist methods (phase 15): TPUCLIP_SHORTLIST=approx / verified.
+SHORTLIST_QUERIES = 256
+SHORTLIST_METHODS = ("exact", "extract", "approx", "verified")
+
+
+def exact_row_scores(ops, rows, q, ids):
+    """The exact rescore's score of each returned row (bf16 rows, the
+    bf16-rounded query, fp32 products summed over D): (Q, k) f32, -inf
+    where a slot holds no row."""
+    qr = ops.round_f32_to_bf16_bits(q.float())
+    valid = ids < rows.shape[0]
+    got = (rows[ids.clamp(max=rows.shape[0] - 1)].float() * qr[:, None, :]).sum(-1)
+    return got.masked_fill(~valid, float("-inf"))
+
+
+def int8_rank(scores, row):
+    """Rank of ``row`` in one query's (N,) int8 scores, ordered (score desc,
+    row asc)."""
+    s = scores[row]
+    return int((scores > s).sum()) + int((scores[:row] == s).sum())
+
+
+def phase_shortlist(mods, gpu, resident, engine):
+    """Phase 15: the ``approx`` and ``verified`` shortlists at SO400M width
+    over phase 3's 1M rows and through the entry points; returns every
+    counted kernel's launches in the phase (its checks and timing loops
+    excluded)."""
+    from tpuclip_torch.ops._counters import COUNTED
+    from tpuclip_torch.ops.graphs import FusedGraphs
+    from tpuclip_torch.serve import SearchServer
+
+    ops = mods[0]
+    rows, m, scales = resident[:3]
+    dev, n_pad = rows.device, m.shape[0]
+    depth = min(max(512, 4 * K), n_pad)
+    verify_j = min(depth, max(64, 4 * K))
+    bins, fold = ops.approx_reduction_size(n_pad, depth, ops.APPROX_RECALL)
+    print(f"[shortlist] {N_ROWS:,} rows padded to {n_pad:,}: the approximate top-{depth} folds them into "
+          f"L = {bins:,} bins of {1 << fold} (recall target {ops.APPROX_RECALL}); verified proves the top "
+          f"J = {verify_j}  ({gpu})", flush=True)
+    check(bins == 15_744, f"L = {bins}, expected 15,744 (XLA's bin count at 1,001,472 rows, top-512, 0.95)")
+    rng = np.random.default_rng(15)
+    queries = torch.from_numpy(rng.standard_normal((SHORTLIST_QUERIES, DIM), dtype=np.float32)).to(dev)
+    queries /= torch.linalg.vector_norm(queries, dim=1, keepdim=True)
+    for wrapper in COUNTED:
+        wrapper.launches = 0
+
+    # (a) 256 single queries under exact, approx and verified (the auto
+    # wrapper with its fallback), then batches under extract and approx.
+    single, stats = {}, {}
+    for method in ("exact", "approx", "verified"):
+        with environ(TPUCLIP_SHORTLIST=method):
+            out = [ops.topk_int8_rerank_fused_auto(q[None], m, scales, rows, K, n_valid=N_ROWS, stats=stats)
+                   for q in queries]
+        single[method] = (torch.cat([s for s, _ in out]), torch.cat([i for _, i in out]))
+    batches = {}
+    for q_count in (4, 16, 64):
+        for method in ("extract", "approx"):
+            with environ(TPUCLIP_SHORTLIST=method):
+                batches[method, q_count] = ops.topk_int8_rerank_fused_auto(
+                    queries[:q_count], m, scales, rows, K, n_valid=N_ROWS, stats=stats)
+    torch.cuda.synchronize()
+    fallbacks = stats["shortlist_fallbacks"]
+    check(stats["verified_queries"] == SHORTLIST_QUERIES and stats["exact_searches"] == SHORTLIST_QUERIES,
+          f"the auto wrapper's counts {stats}")
+    with uncounted():
+        s_ex, i_ex = single["exact"]
+        passes, differing, outside_j = 0, 0, 0
+        for qi_, q in enumerate(queries):
+            q_int8, _ = ops.quantize_queries(q[None])
+            scores = ops.int8_scores(q_int8, m, scales, N_ROWS)
+            _, cand, ok = ops._verified_shortlist(scores, depth, verify_j, ops.APPROX_RECALL)
+            if bool(ok):
+                passes += 1
+                top_j = ops._final_merge(scores, torch.arange(n_pad, device=dev)[None], verify_j)[1]
+                check(bool(torch.isin(top_j, cand).all()),
+                      f"query {qi_}: a shortlist that passed its proof misses the exact int8 top-{verify_j}")
+            got, want = single["verified"][1][qi_].tolist(), i_ex[qi_].tolist()
+            if got != want:
+                differing += 1
+                check(bool(ok), f"query {qi_}: the fallback's ids differ from exact's")
+                for row in set(want) - set(got):
+                    rank = int8_rank(scores[0], row)
+                    check(rank >= verify_j, f"query {qi_}: row {row} (int8 rank {rank}) missing, above J")
+                    outside_j += 1
+        check(SHORTLIST_QUERIES - passes == fallbacks,
+              f"{SHORTLIST_QUERIES - passes} proofs failed but {fallbacks} fallbacks were counted")
+        recall = {}
+        for method, (s, i) in single.items():
+            err = float((s - exact_row_scores(ops, rows, queries, i)).abs().max())
+            check(err <= 1e-6 and bool(torch.isfinite(s).all()) and tuple(s.shape) == (SHORTLIST_QUERIES, K),
+                  f"{method}: scores off the rows' exact scores by {err}, or shape {tuple(s.shape)}")
+            recall[method] = float(np.mean([len(set(a) & set(b)) / K for a, b in zip(i.tolist(), i_ex.tolist())]))
+        batch_recall = {}
+        for (method, q_count), (s, i) in batches.items():
+            q = queries[:q_count]
+            want = ops.topk_int8_rerank_fused(q, m, scales, rows, K, n_valid=N_ROWS, shortlist_method="exact")[1]
+            err = float((s - exact_row_scores(ops, rows, q, i)).abs().max())
+            check(err <= 1e-6 and bool(torch.isfinite(s).all()) and tuple(s.shape) == (q_count, K),
+                  f"{method} at Q = {q_count}: scores off by {err}, or shape {tuple(s.shape)}")
+            batch_recall[f"{method}_q{q_count}"] = float(
+                np.mean([len(set(a) & set(b)) / K for a, b in zip(i.tolist(), want.tolist())]))
+    print(f"[shortlist] (a) {SHORTLIST_QUERIES} single queries: verified passed its proof {passes} times "
+          f"({passes / SHORTLIST_QUERIES:.1%}), {fallbacks} fallbacks over the resident scores; every "
+          f"passed shortlist holds the exact int8 top-{verify_j}; verified's ids differ from exact's in "
+          f"{differing} queries, by {outside_j} rows, each ranked below J in the int8 scores; every "
+          f"score within 1e-6 of its row's exact score; recall@{K} against exact: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in recall.items()) + "; batches: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in batch_recall.items()) + f"  ({gpu})", flush=True)
+
+    # (b) The planted bin collision: "a red car"'s text embedding in rows j
+    # and j + L, which share bin j. Phase 3's rows are put back after.
+    j = 1234
+    planted = [j, j + bins]
+    saved = rows[planted].clone(), m[planted].clone(), scales[planted].clone()
+    try:
+        emb = torch.from_numpy(engine.embed_texts(["a red car"])).to(dev)
+        rows[planted] = emb.to(rows.dtype)
+        m[planted], scales[planted] = ops.derive_int8_matrix(rows[planted], 2)
+        before = dict(stats)
+        with environ(TPUCLIP_SHORTLIST="approx"):
+            approx_ids = ops.topk_int8_rerank_fused_auto(emb, m, scales, rows, K, n_valid=N_ROWS)[1][0].tolist()
+        with environ(TPUCLIP_SHORTLIST="verified"):
+            s_v, i_v = ops.topk_int8_rerank_fused_auto(emb, m, scales, rows, K, n_valid=N_ROWS, stats=stats)
+        with uncounted():
+            s_e, i_e = ops.topk_int8_rerank_fused(emb, m, scales, rows, K, n_valid=N_ROWS, shortlist_method="exact")
+        check(i_e[0, :2].tolist() == planted and j in approx_ids and j + bins not in approx_ids,
+              f"the planted rows: exact's top {i_e[0, :3].tolist()}, approx's {approx_ids[:3]}")
+        check(torch.equal(i_v, i_e) and torch.equal(s_v, s_e), "the forced fallback differs from exact")
+        check(stats["shortlist_fallbacks"] == before["shortlist_fallbacks"] + 1
+              and stats["verified_queries"] == before["verified_queries"] + 1,
+              f"the forced fallback's counts: {before} -> {stats}")
+    finally:
+        rows[planted], m[planted], scales[planted] = saved
+    print(f"[shortlist] (b) rows {planted} = the embedding of 'a red car' (one bin): approx keeps row {j} "
+          f"and drops {j + bins}; verified fails its proof, falls back once over the resident scores, and "
+          f"equals exact's ids and scores", flush=True)
+
+    # (c) The fused text graph at buckets 1 and 16 under verified, as the
+    # index runs it (one resident scores buffer, the fallback's tail under
+    # the runner's lock), against eager.
+    model = engine.model
+    texts = [f"{TEXTS[i % len(TEXTS)]}, photo {i}" for i in range(16)]
+    tail = (m, scales, rows, K, N_ROWS)
+    graphs = FusedGraphs(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    buf = torch.empty((16, n_pad), dtype=torch.float32, device=dev)
+    kept = {}
+
+    def verified_tail(outputs):
+        s, r, ok, scores, emb = outputs
+        s_f, r_f = ops.topk_exact_from_scores(scores, emb, rows, K, ops.fallback_shortlist_depth(K, n_pad))
+        kept["fallback"] = s_f.cpu().numpy(), r_f.cpu().numpy()
+        return s.cpu().numpy(), r.cpu().numpy(), bool(ok)
+
+    for b in (1, 16):
+        host = list(engine._tokenize_bucketed(texts[:b]))
+
+        def program(i, a, b=b):
+            return ops.text_topk_fused(model, i, a, *tail, shortlist_method="verified", keep_scores=True,
+                                       scores_out=buf[:b])
+
+        s_g, r_g, ok_g = graphs.run(("text", b, "verified"), program, host, verified_tail)
+        inputs = [torch.from_numpy(x).to(dev) for x in host]
+        with uncounted():
+            s_e, r_e, ok_e = ops.text_topk_fused(model, *inputs, *tail, shortlist_method="verified")
+            exact = ops.text_topk_fused(model, *inputs, *tail, shortlist_method="exact")
+        check(np.array_equal(s_g, s_e.cpu().numpy()) and np.array_equal(r_g, r_e.cpu().numpy())
+              and ok_g == bool(ok_e), f"verified text graph at bucket {b} is not bit-equal to eager")
+        check(all(np.array_equal(x, y.cpu().numpy()) for x, y in zip(kept["fallback"], exact)),
+              f"bucket {b}: the fallback over the graph's buffers differs from the exact program")
+        print(f"[shortlist] (c) verified text graph at bucket {b}: bit-equal to eager (ok {ok_g}); the "
+              f"fallback over its resident scores and embedding equals the exact program", flush=True)
+    pool_bytes = graphs.pool_bytes()
+    torch.cuda.empty_cache()
+    print(f"[shortlist] (c) 2 graphs, one {buf.numel() * 4:,}-byte scores buffer; their pool holds "
+          f"{pool_bytes:,} bytes (reserved memory grew by {torch.cuda.memory_reserved() - reserved0:,})  "
+          f"({gpu})", flush=True)
+
+    # (d) serve under TPUCLIP_SHORTLIST=verified on phase 4's database.
+    check(engine.index.can_fuse_text_search(K, None), "phase 4's index cannot fuse")
+    statuses = []
+    with environ(TPUCLIP_SHORTLIST="verified"):
+        srv = SearchServer(engine, host="127.0.0.1", port=0)
+        thread = srv.start_background()
+        try:
+            first = http_call(srv, statuses, "/stats")
+            for i in range(20):
+                body = http_call(srv, statuses, "/search", {"query": f"a verified photo {i}", "k": K})
+                check(len(body["results"]) > 0, "a verified /search returned no results")
+                if i == 0:
+                    with environ(TPUCLIP_SHORTLIST="exact"), uncounted():
+                        want = engine.search_texts([f"a verified photo {i}"], K)[0]
+                    same_served(engine, body["results"], want, "verified /search")
+            last = http_call(srv, statuses, "/stats")
+        finally:
+            srv.shutdown()
+            thread.join(timeout=30)
+    check(not thread.is_alive(), "the server did not shut down")
+    keys = ("verified_queries", "shortlist_fallbacks")
+    check(all(k in first and k in last for k in keys) and last["verified_queries"] - first["verified_queries"] == 20,
+          f"/stats: {[(k, first.get(k), last.get(k)) for k in keys]}")
+    check(all(code == 200 for code in statuses), f"statuses other than 200: {statuses}")
+    print(f"[shortlist] (d) serve under verified: 20 sequential text /search, all 200; /stats "
+          f"verified_queries {first['verified_queries']} -> {last['verified_queries']}, shortlist_fallbacks "
+          f"{first['shortlist_fallbacks']} -> {last['shortlist_fallbacks']}  ({gpu})", flush=True)
+    torch.cuda.synchronize()
+    launches = {wrapper.__name__: wrapper.launches for wrapper in COUNTED}
+    print(f"[shortlist] kernel launches in this phase: {launches}", flush=True)
+    check(launches["int8_scores"] > 0 and launches["int8_candidates_packed"] > 0,
+          f"kernels 1 and 2 must launch in this phase: {launches}")
+
+    # (e) Device p50s (CUDA events) of the fused search per method, of the
+    # bucket-1 text graph per method, and where the single query's time goes.
+    timings = {"search": {}, "graph_q1": {}, "wall_q1": {}}
+    with uncounted():
+        for q_count in (1, 16, 64):
+            q = queries[:q_count]
+            for method in SHORTLIST_METHODS:
+                timings["search"][f"{method}_q{q_count}"] = p50_ms(lambda: ops.topk_int8_rerank_fused(
+                    q, m, scales, rows, K, n_valid=N_ROWS, shortlist_method=method), 20)
+        host = list(engine._tokenize_bucketed(texts[:1]))
+        for method in SHORTLIST_METHODS:
+            key = ("text", 1, method, "timed")
+            verified = method == "verified"
+            graphs.run(key, lambda i, a, method=method, verified=verified: ops.text_topk_fused(
+                model, i, a, *tail, shortlist_method=method, keep_scores=verified,
+                scores_out=buf[:1] if verified else None), host, lambda outs: None)
+            timings["graph_q1"][method] = p50_ms(graphs._graphs[key].graph.replay, 20)
+        q1 = queries[:1]
+        for method in ("exact", "verified"):
+            with environ(TPUCLIP_SHORTLIST=method):
+                timings["wall_q1"][method] = wall_p50_ms(lambda: ops.topk_int8_rerank_fused_auto(
+                    q1, m, scales, rows, K, n_valid=N_ROWS)[1].cpu(), 50)
+        traces = {method: device_breakdown(lambda method=method: ops.topk_int8_rerank_fused(
+            q1, m, scales, rows, K, n_valid=N_ROWS, shortlist_method=method)) for method in ("exact", "verified")}
+    for q_count in (1, 16, 64):
+        print(f"[shortlist] (e) fused search at Q = {q_count}, device p50 ms: " + ", ".join(
+            f"{method} {timings['search'][f'{method}_q{q_count}']:.4f}" for method in SHORTLIST_METHODS)
+            + f"  ({gpu})", flush=True)
+    print("[shortlist] (e) text graph at bucket 1, device p50 ms: " + ", ".join(
+        f"{method} {ms:.4f}" for method, ms in timings["graph_q1"].items()) + f"  ({gpu})", flush=True)
+    print("[shortlist] (e) auto wrapper at Q = 1, host-to-host p50 ms: " + ", ".join(
+        f"{method} {ms:.4f}" for method, ms in timings["wall_q1"].items()) + f"  ({gpu})", flush=True)
+    for method, trace in traces.items():
+        print_breakdown("shortlist-trace", f"fused search at Q = 1, {method}", trace, gpu)
+    print("[phase15-json] " + json.dumps({
+        "gpu": gpu, "bins": bins, "fold": 1 << fold, "verify_depth": verify_j, "queries": SHORTLIST_QUERIES,
+        "proof_passes": passes, "fallbacks": fallbacks, "verified_differing_queries": differing,
+        "recall_at_k": recall, "batch_recall_at_k": batch_recall, "pool_bytes": pool_bytes,
+        "p50_ms": timings, "trace": {k: {"wall_ms": t[0], "busy_ms": t[1], "launches": t[2], "top": t[3]}
+                                     for k, t in traces.items()},
+        "launches": launches}), flush=True)
+    del graphs, buf
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ab", action="append", default=[], metavar="LABEL:PATH",
@@ -3376,6 +3657,9 @@ def main():
         fused = phase_fused_programs(mods, gpu, resident, engine)
         served = phase_serve(mods, gpu, Path(tmp), db)
         paths = {name: {"launches_fused": n, "launches_serve": served[name]} for name, n in fused.items()}
+        # Phase 15 runs here, while phase 4's engine and phase 3's rows are resident.
+        shortlist = phase_shortlist(mods, gpu, resident, engine)
+        torch.cuda.empty_cache()
         session = phase_cli(gpu, Path(tmp), db)
         del engine
         naflex = phase_naflex(mods, gpu, Path(tmp), resident)
@@ -3406,7 +3690,8 @@ def main():
          "launches_naflex": naflex[name.removesuffix("_q16")],
          "launches_ivf": ivf[name.removesuffix("_q16")],
          "launches_train": train[name.removesuffix("_q16")],
-         "launches_mesh": mesh[name.removesuffix("_q16")], **record[name]}
+         "launches_mesh": mesh[name.removesuffix("_q16")],
+         "launches_shortlist": shortlist[name.removesuffix("_q16")], **record[name]}
         for name, (source, replaces) in sources.items()
     ]
     check("jax" not in sys.modules, "the port loaded jax")

@@ -143,11 +143,18 @@ def test_planted_duplicates_lowest_row_first(index, method, monkeypatch):
 
 
 def test_shortlist_policy(monkeypatch):
+    """``auto`` keeps exact / extract; every method named resolves to
+    itself at any Q; an unknown name is refused."""
     monkeypatch.delenv("TPUCLIP_SHORTLIST", raising=False)
     assert pt.resolve_shortlist_method(1) == "exact"
     assert pt.resolve_shortlist_method(16) == "extract"
-    monkeypatch.setenv("TPUCLIP_SHORTLIST", "verified")
-    with pytest.raises(NotImplementedError):
+    monkeypatch.setenv("TPUCLIP_SHORTLIST", "auto")
+    assert (pt.resolve_shortlist_method(1), pt.resolve_shortlist_method(64)) == ("exact", "extract")
+    for method in ("approx", "verified", "exact", "extract"):
+        monkeypatch.setenv("TPUCLIP_SHORTLIST", method)
+        assert pt.resolve_shortlist_method(1) == pt.resolve_shortlist_method(16) == method
+    monkeypatch.setenv("TPUCLIP_SHORTLIST", "fastest")
+    with pytest.raises(ValueError, match="TPUCLIP_SHORTLIST"):
         pt.resolve_shortlist_method(1)
 
 

@@ -60,6 +60,15 @@ needs; every search then runs on the device. What is ported:
   shape is one captured CUDA graph
   (:class:`~tpuclip_torch.ops.graphs.FusedGraphs`), dropped whenever
   ``refresh`` re-uploads; on the CPU they run eager.
+- **shortlist methods** (``TPUCLIP_SHORTLIST``): the int8 searches with the
+  rerank rows take ``exact`` for one query and ``extract`` for a batch
+  unless it names ``approx`` or ``verified``. A ``verified`` search that
+  fails its proof answers from the exact selection over the scores its
+  program kept resident, with no second scan and, in a fused program, no
+  second tower; ``shortlist_stats`` counts ``verified_queries`` and
+  ``shortlist_fallbacks`` as tpuclip's, and searches per method. Every
+  captured ``verified`` program writes its scores into one buffer of the
+  index's.
 
 - **mesh** (``DeviceIndex(mesh=...)``, or ``TPUCLIP_SHARDED_INDEX=1``,
   which builds ``make_mesh()`` over every local CUDA device when there is
@@ -117,6 +126,7 @@ from tpuclip_torch.parallel.sharded_search import (
 from tpuclip_torch.ops.topk_int8 import (
     INT8_TILE_N,
     derive_int8_matrix,
+    fallback_shortlist_depth,
     image_topk_fused,
     mixed_naflex_topk_fused,
     mixed_topk_fused,
@@ -126,6 +136,7 @@ from tpuclip_torch.ops.topk_int8 import (
     quantize_query,
     resolve_shortlist_method,
     text_topk_fused,
+    topk_exact_from_scores,
     topk_int8,
     topk_int8_rerank_fused_auto,
     topk_int8_scores,
@@ -198,10 +209,13 @@ class DeviceIndex:
         self._fingerprint: Optional[Tuple[int, ...]] = None
         # Folder masks by (sorted folders, rows, padded rows); cleared by refresh().
         self._mask_cache: Dict[tuple, torch.Tensor] = {}
-        # Searches per shortlist method (exact_searches / extract_searches).
-        self.shortlist_stats: dict = {}
+        # tpuclip's verified-shortlist counts, then searches per method
+        # (exact_searches, extract_searches, ...) as they come.
+        self.shortlist_stats: dict = {"verified_queries": 0, "shortlist_fallbacks": 0}
         # The fused programs' CUDA graphs; made at first use, dropped by refresh().
         self._graphs: Optional[FusedGraphs] = None
+        # The resident scores the captured verified programs write (CUDA).
+        self._scores_buf: Optional[torch.Tensor] = None
 
     # ---------------------------------------------------------------- loading
 
@@ -283,7 +297,7 @@ class DeviceIndex:
         # both to its jitted programs as arguments and recompiles nothing).
         if self._graphs:
             log(f"  [index] re-upload dropped {len(self._graphs)} CUDA graphs")
-        self._graphs = None
+        self._graphs = self._scores_buf = None
         # Cascade gate: the binary rows must be exactly the full rows (both
         # caches are image_id-ordered); then no flat matrix is uploaded.
         self._cascade = False
@@ -651,29 +665,67 @@ class DeviceIndex:
     # Fusion is a property of the index state, not of the tower feeding it.
     can_fuse_image_search = can_fuse_text_search
 
-    def _program(self, key: tuple, program, host_inputs):
+    def _program(self, key: tuple, program, host_inputs, tail=None):
         """Runs one fused program through the index's CUDA graphs (eager on
-        the CPU): host arrays in, host ((Q, k) scores, (Q, k) rows) out."""
+        the CPU): host arrays in, host ((Q, k) scores, (Q, k) rows) out, or
+        what ``tail`` makes of the device outputs."""
         if self._graphs is None:
             self._graphs = FusedGraphs(self.device)
-        return self._graphs.run(key, program, host_inputs)
+        return self._graphs.run(key, program, host_inputs, tail)
+
+    def _scores_buffer(self, q_count: int) -> Optional[torch.Tensor]:
+        """A (q_count, N_pad) f32 view of the resident scores buffer that the
+        captured ``verified`` programs write kernel 1's scores into, one for
+        every graph of the index (None on the CPU, where each eager run
+        makes its own). It grows to the next power of two of the largest
+        block asked for; a graph captured before keeps its smaller buffer
+        alive, so all of them together stay under twice the largest."""
+        if self.device.type != "cuda":
+            return None
+        if self._scores_buf is None or self._scores_buf.shape[0] < q_count:
+            rows = 1 << (q_count - 1).bit_length()
+            self._scores_buf = torch.empty(
+                (rows, self._matrix.shape[0]), dtype=torch.float32, device=self.device
+            )
+        return self._scores_buf[:q_count]
 
     def _run_fused(self, kind: str, program, host_inputs, tb: int, ib: int, k: int, row_sel):
         """Shared body of the fused searches: ``program`` (a fused program of
         :mod:`~tpuclip_torch.ops.topk_int8` with its model bound) on a block
         of ``tb`` text and ``ib`` image rows, as the graph ``(kind, tb, ib,
-        k, method)``. The shortlist method is the block's (``exact`` for one
-        row, ``extract`` for more; tpuclip's ``verified`` branch is not
-        ported), the resident tensors are bound at call time, and only the
-        real rows ``row_sel`` are mapped to results (a mixed block pads each
-        span to its bucket)."""
+        k, method)``. The shortlist method is the block's
+        (:func:`~tpuclip_torch.ops.topk_int8.resolve_shortlist_method`), the
+        resident tensors are bound at call time, and only the real rows
+        ``row_sel`` are mapped to results (a mixed block pads each span to
+        its bucket). Under ``verified`` the program keeps its scores and
+        query embedding on the device, and when its proof fails the exact
+        selection over those scores answers (tpuclip's fallback), read
+        under the graph runner's lock before another replay can overwrite
+        them; only the results come to the host."""
         method = resolve_shortlist_method(tb + ib)
-        self.shortlist_stats[f"{method}_searches"] = self.shortlist_stats.get(f"{method}_searches", 0) + 1
+        stats = self.shortlist_stats
+        stats[f"{method}_searches"] = stats.get(f"{method}_searches", 0) + 1
         m, sc, rows, n_valid = self._matrix, self._scales, self._rows_device, self._n_valid
+        verified = method == "verified"
+        buf = self._scores_buffer(tb + ib) if verified else None
+
+        def fallback_tail(outputs):
+            s, r, ok, scores, emb = outputs
+            if not bool(ok):
+                stats["shortlist_fallbacks"] += 1
+                depth = fallback_shortlist_depth(k, scores.shape[1])
+                s, r = topk_exact_from_scores(scores, emb, rows, k, depth)
+            return s.cpu().numpy(), r.cpu().numpy()
+
+        if verified:
+            stats["verified_queries"] += 1
         scores, found = self._program(
             (kind, tb, ib, k, method),
-            lambda *x: program(*x, m, sc, rows, k, n_valid, shortlist_method=method),
+            lambda *x: program(
+                *x, m, sc, rows, k, n_valid, shortlist_method=method, keep_scores=verified, scores_out=buf
+            ),
             host_inputs,
+            fallback_tail if verified else None,
         )
         return self._map_batch_results(scores[row_sel], found[row_sel], len(row_sel))
 

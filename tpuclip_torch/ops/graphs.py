@@ -11,7 +11,10 @@ key, and launches the whole program with one replay.
 - Static inputs live on the device (token ids and mask ``(B, 64)``, pixels
   ``(B, S, S, 3)`` uint8), and so do the static outputs (``(Q, k)`` scores
   and rows). A call copies the host inputs in, replays, and copies the
-  outputs out.
+  outputs out, or hands them to the caller's ``tail``, which runs on the
+  device outputs under the runner's lock and copies out what it returns: a
+  ``verified`` program's fallback reads its resident scores and embedding
+  there, before any other replay can overwrite them.
 - Each capture is preceded by one eager run on a side stream, as
   ``torch.cuda.graph`` requires: first-launch set-up (the kernels' shared
   memory attributes, cuBLAS handles) stays out of the graph.
@@ -36,7 +39,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, Dict, Hashable, Sequence, Tuple
+from typing import Any, Callable, Dict, Hashable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +68,10 @@ class FusedGraphs:
         self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
         self.capture_seconds = 0.0
 
+    @staticmethod
+    def _to_host(outputs: Sequence[torch.Tensor]) -> Tuple[np.ndarray, ...]:
+        return tuple(o.cpu().numpy() for o in outputs)
+
     def __len__(self) -> int:
         return len(self._graphs)
 
@@ -73,14 +80,17 @@ class FusedGraphs:
         key: Hashable,
         program: Callable[..., Sequence[torch.Tensor]],
         host_inputs: Sequence[np.ndarray],
-    ) -> Tuple[np.ndarray, ...]:
-        """``program(*inputs)`` on ``host_inputs`` → its outputs on the host.
-        On CUDA the graph under ``key`` is captured at its first call and
-        replayed from then on; ``program`` must compute the same function
+        tail: Optional[Callable[[Sequence[torch.Tensor]], Any]] = None,
+    ) -> Any:
+        """``program(*inputs)`` on ``host_inputs`` → its outputs on the host,
+        or ``tail(outputs)`` on the device outputs, run under the runner's
+        lock. On CUDA the graph under ``key`` is captured at its first call
+        and replayed from then on; ``program`` must compute the same function
         for every call with the same key."""
+        tail = tail or self._to_host
         host_inputs = [np.ascontiguousarray(x) for x in host_inputs]
         if self.device.type != "cuda":
-            return tuple(o.numpy() for o in program(*map(torch.from_numpy, host_inputs)))
+            return tail(program(*map(torch.from_numpy, host_inputs)))
         with self._lock:
             entry = self._graphs.get(key)
             if entry is None:
@@ -96,7 +106,7 @@ class FusedGraphs:
             entry.graph.replay()
             for wrapper, n in entry.launches:
                 wrapper.launches += n
-            return tuple(o.cpu().numpy() for o in entry.outputs)
+            return tail(entry.outputs)
 
     def _capture(self, program, host_inputs) -> _Graph:
         t0 = time.perf_counter()

@@ -11,13 +11,21 @@ Three kernels sit behind this module, in ``tpuclip_torch/csrc/int8_scan.cu``:
 
 - :func:`int8_scores` — kernel 1, the full (Q, N) f32 score matrix
   (replaces ``_int8_scores_kernel``); the single-query ``exact`` shortlist,
-  and the masked and batch routes without the resident rows
-  (:func:`topk_int8_scores`);
+  the ``approx`` and ``verified`` shortlists, and the masked and batch
+  routes without the resident rows (:func:`topk_int8_scores`);
 - :func:`int8_candidates_packed` — kernel 2, per-tile top-``k_tile`` packed
   keys (replaces ``_int8_packed_kernel``); the batch ``extract`` shortlist;
 - :func:`int8_candidates` — kernel 3, per-tile top-``k_tile`` exact (score,
   row) pairs (replaces ``_int8_topk_kernel``); one unmasked query without
   the resident rows (:func:`topk_int8`).
+
+The ``approx`` and ``verified`` shortlists select from kernel 1's scores with
+:func:`approx_max_k`, the counterpart of ``lax.approx_max_k`` (XLA's
+PartialReduce on the TPU): plain PyTorch, since tpuclip has it from XLA and
+not from a Pallas kernel. ``verified`` adds tpuclip's count proof
+(:func:`_verified_shortlist`) and, in :func:`topk_int8_rerank_fused_auto`
+and the index, an exact selection over the resident scores when the proof
+fails.
 
 Without the resident rows the int8 matrix comes from the fp32 originals
 (:func:`quantize_matrix`) and one query is quantized on the host
@@ -39,6 +47,7 @@ feature-major (D, N_pad) for the TPU's MXU. Results do not depend on it.
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Dict, Optional, Tuple, Union
 
@@ -201,11 +210,12 @@ def _check_cuda_args(*tensors: torch.Tensor, dim: int) -> None:
         raise ValueError(f"the CUDA kernels take D % 16 == 0, got {dim}")
 
 
-def _int8_scores_plain(q_int8, m_int8, scales, n_valid) -> torch.Tensor:
+def _int8_scores_plain(q_int8, m_int8, scales, n_valid, out=None) -> torch.Tensor:
     """Plain version of :func:`int8_scores`: the int32 dot through float64
     (exact: |dot| < 2**25), rounded to f32 and scaled as the kernel does."""
     n = m_int8.shape[0]
-    out = torch.empty((q_int8.shape[0], n), dtype=torch.float32, device=q_int8.device)
+    if out is None:
+        out = torch.empty((q_int8.shape[0], n), dtype=torch.float32, device=q_int8.device)
     qd = q_int8.to(torch.float64)
     for s in range(0, n, _CHUNK_ROWS):
         acc = qd @ m_int8[s : s + _CHUNK_ROWS].to(torch.float64).T
@@ -216,21 +226,33 @@ def _int8_scores_plain(q_int8, m_int8, scales, n_valid) -> torch.Tensor:
 
 @counted
 def int8_scores(
-    q_int8: torch.Tensor, m_int8: torch.Tensor, scales: torch.Tensor, n_valid: int
+    q_int8: torch.Tensor,
+    m_int8: torch.Tensor,
+    scales: torch.Tensor,
+    n_valid: int,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """(Q, D) int8 queries x (N_pad, D) int8 rows → (Q, N_pad) f32 scores
-    ``float(int32 dot) * scales[n]``, -inf for ``n >= n_valid``."""
+    ``float(int32 dot) * scales[n]``, -inf for ``n >= n_valid``. ``out``, a
+    contiguous (Q, N_pad) f32 tensor on the queries' device, receives them
+    in place of a new tensor (the index's resident scores buffer)."""
     _check_scan_args(q_int8, m_int8, scales, n_valid)
+    q_count, d = q_int8.shape
+    n = m_int8.shape[0]
+    if out is not None and (
+        out.shape != (q_count, n) or out.dtype != torch.float32
+        or out.device != q_int8.device or not out.is_contiguous()
+    ):
+        raise ValueError(f"out must be a contiguous ({q_count}, {n}) float32 tensor on {q_int8.device}")
     if q_int8.device.type == "cpu":
-        return _int8_scores_plain(q_int8, m_int8, scales, n_valid)
+        return _int8_scores_plain(q_int8, m_int8, scales, n_valid, out)
     if q_int8.device.type != "cuda":
         raise ValueError(f"unsupported device {q_int8.device}")
     from tpuclip_torch.ops._build import library
 
-    q_count, d = q_int8.shape
-    n = m_int8.shape[0]
     _check_cuda_args(q_int8, m_int8, scales, dim=d)
-    out = torch.empty((q_count, n), dtype=torch.float32, device=q_int8.device)
+    if out is None:
+        out = torch.empty((q_count, n), dtype=torch.float32, device=q_int8.device)
     if q_count == 0 or n == 0:
         return out
     with torch.cuda.device(q_int8.device):
@@ -474,28 +496,130 @@ def _rescore_select(cand, cand_invalid, q_f32, rows_full, k_eff):
 def topk_exact_from_scores(scores, q_f32, rows_full, k: int, m: int):
     """Exact top-``k`` from a materialized (Q, N) int8 score matrix: the
     exact top-``m`` shortlist (the strongest int8 shortlist), then the
-    rescore."""
+    rescore. The ``exact`` method's tail, and the ``verified`` method's
+    fallback over the scores its program kept resident."""
     k_eff = min(k, scores.shape[1])
     top_s, cand = torch.topk(scores, m, dim=1)
     return _rescore_select(cand, torch.isneginf(top_s), q_f32, rows_full, k_eff)
 
 
+def fallback_shortlist_depth(k: int, n: int, shortlist: int = 512) -> int:
+    """Shortlist depth of the proof-miss fallback over the resident (Q, n)
+    scores: one definition for :func:`topk_int8_rerank_fused_auto` and the
+    index's fused searches, as tpuclip's."""
+    return min(max(shortlist, 4 * min(k, n)), n)
+
+
+# =============================================================================
+# The approximate top-k and its count proof
+# =============================================================================
+
+# lax.approx_max_k's default recall target, which the ``approx`` method takes.
+APPROX_RECALL = 0.95
+# XLA's lane tiling of a rank-2 ApproxTopK operand.
+_LANE_TILING = 128
+
+
+def approx_reduction_size(n: int, k: int, recall: float) -> Tuple[int, int]:
+    """(L, r): the bin count and log2 of the bin size of XLA's ApproxTopK
+    reduction of a rank-2 operand of width ``n`` to its top ``k`` at
+    ``recall`` (taken as a float32, as XLA takes it). m0 = max((1 - k) /
+    ln(recall), 128) capped at n and r = floor(log2(n // m0)); r = 0 keeps
+    every column (L = n: exact), else r is capped at ceil(log2(n // 128))
+    and L = ceil(ceil(n / 128) / 2**r) * 128. A top-1 folds to one tile."""
+    if n <= _LANE_TILING:
+        return n, 0
+    tiles = -(-n // _LANE_TILING)
+    if k == 1:
+        return _LANE_TILING, (tiles - 1).bit_length()
+    recall = float(np.float32(recall))
+    if not 0.0 < recall <= 1.0:
+        raise ValueError(f"recall must be in (0, 1], got {recall}")
+    if recall == 1.0:
+        return n, 0
+    m0 = min(max(int((1.0 - k) / math.log(recall)), _LANE_TILING), n)
+    r = (n // m0).bit_length() - 1
+    if r == 0:
+        return n, 0
+    r = min(r, (n // _LANE_TILING - 1).bit_length())
+    return -(-tiles // (1 << r)) * _LANE_TILING, r
+
+
+def approx_max_k(scores: torch.Tensor, k: int, recall: float = APPROX_RECALL):
+    """Approximate top-``k`` of each row of (Q, N) ``scores``, as
+    ``lax.approx_max_k`` runs on the TPU: the columns fall into L bins
+    (:func:`approx_reduction_size`), bin j holding columns j + i*L for
+    i < 2**r (the fold by halves, -inf past N); each bin yields its winner,
+    then the exact top-``k`` of the L winners. Both orders are (score desc,
+    column asc) by :func:`order_keys`, so ties go to the lowest column on
+    the CPU and on the card alike. Returns ((Q, k) f32 scores, (Q, k) int64
+    columns) in that order; exact where L = N. Two of the true top-k in
+    one bin cost the lower-ranked its place."""
+    q, n = scores.shape
+    bins, _ = approx_reduction_size(n, k, recall)
+    if bins < k:  # a recall so low that the winners cannot fill k: select exactly
+        bins = n
+    if bins == n:
+        keys = order_keys(scores, torch.arange(n, device=scores.device))
+    else:
+        width = -(-n // bins) * bins
+        folded = torch.nn.functional.pad(scores, (0, width - n), value=_NEG_INF).view(q, -1, bins)
+        keys = order_keys(folded, torch.arange(width, device=scores.device).view(1, -1, bins)).amax(dim=1)
+    top = torch.topk(keys, k, dim=1).values
+    rows = 0xFFFFFFFF - (top & 0xFFFFFFFF)
+    return scores.gather(1, rows), rows
+
+
+def _verified_shortlist(scores: torch.Tensor, m: int, verify_depth: int, recall: float):
+    """:func:`approx_max_k`'s top-``m`` over the materialized scores, and a
+    flag that proves its content (tpuclip's ``_verified_shortlist``). With
+    t the J-th shortlist score (J = ``verify_depth``), per query
+
+        ok ⟺ |{scores > t}| == |{shortlist > t}|
+             ∧ |{scores == t}| == |{shortlist == t}|,  or t = -inf.
+
+    When ok, the shortlist holds the true int8 top-J, ties included. ``ok``
+    is one 0-d bool tensor for every query, left on the device: nothing in
+    the program branches on it, so the program can be captured."""
+    s_a, cand = approx_max_k(scores, m, recall)
+    t = s_a[:, min(verify_depth, m) - 1, None]
+    no_miss = (scores > t).sum(dim=1) == (s_a > t).sum(dim=1)
+    no_straddle = (scores == t).sum(dim=1) == (s_a == t).sum(dim=1)
+    ok = ((no_miss & no_straddle) | torch.isneginf(t[:, 0])).all()
+    return s_a, cand, ok
+
+
+SHORTLIST_METHODS = ("exact", "extract", "approx", "verified")
+
+
+def _scores_fit(q_count: int, n: int) -> bool:
+    """``TPUCLIP_SCORES_HBM_MB`` (default 1024): the largest (Q, N) f32
+    score matrix, in MB, that ``approx`` and ``verified`` materialize; past
+    it they take ``extract``. tpuclip's gate counts the rows the TPU pads Q
+    to; the port's matrix has Q rows."""
+    return q_count * n * 4 <= float(os.environ.get("TPUCLIP_SCORES_HBM_MB", "1024")) * 1e6
+
+
 def resolve_shortlist_method(q_count: int) -> str:
-    """Shortlist policy, overridable with TPUCLIP_SHORTLIST=exact|extract:
-    a single query takes ``exact`` (kernel 1 + torch.topk), a batch takes
-    ``extract`` (kernel 2). tpuclip's ``approx``/``verified`` methods rest on
-    the TPU's ``lax.approx_max_k`` and are not ported."""
+    """Shortlist policy, overridable with ``TPUCLIP_SHORTLIST``: ``auto``
+    gives a single query ``exact`` (kernel 1 + ``torch.topk``) and a batch
+    ``extract`` (kernel 2); ``approx`` (kernel 1 + :func:`approx_max_k`)
+    and ``verified`` (the same, proof-checked, with its fallback) serve any
+    Q when set. tpuclip's ``auto`` gives one query ``verified`` on the
+    TPU; the port keeps ``exact`` until a benchmark decides."""
     env = os.environ.get("TPUCLIP_SHORTLIST", "auto")
     if env == "auto":
         return "exact" if q_count == 1 else "extract"
-    if env in ("exact", "extract"):
+    if env in SHORTLIST_METHODS:
         return env
-    if env in ("approx", "verified"):
-        raise NotImplementedError(
-            f"TPUCLIP_SHORTLIST={env} needs an approximate top-k that torch lacks; "
-            "it waits for an H100 measurement (ROADMAP Queue 1 item 6). Use exact or extract."
-        )
-    raise ValueError(f"TPUCLIP_SHORTLIST must be auto, exact or extract, got {env!r}")
+    raise ValueError(f"TPUCLIP_SHORTLIST must be auto, {', '.join(SHORTLIST_METHODS)}; got {env!r}")
+
+
+def _proof_clean(q_count: int, device, keep_scores: bool) -> tuple:
+    """The ``verified`` outputs of a route with nothing to prove: ok True,
+    and with ``keep_scores`` an empty (Q, 0) score matrix."""
+    ok = torch.ones((), dtype=torch.bool, device=device)
+    return (ok, torch.zeros((q_count, 0), device=device)) if keep_scores else (ok,)
 
 
 def topk_int8_rerank_fused(
@@ -507,49 +631,96 @@ def topk_int8_rerank_fused(
     shortlist: int = 512,
     n_valid: Optional[int] = None,
     shortlist_method: str = "extract",
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    shortlist_recall: Optional[float] = None,
+    keep_scores: bool = False,
+    scores_out: Optional[torch.Tensor] = None,
+) -> tuple:
     """int8 scan → top-``shortlist`` → gather from ``rows_full`` → exact
     rescore → (score desc, row asc) top-k. Returns ((Q, k) f32 scores,
-    (Q, k) int64 rows); invalid slots are (-inf, INT32_MAX).
+    (Q, k) int64 rows); invalid slots are (-inf, INT32_MAX). ``verified``
+    adds its proof flag, and with ``keep_scores`` the (Q, N_pad) int8
+    scores it selected from (tpuclip's outputs; see :func:`rerank_at_depth`).
 
     ``exact``: kernel 1's full score matrix + ``torch.topk``. ``extract``:
     kernel 2's per-tile top-``k_tile`` keys, k_tile = min(128, max(4k,
     2*ceil(m/tiles))) as in tpuclip; above k = 128 the per-tile depth could
-    not cover k, so ``exact`` serves instead."""
+    not cover k, so ``exact`` serves instead. ``approx`` and ``verified``:
+    kernel 1's scores + :func:`approx_max_k`."""
     n = m_int8.shape[0]
     k_eff = min(k, n)
     if k_eff <= 0:
         empty = torch.zeros((q_f32.shape[0], 0), device=q_f32.device)
-        return empty, empty.long()
+        out = (empty, empty.long())
+        if shortlist_method == "verified":
+            out += _proof_clean(q_f32.shape[0], q_f32.device, keep_scores)
+        return out
     return rerank_at_depth(
         q_f32, m_int8, scales, rows_full, k_eff, min(max(shortlist, 4 * k_eff), n),
-        n if n_valid is None else int(n_valid), shortlist_method,
+        n if n_valid is None else int(n_valid), shortlist_method, shortlist_recall,
+        keep_scores, scores_out,
     )
 
 
-def rerank_at_depth(q_f32, m_int8, scales, rows_full, k_eff: int, m: int, n_valid: int, shortlist_method: str):
+def rerank_at_depth(
+    q_f32, m_int8, scales, rows_full, k_eff: int, m: int, n_valid: int, shortlist_method: str,
+    shortlist_recall: Optional[float] = None, keep_scores: bool = False,
+    scores_out: Optional[torch.Tensor] = None,
+) -> tuple:
     """The body of :func:`topk_int8_rerank_fused` at a given shortlist depth
-    ``m`` (1 <= k_eff <= m <= N): the int8 shortlist on kernel 1
-    (``exact``) or kernel 2 (``extract``), then the exact rescore of its
-    ``m`` rows. The mesh's per-shard search takes tpuclip's depth,
-    min(max(shortlist, k), shard rows), through here."""
-    n = m_int8.shape[0]
-    qi, _ = quantize_queries(q_f32)
-    method = "exact" if shortlist_method == "extract" and k_eff > 128 else shortlist_method
-    if method == "exact":
-        return topk_exact_from_scores(
-            int8_scores(qi, m_int8, scales, n_valid), q_f32, rows_full, k_eff, m
-        )
-    if method != "extract":
+    ``m`` (1 <= k_eff <= m <= N): the int8 shortlist, then the exact rescore
+    of its ``m`` rows. ``exact``, ``approx`` and ``verified`` select from
+    kernel 1's scores (written into ``scores_out`` when given), ``extract``
+    from kernel 2's keys. ``approx`` takes ``approx_max_k``'s default
+    recall, ``verified`` ``shortlist_recall`` (default
+    ``TPUCLIP_SHORTLIST_RECALL``, 0.95) and checks the shortlist's top
+    J = min(m, max(64, 4k)) by :func:`_verified_shortlist`. Past
+    ``TPUCLIP_SCORES_HBM_MB`` both take ``extract``.
+
+    Returns (s, i); under ``verified`` also ``ok``, a 0-d bool device
+    tensor, then with ``keep_scores`` the (Q, N) scores (empty (Q, 0), and
+    ok True, where a gate took another route). The mesh's per-shard search
+    takes tpuclip's depth, min(max(shortlist, k), shard rows), through
+    here."""
+    if shortlist_method not in SHORTLIST_METHODS:
         raise ValueError(f"unknown shortlist method {shortlist_method!r}")
-    tile = min(PACKED_TILE_N, n)
-    k_tile = min(128, max(4 * k_eff, 2 * (-(-m // (n // tile)))))
-    keys = int8_candidates_packed(qi, m_int8, scales, k_tile, n_valid, tile)
-    k_pad = -(-k_tile // 128) * 128
-    top_keys, pos = torch.topk(keys, min(m, keys.shape[1]), dim=1)
-    u = _u32(top_keys) ^ 0x80000000
-    cand = (pos // k_pad) * tile + (_IDX_MASK - (u & _IDX_MASK))
-    return _rescore_select(cand, top_keys <= _NEGINF_KEY_MAX, q_f32, rows_full, k_eff)
+    n, q_count = m_int8.shape[0], q_f32.shape[0]
+    method = shortlist_method
+    if method in ("approx", "verified") and not _scores_fit(q_count, n):
+        method = "extract"
+    if method == "extract" and k_eff > 128:
+        method = "exact"
+    qi, _ = quantize_queries(q_f32)
+    ok = None
+    if method == "extract":
+        tile = min(PACKED_TILE_N, n)
+        k_tile = min(128, max(4 * k_eff, 2 * (-(-m // (n // tile)))))
+        keys = int8_candidates_packed(qi, m_int8, scales, k_tile, n_valid, tile)
+        k_pad = -(-k_tile // 128) * 128
+        top_keys, pos = torch.topk(keys, min(m, keys.shape[1]), dim=1)
+        u = _u32(top_keys) ^ 0x80000000
+        cand = (pos // k_pad) * tile + (_IDX_MASK - (u & _IDX_MASK))
+        out = _rescore_select(cand, top_keys <= _NEGINF_KEY_MAX, q_f32, rows_full, k_eff)
+    else:
+        scores = int8_scores(qi, m_int8, scales, n_valid, out=scores_out)
+        if method == "exact":
+            top_s, cand = torch.topk(scores, m, dim=1)
+        elif method == "approx":
+            top_s, cand = approx_max_k(scores, m, APPROX_RECALL)
+        else:
+            if shortlist_recall is None:
+                shortlist_recall = float(os.environ.get("TPUCLIP_SHORTLIST_RECALL", "0.95"))
+            top_s, cand, ok = _verified_shortlist(scores, m, min(m, max(64, 4 * k_eff)), shortlist_recall)
+        out = _rescore_select(cand, torch.isneginf(top_s), q_f32, rows_full, k_eff)
+    if shortlist_method != "verified":
+        return out
+    if ok is None:
+        return out + _proof_clean(q_count, q_f32.device, keep_scores)
+    return out + ((ok, scores) if keep_scores else (ok,))
+
+
+def _count(stats: Optional[Dict[str, int]], key: str) -> None:
+    if stats is not None:
+        stats[key] = stats.get(key, 0) + 1
 
 
 def topk_int8_rerank_fused_auto(
@@ -562,15 +733,30 @@ def topk_int8_rerank_fused_auto(
     n_valid: Optional[int] = None,
     stats: Optional[Dict[str, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`topk_int8_rerank_fused` under :func:`resolve_shortlist_method`;
-    ``stats`` counts searches per method (``exact_searches``, ...)."""
+    """:func:`topk_int8_rerank_fused` under :func:`resolve_shortlist_method`.
+    Under ``verified`` the program keeps its score matrix, and when the
+    proof fails the exact selection over it (:func:`topk_exact_from_scores`)
+    answers: no second scan. ``stats`` counts searches per method
+    (``exact_searches``, ...) and, as tpuclip's, ``verified_queries`` and
+    ``shortlist_fallbacks``."""
     method = resolve_shortlist_method(int(q_f32.shape[0]))
-    if stats is not None:
-        stats[f"{method}_searches"] = stats.get(f"{method}_searches", 0) + 1
-    return topk_int8_rerank_fused(
+    _count(stats, f"{method}_searches")
+    if method != "verified":
+        return topk_int8_rerank_fused(
+            q_f32, m_int8, scales, rows_full, k, shortlist=shortlist, n_valid=n_valid,
+            shortlist_method=method,
+        )
+    s, i, ok, scores = topk_int8_rerank_fused(
         q_f32, m_int8, scales, rows_full, k, shortlist=shortlist, n_valid=n_valid,
-        shortlist_method=method,
+        shortlist_method="verified", keep_scores=True,
     )
+    _count(stats, "verified_queries")
+    if bool(ok):
+        return s, i
+    _count(stats, "shortlist_fallbacks")
+    # ok is False only where the scores route ran: the matrix is not empty.
+    m = fallback_shortlist_depth(k, scores.shape[1], shortlist)
+    return topk_exact_from_scores(scores, q_f32, rows_full, k, m)
 
 
 # =============================================================================
@@ -581,10 +767,27 @@ def topk_int8_rerank_fused_auto(
 # search into one XLA program. Here each is a plain function of the port's
 # ``SiglipModel``: eager on the CPU, and on CUDA captured once per shape as a
 # CUDA graph (``tpuclip_torch.ops.graphs``), which is the port's counterpart
-# of one compiled program. There is no ``keep_scores`` and no fifth output:
-# tpuclip keeps the score matrix and the embedding only for its ``verified``
-# shortlist, which rests on the TPU's approximate top-k and which the port
-# refuses (:func:`resolve_shortlist_method`).
+# of one compiled program. Under ``verified`` with ``keep_scores`` each
+# returns, as tpuclip's, the proof flag, the resident scores and the fp32
+# query embedding, so that a proof miss re-runs neither the tower nor the
+# scan; ``scores_out`` is the index's buffer that kernel 1 writes the
+# scores into, shared by every captured program.
+
+
+def _fused_embedding_tail(out: tuple, emb: torch.Tensor, shortlist_method: str, keep_scores: bool) -> tuple:
+    """The fused programs' extra output (tpuclip's): with ``keep_scores``
+    under ``verified``, the fp32 query embedding follows the scores."""
+    if keep_scores and shortlist_method == "verified":
+        return out + (emb.float(),)
+    return out
+
+
+def _fused_search(emb, m_int8, scales, rows_full, k, n_valid, shortlist, shortlist_method, keep_scores, scores_out):
+    out = topk_int8_rerank_fused(
+        emb, m_int8, scales, rows_full, k, shortlist=shortlist, n_valid=n_valid,
+        shortlist_method=shortlist_method, keep_scores=keep_scores, scores_out=scores_out,
+    )
+    return _fused_embedding_tail(out, emb, shortlist_method, keep_scores)
 
 
 @torch.inference_mode()
@@ -599,17 +802,16 @@ def text_topk_fused(
     n_valid: Optional[int] = None,
     shortlist: int = 512,
     shortlist_method: str = "extract",
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    keep_scores: bool = False,
+    scores_out: Optional[torch.Tensor] = None,
+) -> tuple:
     """(B, 64) token ids + mask → text tower → :func:`topk_int8_rerank_fused`:
     ((B, k) f32 scores, (B, k) int64 rows). The embedding never leaves the
-    device; results equal embed-then-search on the same batch. No
-    ``keep_scores`` and no fifth output: those serve only tpuclip's
-    ``verified`` shortlist, which the port refuses."""
+    device; results equal embed-then-search on the same batch. Under
+    ``verified`` the proof flag follows, and with ``keep_scores`` the
+    resident (B, N) scores and the fp32 embedding."""
     emb = model.get_text_features(ids, attn_mask)
-    return topk_int8_rerank_fused(
-        emb, m_int8, scales, rows_full, k, shortlist=shortlist, n_valid=n_valid,
-        shortlist_method=shortlist_method,
-    )
+    return _fused_search(emb, m_int8, scales, rows_full, k, n_valid, shortlist, shortlist_method, keep_scores, scores_out)
 
 
 @torch.inference_mode()
@@ -623,14 +825,13 @@ def image_topk_fused(
     n_valid: Optional[int] = None,
     shortlist: int = 512,
     shortlist_method: str = "extract",
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, S, S, 3) uint8 pixels → vision tower → the same search as
-    :func:`text_topk_fused` (no ``keep_scores`` either)."""
+    keep_scores: bool = False,
+    scores_out: Optional[torch.Tensor] = None,
+) -> tuple:
+    """(B, S, S, 3) uint8 pixels → vision tower → the same search and
+    outputs as :func:`text_topk_fused`."""
     emb = model.get_image_features(pixels)
-    return topk_int8_rerank_fused(
-        emb, m_int8, scales, rows_full, k, shortlist=shortlist, n_valid=n_valid,
-        shortlist_method=shortlist_method,
-    )
+    return _fused_search(emb, m_int8, scales, rows_full, k, n_valid, shortlist, shortlist_method, keep_scores, scores_out)
 
 
 @torch.inference_mode()
@@ -646,16 +847,15 @@ def mixed_topk_fused(
     n_valid: Optional[int] = None,
     shortlist: int = 512,
     shortlist_method: str = "extract",
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    keep_scores: bool = False,
+    scores_out: Optional[torch.Tensor] = None,
+) -> tuple:
     """Both towers, then ONE search over the (Tb + Ib, D) query block, texts
     first: output rows [0, Tb) answer the texts, [Tb, Tb + Ib) the images.
-    A mixed serve window reads the int8 matrix once instead of twice. No
-    ``keep_scores`` (see :func:`text_topk_fused`)."""
+    A mixed serve window reads the int8 matrix once instead of twice. The
+    outputs of :func:`text_topk_fused`, the embedding being the block's."""
     emb = torch.cat([model.get_text_features(ids, attn_mask), model.get_image_features(pixels)])
-    return topk_int8_rerank_fused(
-        emb, m_int8, scales, rows_full, k, shortlist=shortlist, n_valid=n_valid,
-        shortlist_method=shortlist_method,
-    )
+    return _fused_search(emb, m_int8, scales, rows_full, k, n_valid, shortlist, shortlist_method, keep_scores, scores_out)
 
 
 @torch.inference_mode()
@@ -671,15 +871,14 @@ def naflex_image_topk_fused(
     n_valid: Optional[int] = None,
     shortlist: int = 512,
     shortlist_method: str = "extract",
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    keep_scores: bool = False,
+    scores_out: Optional[torch.Tensor] = None,
+) -> tuple:
     """:func:`image_topk_fused` for the NaFlex towers: uint8 patches
     (B, L, P*P*C), mask (B, L) and patch grids (B, 2) → NaFlex vision tower
     → the same search."""
     emb = model.get_image_features_naflex(patches, pixel_mask, spatial_shapes)
-    return topk_int8_rerank_fused(
-        emb, m_int8, scales, rows_full, k, shortlist=shortlist, n_valid=n_valid,
-        shortlist_method=shortlist_method,
-    )
+    return _fused_search(emb, m_int8, scales, rows_full, k, n_valid, shortlist, shortlist_method, keep_scores, scores_out)
 
 
 @torch.inference_mode()
@@ -697,14 +896,13 @@ def mixed_naflex_topk_fused(
     n_valid: Optional[int] = None,
     shortlist: int = 512,
     shortlist_method: str = "extract",
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    keep_scores: bool = False,
+    scores_out: Optional[torch.Tensor] = None,
+) -> tuple:
     """:func:`mixed_topk_fused` for the NaFlex towers: the text tower, the
     NaFlex vision tower, then ONE search over the texts-first query block."""
     emb = torch.cat([
         model.get_text_features(ids, attn_mask),
         model.get_image_features_naflex(patches, pixel_mask, spatial_shapes),
     ])
-    return topk_int8_rerank_fused(
-        emb, m_int8, scales, rows_full, k, shortlist=shortlist, n_valid=n_valid,
-        shortlist_method=shortlist_method,
-    )
+    return _fused_search(emb, m_int8, scales, rows_full, k, n_valid, shortlist, shortlist_method, keep_scores, scores_out)

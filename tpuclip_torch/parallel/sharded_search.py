@@ -55,7 +55,6 @@ from tpuclip_torch.ops.topk_int8 import (
     PACKED_TILE_N,
     _final_merge,
     rerank_at_depth,
-    resolve_shortlist_method,
     topk_int8,
     topk_int8_scores,
 )
@@ -315,16 +314,17 @@ def sharded_topk_int8_rerank(
     ``topk_int8_rerank_fused``): the int8 rows, their scales and the
     storage-dtype ``rows_full`` row-sharded alike, the fp32 queries
     replicated. Each shard takes a shortlist of min(max(shortlist, k), rps)
-    rows (kernel 1 for one query, kernel 2 for a batch:
-    ``resolve_shortlist_method``), rescores it against its own rows and
-    keeps its exact top-k; the merge of the per-shard exact top-ks is the
-    global exact top-k. Scores are the exact full-precision dots."""
+    rows (kernel 1 for one query, kernel 2 for a batch, whatever
+    ``TPUCLIP_SHORTLIST`` says: tpuclip's mesh rerank ignores it too),
+    rescores it against its own rows and keeps its exact top-k; the merge
+    of the per-shard exact top-ks is the global exact top-k. Scores are the
+    exact full-precision dots."""
     matrix_int8 = _as_sharded(matrix_int8, mesh)
     scales, rows_full = _as_sharded(scales, mesh), _as_sharded(rows_full, mesh)
     rps = matrix_int8.rows_per_shard
     k_eff = min(k, matrix_int8.shape[0])
     m_local = min(max(shortlist, k_eff), rps)
-    method = resolve_shortlist_method(int(q_f32.shape[0]))
+    method = "exact" if q_f32.shape[0] == 1 else "extract"
     if method == "extract" and not _extract_fits(rps, min(k_eff, m_local), m_local):
         method = "exact"
     parts = []

@@ -872,8 +872,9 @@ def warm_programs(engine, k: int = 10) -> int:
     text-only fused programs, the lone-image fused program and 4x4 mixed
     (text-bucket, image-bucket) programs, then 3 batch-search shapes. The
     programs run under the environment as it stands, so their shortlist
-    method (``TPUCLIP_SHORTLIST``) is the one live traffic resolves; the
-    port has no ``approx`` (tpuclip's rests on the TPU's approximate top-k).
+    method (``TPUCLIP_SHORTLIST``: ``exact`` / ``extract`` under ``auto``,
+    or ``approx`` or ``verified`` when set) is the one live traffic
+    resolves (tpuclip's warms ``auto`` and ``approx`` both).
     On the card each fused program is one CUDA graph whose capture would
     otherwise land inside a live request window. Run this at deployment
     startup (``serve --warm``). Returns the number of warm calls made: 24
