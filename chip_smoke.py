@@ -206,7 +206,29 @@ Phases, each printing its own lines; any failure exits non-zero:
    of the fused search per method at Q = 1, 16, 64 and of the bucket-1
    text graph per method, the auto wrapper's host-to-host p50 at Q = 1
    under exact and verified, and a torch.profiler breakdown of both at
-   Q = 1. Kernels 1 and 2 must launch in the phase.
+   Q = 1. Kernels 1 and 2 must launch in the phase;
+16. tensor-parallel towers (``shard_params`` with a model axis above 1),
+   after phase 14, the card named 2 and 4 times: (a) SO400M-patch14-224 at
+   full width and depth (random weights, TPUCLIP_INIT=random), fp32 and
+   bf16, over meshes (data 1, model 2), (2, 2) and (1, 4), one
+   tensor-parallel replica a data row, each on its rows: image features of
+   64 of phase 4's JPEGs and text features of the 4 masked texts, every
+   row's cosine to one device's >= 0.99999 in fp32 and >= 0.999 in bf16,
+   unit norm, the max abs difference printed; (b) so400m-patch16-naflex in
+   bf16 at (1, 2) on 16 of phase 11's images over the six aspect families,
+   cosine >= 0.999; (c) the (1, 2) fp32 text features through the index's
+   default int8 search over phase 3's 1M rows (one query, kernel 1; the
+   4-text batch, kernel 2): ids equal to one device's features' but for
+   near-ties within 1e-5 (counted); (d) one data x model step at SO400M
+   width (4 layers a tower), batch 16, fp32, over (2, 2), AdamW then
+   Adafactor: the loss within 1e-4 relative of one device's step, each
+   parameter shard within 1e-5 of its leaf's largest update (plus one
+   fp32 rounding) of one device's step (the attention key biases, whose
+   gradients are rounding noise, reported), the two rows equal, three
+   steps' p50, peak allocated bytes and the parameter and optimizer bytes
+   per rank; (e) the bf16 vision tower at batch 64: p50 and launches a
+   call at (1, 2) and (1, 4) against one device. Every replica's blocks
+   must be split (no one-device module on a tensor-parallel path).
    Neither jax nor the JAX package (tpuclip) may ever have been imported.
 
 The last two lines are the kernels' JSON record and then
@@ -224,8 +246,9 @@ counts phase 10's session (0 where the session does not run it), its
 ``launches_naflex`` phase 11's NaFlex path, its ``launches_ivf`` phase
 12's IVF path, its ``launches_train`` phase 13's training, its
 ``launches_mesh`` phase 14's mesh path (one run of each case: the
-references and timing loops are not counted) and its ``launches_shortlist``
-phase 15's (its checks and timing loops not counted); each count is zeroed just
+references and timing loops are not counted), its ``launches_shortlist``
+phase 15's (its checks and timing loops not counted) and its
+``launches_tp`` phase 16's (the one-device references not counted); each count is zeroed just
 before its path runs. ``library_ms`` is null
 (no single PyTorch call computes any of these functions) and
 ``nearest_ms`` times the nearest route of PyTorch calls, where there is
@@ -3598,6 +3621,325 @@ def phase_shortlist(mods, gpu, resident, engine):
     return launches
 
 
+# Tensor-parallel towers (phase 16): the card named several times as a
+# (data, model) mesh.
+TP_MESHES = ((1, 2), (2, 2), (1, 4))
+TP_IMAGES = 64
+TP_NAFLEX = 16
+TP_STEPS = 3
+TP_REPS = 5
+
+
+def cosines(a, b):
+    """Each row's cosine between two (B, D) feature sets, in float64."""
+    a, b = a.double(), b.double()
+    return (a * b).sum(-1) / (torch.linalg.vector_norm(a, dim=-1) * torch.linalg.vector_norm(b, dim=-1))
+
+
+def per_row(replicas, fn, *inputs):
+    """Each replica's features of its rows of ``inputs``, concatenated."""
+    b = inputs[0].shape[0] // len(replicas)
+    return torch.cat([fn(r, *(x[j * b : (j + 1) * b] for x in inputs)) for j, r in enumerate(replicas)])
+
+
+def split_over(replica, mp):
+    """Every encoder layer's and the vision head's attention and MLP are
+    split over ``mp`` ranks: no block runs the one-device module."""
+    from tpuclip_torch.parallel.tensor_parallel import TensorParallelAttention, TensorParallelMLP
+
+    blocks = [layer for tower in (replica.vision, replica.text) for layer in tower.encoder.layers]
+    blocks.append(replica.vision.head)
+    return all(isinstance(b.attn, TensorParallelAttention) and isinstance(b.mlp, TensorParallelMLP)
+               and len(b.attn.shards) == len(b.mlp.shards) == mp for b in blocks)
+
+
+def bytes_per_rank(state):
+    """(parameter bytes, optimizer-state bytes) of the lead replica on each
+    rank of its row; the replicated parameters count on rank 0."""
+    params = dict(state.model.named_parameters())
+    ranks = max(s.ranks for s in state.layout.values())
+    p_bytes, o_bytes = [0] * ranks, [0] * ranks
+    for name, p in params.items():
+        p_bytes[state.layout[name].rank] += p.numel() * p.element_size()
+    for tree in state.opt_state.values():
+        for name, t in (tree.items() if isinstance(tree, dict) else ()):
+            o_bytes[state.layout[name].rank] += t.numel() * t.element_size()
+    return p_bytes, o_bytes
+
+
+def phase_tp(mods, gpu, work, resident):
+    """Phase 16: tensor-parallel towers on the card named 2 and 4 times;
+    returns every counted kernel's launches on the tensor-parallel path."""
+    import copy
+    import dataclasses
+
+    from tpuclip_torch.io.decode import load_image
+    from tpuclip_torch.io.preprocess import preprocess_naflex, resize_to_uint8
+    from tpuclip_torch.models.configs import DEFAULT_MODEL, get_config
+    from tpuclip_torch.models.loader import load_model
+    from tpuclip_torch.models.siglip import build_model, init_params_
+    from tpuclip_torch.ops._counters import COUNTED
+    from tpuclip_torch.parallel import make_mesh, shard_params
+    from tpuclip_torch.parallel import training as tr
+    from tpuclip_torch.parallel.tensor_parallel import gather_logical, logical_slice
+    from tpuclip_torch.pipelines import train as train_mod
+    from tpuclip_torch.text.tokenizer import build_prompt, load_tokenizer
+
+    ops = mods[0]
+    rows, m, scales = resident[:3]
+    dev = rows.device
+    cache = str(work / "models")
+    report = {"gpu": gpu, "meshes": [list(x) for x in TP_MESHES]}
+    for wrapper in COUNTED:
+        wrapper.launches = 0
+
+    # (a) image features of 64 of phase 4's JPEGs and text features of the
+    # 4 masked texts, fp32 and bf16, each mesh against one device.
+    cfg, model32 = load_model(DEFAULT_MODEL, cache, dev, torch.float32)
+    files = sorted((work / "images").rglob("*.jpg"))[:TP_IMAGES]
+    pixels = torch.from_numpy(np.stack([resize_to_uint8(load_image(str(f)), cfg.vision.image_size)
+                                        for f in files])).to(dev)
+    tokenizer = load_tokenizer(DEFAULT_MODEL, None, vocab_size=cfg.text.vocab_size)
+    ids, mask = (torch.from_numpy(a).to(dev)
+                 for a in tokenizer.encode_batch_with_mask([build_prompt(t) for t in TEXTS]))
+    check(int(mask.sum(-1).min()) < mask.shape[1], "the texts' masks keep every token")
+    features, timing = [], []
+    txt_tp = txt_one = None
+    for dtype, bar in ((torch.float32, 0.99999), (torch.bfloat16, 0.999)):
+        base = model32 if dtype == torch.float32 else copy.deepcopy(model32).to(torch.bfloat16)
+        img1, txt1 = base.get_image_features(pixels), base.get_text_features(ids, mask)
+        one_ms = p50_ms(lambda: base.get_image_features(pixels), TP_REPS) if dtype == torch.bfloat16 else None
+        for d, mp in TP_MESHES:
+            replicas = shard_params(base, make_mesh([dev] * (d * mp), model_parallelism=mp))
+            check(len(replicas) == d and all(split_over(r, mp) for r in replicas),
+                  f"({d}, {mp}): the replicas are not split over the model axis")
+            img = per_row(replicas, lambda r, x: r.get_image_features(x), pixels)
+            txt = per_row(replicas, lambda r, i, k: r.get_text_features(i, k), ids, mask)
+            ci, ct = cosines(img, img1), cosines(txt, txt1)
+            norms = torch.cat([torch.linalg.vector_norm(x, dim=-1) for x in (img, txt)])
+            case = {"dtype": str(dtype).removeprefix("torch."), "mesh": [d, mp],
+                    "image_cos_min": float(ci.min()), "text_cos_min": float(ct.min()),
+                    "image_max_abs": float((img - img1).abs().max()), "text_max_abs": float((txt - txt1).abs().max()),
+                    "norm_err": float((norms - 1).abs().max())}
+            check(bool(torch.isfinite(img).all() and torch.isfinite(txt).all()) and case["norm_err"] <= 1e-3,
+                  f"tensor-parallel features not finite or off unit norm: {case}")
+            check(min(case["image_cos_min"], case["text_cos_min"]) >= bar,
+                  f"tensor-parallel features off one device's below cosine {bar}: {case}")
+            features.append(case)
+            print(f"[tp] (a) {case['dtype']} mesh (data {d}, model {mp}) of {dev} x {d * mp}: {TP_IMAGES} images, "
+                  f"{len(TEXTS)} masked texts; cosine to one device min image {case['image_cos_min']:.8f}, text "
+                  f"{case['text_cos_min']:.8f} (bar {bar}); max abs diff image {case['image_max_abs']:.3e}, text "
+                  f"{case['text_max_abs']:.3e}; unit norm within {case['norm_err']:.1e}", flush=True)
+            if dtype == torch.float32 and (d, mp) == (1, 2):
+                txt_tp, txt_one = txt, txt1
+            if dtype == torch.bfloat16 and d == 1:
+                fn = functools.partial(replicas[0].get_image_features, pixels)
+                tp_ms = p50_ms(fn, TP_REPS)
+                _, busy, launches, _ = device_breakdown(fn, runs=2)
+                _, busy1, launches1, _ = device_breakdown(lambda: base.get_image_features(pixels), runs=2)
+                timing.append({"mesh": [d, mp], "tp_ms": tp_ms, "one_ms": one_ms, "tp_launches": launches,
+                               "one_launches": launches1, "tp_busy_ms": busy, "one_busy_ms": busy1})
+                print(f"[tp] (e) vision tower, batch {TP_IMAGES}, bf16: model axis {mp} p50 {tp_ms:.3f} ms, "
+                      f"{launches:.0f} launches a call (device busy {busy:.3f} ms) against one device's "
+                      f"{one_ms:.3f} ms, {launches1:.0f} launches (busy {busy1:.3f} ms); the card named {mp} "
+                      f"times  ({gpu})", flush=True)
+            del replicas
+        del base
+    report["features"], report["timing"] = features, timing
+    torch.cuda.empty_cache()
+
+    # (b) NaFlex: 16 of phase 11's images over the six aspect families, bf16,
+    # at (1, 2).
+    ncfg, naflex = load_model(NAFLEX_MODEL, cache, dev, torch.bfloat16)
+    nfiles = sorted((work / "naflex_images").rglob("*.jpg"))[::12][:TP_NAFLEX]
+    check(len({f.parent.name for f in nfiles}) == len(NAFLEX_SIZES), "the NaFlex images miss an aspect family")
+    inputs = [preprocess_naflex(load_image(str(f)), ncfg.vision.patch_size, ncfg.vision.max_num_patches)
+              for f in nfiles]
+    patches, pmask, shapes = (torch.from_numpy(np.stack(x)).to(dev) for x in zip(*inputs))
+    one = naflex.get_image_features_naflex(patches, pmask, shapes)
+    replica = shard_params(naflex, make_mesh([dev, dev], model_parallelism=2))[0]
+    check(split_over(replica, 2), "the NaFlex replica is not split over the model axis")
+    got = replica.get_image_features_naflex(patches, pmask, shapes)
+    cn = cosines(got, one)
+    check(bool(torch.isfinite(got).all()) and float(cn.min()) >= 0.999,
+          f"NaFlex tensor-parallel features off one device's: cosine min {float(cn.min())}")
+    report["naflex"] = {"images": len(nfiles), "cos_min": float(cn.min()), "max_abs": float((got - one).abs().max())}
+    print(f"[tp] (b) NaFlex ({NAFLEX_MODEL}), {len(nfiles)} images over {len(NAFLEX_SIZES)} aspect families, bf16, "
+          f"mesh (data 1, model 2): cosine to one device min {float(cn.min()):.8f} (bar 0.999), max abs diff "
+          f"{report['naflex']['max_abs']:.3e}", flush=True)
+    del naflex, replica
+    torch.cuda.empty_cache()
+
+    # (c) the (1, 2) fp32 text features through the index's default int8
+    # search (the fused search on the resident rows) over phase 3's rows.
+    swaps = {}
+    for q_count in (1, len(TEXTS)):
+        s, i = ops.topk_int8_rerank_fused_auto(txt_tp[:q_count], m, scales, rows, K, n_valid=N_ROWS)
+        with uncounted():
+            s1, i1 = ops.topk_int8_rerank_fused_auto(txt_one[:q_count], m, scales, rows, K, n_valid=N_ROWS)
+        check(bool(torch.isfinite(s).all()) and ordered(s.cpu(), i.cpu()), f"Q={q_count}: results not ordered")
+        swaps[q_count] = same_ids_up_to_ties(s, i, s1, i1, 1e-5)
+    torch.cuda.synchronize()
+    launches = {wrapper.__name__: wrapper.launches for wrapper in COUNTED}
+    check(launches["int8_scores"] > 0 and launches["int8_candidates_packed"] > 0,
+          f"the tensor-parallel features' search did not launch kernels 1 and 2: {launches}")
+    report["search"] = {"swapped_near_ties": swaps, "launches": launches}
+    print(f"[tp] (c) (1, 2) fp32 text features, int8 search over {N_ROWS:,} rows, k {K}: a single query and the "
+          f"{len(TEXTS)}-text batch, ids equal to one device's features' but for {swaps} swapped near-ties "
+          f"(within 1e-5); kernel launches {launches}", flush=True)
+
+    # (d) one data x model step at (2, 2), SO400M width at a cut depth, fp32
+    # (TF32 off), against one device's step, AdamW then Adafactor.
+    full = get_config(DEFAULT_MODEL)
+    cfg4 = dataclasses.replace(full, vision=dataclasses.replace(full.vision, num_layers=DP_LAYERS),
+                               text=dataclasses.replace(full.text, num_layers=DP_LAYERS))
+    base = init_params_(build_model(cfg4, dev, torch.float32), torch.Generator(device=dev).manual_seed(16))
+    batches = train_mod._batches(train_mod.find_pairs(str(work / "train_pairs")), DP_BATCH,
+                                 cfg4.vision.image_size, tokenizer, 1, 0)
+    images, tids, tmask = (torch.from_numpy(a).to(dev) for a in next(batches))
+    batches.close()
+    mesh = make_mesh([dev] * 4, model_parallelism=2)
+    # The data x model gradients, gathered into logical tensors, against
+    # one device's on the same masked batch: within 1e-5 of each leaf's
+    # largest gradient. The leaves that reach the loss only through the
+    # attention scores (q and k, weights and biases, and the MAP head's
+    # probe, which feeds only its queries) are scaled by their attention
+    # block's largest gradient instead: softmax's backward sums to zero over
+    # the keys, so their gradients are small sums of large terms, and their
+    # rounding follows the terms (a key bias's gradient is zero but for
+    # rounding). Every leaf off its bar is listed before the check fails.
+    single = copy.deepcopy(base).requires_grad_(True)
+    loss1 = tr.sigmoid_contrastive_loss(single, images, tids, torch.float32, tmask)
+    loss1.backward()
+    want = {n: p.grad for n, p in single.named_parameters()}
+    state = tr.init_train_state(copy.deepcopy(base), tr.make_optimizer(), mesh=mesh)
+    loss_tp, grads = tr.data_parallel_value_and_grad(state, mesh, images, tids, tmask, torch.float32)
+    got = gather_logical(grads, state.layout)
+    block_max = {}
+    for n, g in want.items():
+        block = n.rsplit(".", 2)[0]
+        if block.endswith(".attn"):
+            block_max[block] = max(block_max.get(block, 0.0), float(g.abs().max()))
+    grad_worst = own_worst = 0.0
+    off = []
+    for n, g in want.items():
+        block, proj = n.rpartition(".")[0].rpartition(".")[::2]
+        if n.endswith("head.probe"):
+            block, proj = n.removesuffix("probe") + "attn", "q"
+        own = float(g.abs().max())
+        scale = block_max[block] if block.endswith(".attn") and proj in ("q", "k") else own
+        err = float((got[n].to(dev) - g).abs().max())
+        if err > 1e-5 * scale:
+            off.append(f"{n} by {err:.3e} (bar 1e-5 x {scale:.3e})")
+        grad_worst = max(grad_worst, err / max(scale, 1e-30))
+        own_worst = max(own_worst, err / max(own, 1e-30))
+    check(not off, f"{len(off)} gradients off one device's: " + "; ".join(off))
+    grad_loss_rel = abs(loss_tp.item() - loss1.item()) / abs(loss1.item())
+    check(grad_loss_rel <= 1e-5, f"data x model loss {loss_tp.item()} off one device's {loss1.item()}")
+    report["grads"] = {"leaves": len(want), "worst_err_over_scale": grad_worst,
+                       "worst_err_over_own_max": own_worst, "loss_rel": grad_loss_rel}
+    print(f"[tp] (d) gradients of one masked batch of {DP_BATCH}, fp32, mesh (data 2, model 2): all {len(want)} "
+          f"leaves gathered from their shards within {grad_worst:.2e} of their scale (bar 1e-5; each leaf's "
+          f"largest gradient, the attention block's for q, k and the probe), {own_worst:.2e} of each leaf's own "
+          f"largest; "
+          f"loss {grad_loss_rel:.2e} relative  ({gpu})", flush=True)
+    del single, want, state, grads, got
+    torch.cuda.empty_cache()
+    steps = {}
+    for factored in (False, True):
+        name = "adafactor" if factored else "adamw"
+        opt1 = tr.make_optimizer(learning_rate=1e-5, factored=factored)
+        single = tr.init_train_state(copy.deepcopy(base), opt1)
+        step1 = tr.make_train_step(opt1, torch.float32)
+        single, loss1 = step1(single, images, tids, tmask)
+        want = {n: p.detach().clone() for n, p in single.model.named_parameters()}
+        # |g| of one device's step: AdamW's first moment is then 0.1 g.
+        grad_abs = None if factored else {n: mu.abs() * 10 for n, mu in single.opt_state["mu"].items()}
+        trace1 = device_breakdown(lambda: step1(single, images, tids, tmask), runs=2)
+        print_breakdown("tp", f"(d) one-device {name} step, fp32, batch {DP_BATCH}", trace1, gpu)
+        del single
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        opt = tr.make_optimizer(learning_rate=1e-5, factored=factored)
+        state = tr.init_train_state(copy.deepcopy(base), opt, mesh=mesh)
+        check(all(split_over(r, 2) for r in state.replicas), "the train replicas are not split")
+        step = tr.make_train_step(opt, torch.float32, mesh=mesh)
+        times, losses = [], []
+        for n_step in range(TP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, images, tids, tmask)
+            losses.append(loss.item())
+            times.append(time.perf_counter() - t0)
+            if n_step == 0:
+                # Each shard against its slice of one device's parameter:
+                # within 1e-5 of the leaf's largest update plus one fp32
+                # rounding of its largest value. Not held, but counted: the
+                # attention key biases, whose gradients are zero but for
+                # rounding (both optimizers scale that noise to full
+                # steps), and under AdamW the elements whose |g| < 100 eps,
+                # where its first step g / (|g| + eps) scales the gradient's
+                # rounding by up to eps / |g|.
+                worst, worst_kbias, near_eps = 0.0, 0.0, 0
+                for n, p in state.model.named_parameters():
+                    logical = state.layout[n].logical
+                    ref = logical_slice(want[logical], n, state.layout)
+                    moved = float((want[logical] - base.get_parameter(logical)).abs().max())
+                    ulp = float(np.spacing(np.float32(want[logical].abs().max().item())))
+                    diff = (p.detach() - ref).abs()
+                    if logical.endswith("attn.k.bias"):
+                        worst_kbias = max(worst_kbias, float(diff.max()) / max(moved, 1e-30))
+                        continue
+                    over = diff > 1e-5 * moved + ulp
+                    if grad_abs is not None:
+                        small = logical_slice(grad_abs[logical], n, state.layout) < 100 * tr._EPS
+                        near_eps += int((over & small).sum())
+                        over &= ~small
+                        diff = diff.masked_fill(small, 0.0)
+                    check(not bool(over.any()), f"{name}: {n} off one device's step by {float(diff.max()):.3e} "
+                          f"(largest update {moved:.3e}, one rounding {ulp:.3e})")
+                    worst = max(worst, float((diff - ulp).clamp_min(0).max()) / max(moved, 1e-30))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        loss_rel = abs(losses[0] - loss1.item()) / abs(loss1.item())
+        check(loss_rel <= 1e-4 and all(np.isfinite(losses)),
+              f"{name}: data x model loss {losses[0]} off one device's {loss1.item()} by {loss_rel:.2e}")
+        replicas_equal = all(torch.equal(p, state.model.get_parameter(n)) for n, p in state.replicas[1].named_parameters())
+        check(replicas_equal, f"{name}: the two rows' replicas differ after the steps")
+        trace = device_breakdown(lambda: step(state, images, tids, tmask), runs=2)
+        print_breakdown("tp", f"(d) data x model {name} step, fp32, batch {DP_BATCH}, mesh (data 2, model 2)",
+                        trace, gpu)
+        p_bytes, o_bytes = bytes_per_rank(state)
+        steps[name] = {"loss_single": loss1.item(), "losses": losses, "loss_rel": loss_rel,
+                       "worst_err_over_update": worst, "kbias_err_over_update": worst_kbias,
+                       "near_eps_elements_over": near_eps,
+                       "step_p50_s": statistics.median(times[1:]), "peak_bytes": peak, "held_bytes": held,
+                       "param_bytes_per_rank": p_bytes, "opt_bytes_per_rank": o_bytes,
+                       "trace": trace, "trace_single": trace1}
+        print(f"[tp] (d) data x model step, {name}, fp32, SO400M width ({cfg4.vision.hidden_size} hidden, "
+              f"{cfg4.vision.num_heads} heads, MLP {cfg4.vision.intermediate_size}), {DP_LAYERS} layers a tower, "
+              f"batch {DP_BATCH}, mesh (data 2, model 2) of {dev} x 4: first loss {losses[0]:.7f} vs one device "
+              f"{loss1.item():.7f} ({loss_rel:.2e} relative); parameters after the step within {worst:.2e} of each "
+              f"leaf's largest update beyond one rounding (key biases {worst_kbias:.2e} and {near_eps} AdamW elements "
+              f"with |g| < 100 eps over it, not held); rows equal; "
+              f"losses {', '.join(f'{x:.7f}' for x in losses)}; step p50 {steps[name]['step_p50_s'] * 1e3:.1f} ms "
+              f"after step 1; peak {peak:,} bytes over {held:,} held; parameter bytes per rank {p_bytes}, "
+              f"optimizer bytes per rank {o_bytes}  ({gpu})", flush=True)
+        del state, want, grad_abs
+        torch.cuda.empty_cache()
+    report["train"] = steps
+    del base, model32
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    launches = {wrapper.__name__: wrapper.launches for wrapper in COUNTED}
+    print(f"[tp] kernel launches on the tensor-parallel path: {launches}", flush=True)
+    report["launches"] = launches
+    print("[phase16-json] " + json.dumps(report), flush=True)
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ab", action="append", default=[], metavar="LABEL:PATH",
@@ -3669,7 +4011,10 @@ def main():
         train = phase_train(gpu, Path(tmp))
         torch.cuda.empty_cache()
         mesh = phase_mesh(mods, gpu, Path(tmp), db, cache, resident, binary_rows, ivf_ctx)
-        del resident, binary_rows, ivf_ctx
+        del binary_rows, ivf_ctx
+        torch.cuda.empty_cache()
+        tp = phase_tp(mods, gpu, Path(tmp), resident)
+        del resident
 
     sources = {
         "int8_scores": ("tpuclip_torch/csrc/int8_scan.cu", "tpuclip/ops/topk_int8.py:340"),
@@ -3691,7 +4036,8 @@ def main():
          "launches_ivf": ivf[name.removesuffix("_q16")],
          "launches_train": train[name.removesuffix("_q16")],
          "launches_mesh": mesh[name.removesuffix("_q16")],
-         "launches_shortlist": shortlist[name.removesuffix("_q16")], **record[name]}
+         "launches_shortlist": shortlist[name.removesuffix("_q16")],
+         "launches_tp": tp[name.removesuffix("_q16")], **record[name]}
         for name, (source, replaces) in sources.items()
     ]
     check("jax" not in sys.modules, "the port loaded jax")

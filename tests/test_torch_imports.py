@@ -254,7 +254,7 @@ def test_serving_modules_import_neither_tpuclip_nor_jax():
              "pipelines.prune", "pipelines.export", "pipelines.merge", "models.naflex",
              "index.ivf", "parallel.training", "parallel.checkpoint", "pipelines.train",
              "parallel.mesh", "parallel.sharded_search", "parallel.sharded_ivf", "parallel.sharding",
-             "parallel")
+             "parallel.tensor_parallel", "parallel")
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"

@@ -4,12 +4,15 @@
 ``maybe_distributed_init`` (gloo), one mesh of eight global shards.
 
 Each worker runs the sharded int8 search with the exact rescore (the
-cross-process all_gather merge) and three data-parallel train steps (the
-features gathered across the processes, the gradients summed over them).
+cross-process all_gather merge), three data-parallel train steps (the
+features gathered across the processes, the gradients summed over them)
+and three data x model steps on a mesh of ``["cpu"] * 4`` at
+``model_parallelism=2`` (two tensor-parallel replicas a process).
 This process runs the same seeded inputs through tpuclip's functions on
 its 8-device virtual CPU mesh: the ids must be identical, the scores
 within 1e-6, the first loss within 1e-5 relative and the three losses
-within 1e-4 (and falling). The workers have a timeout of their own."""
+within 1e-4 (and falling), for the data x model steps against tpuclip's
+4 x 2 mesh too. The workers have a timeout of their own."""
 
 import json
 import os
@@ -75,9 +78,27 @@ _WORKER = textwrap.dedent(
         state, loss = step(state, images, ids, mask)
         losses.append(float(loss))
     probe = state.model.get_parameter("text.head.weight").detach().numpy()
+
+    # Data x model: 2 data rows x 2 model ranks a process, 4 global rows.
+    # Many small ops a rank: one intra-op thread keeps the two workers (and
+    # any other test workers on the host) from contending.
+    torch.set_num_threads(1)
+    tp_mesh = make_mesh(["cpu"] * 4, model_parallelism=2)
+    assert tp_mesh.shape == {"data": 4, "model": 2}, tp_mesh
+    tp_model = build_model(cfg, torch.device("cpu"), torch.float32)
+    tp_model.load_state_dict({name: torch.from_numpy(v) for name, v in sd.items()}, strict=True)
+    tp_opt = training.make_optimizer(learning_rate=1e-3)
+    tp_state = training.init_train_state(tp_model, tp_opt, mesh=tp_mesh)
+    tp_step = training.make_train_step(tp_opt, compute_dtype=torch.float32, mesh=tp_mesh)
+    tp_losses = []
+    for _ in range(3):
+        tp_state, loss = tp_step(tp_state, images, ids, mask)
+        tp_losses.append(float(loss))
+    fc1 = tp_state.model.get_parameter("text.encoder.layers.0.mlp.shards.1.fc1.weight").detach().numpy()
     with open(out, "w") as f:
         json.dump({"scores": scores.numpy().tolist(), "rows": ridx.numpy().tolist(), "losses": losses,
-                   "head_sum": float(np.float64(probe).sum())}, f)
+                   "head_sum": float(np.float64(probe).sum()), "tp_losses": tp_losses,
+                   "tp_fc1_sum": float(np.float64(fc1).sum())}, f)
     dist.destroy_process_group()
     print(f"MULTIHOST-OK {pid}", flush=True)
     """
@@ -174,3 +195,18 @@ def test_two_process_gloo_sharded_search_and_train(tmp_path):
         assert r["losses"][-1] < r["losses"][0]
     # Both processes hold the same parameters after the steps.
     assert results[0]["head_sum"] == results[1]["head_sum"]
+
+    # Three data x model steps on tpuclip's 4 x 2 mesh (fresh parameters:
+    # the steps above donated theirs).
+    tp_mesh = make_mesh(model_parallelism=2)
+    state = init_train_state(shard_params(init_params(jax.random.PRNGKey(0), cfg), tp_mesh), opt)
+    step = make_train_step(cfg, opt, mesh=tp_mesh, compute_dtype=jnp.float32)
+    want = []
+    for _ in range(3):
+        state, loss = step(state, jnp.asarray(images), jnp.asarray(ids))
+        want.append(float(loss))
+    for r in results:
+        assert abs(r["tp_losses"][0] - want[0]) <= 1e-5 * abs(want[0]), (r["tp_losses"], want)
+        np.testing.assert_allclose(r["tp_losses"], want, rtol=0, atol=1e-4)
+        assert r["tp_losses"][-1] < r["tp_losses"][0]
+    assert results[0]["tp_fc1_sum"] == results[1]["tp_fc1_sum"]

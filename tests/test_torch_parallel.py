@@ -507,20 +507,28 @@ def test_dp_naflex_inference_matches_single(mesh8, pmesh):
 
 
 def test_tp_param_sharding_refused_forward_kept(tiny):
-    """tpuclip's tensor-parallel forward equals its plain one, and the port's
-    plain forward equals both; the port refuses a model axis above 1 with
-    the ROADMAP item that holds it."""
+    """tpuclip's tensor-parallel forward on its 4 x 2 mesh equals its plain
+    one, and the port's plain forward and its tensor-parallel replicas on
+    ``make_mesh(["cpu"] * 8, model_parallelism=2)`` (which the port once
+    refused) equal both: each replica on its rows of the batch."""
     from tpuclip.models.siglip import get_image_features
     from tpuclip.parallel import shard_params as jx_shard_params
 
     cfg, params = tiny
     batch = np.random.default_rng(3).integers(0, 256, size=(8, 56, 56, 3), dtype=np.uint8)
     jp = jax.tree.map(jnp.asarray, params)
-    tp = np.asarray(get_image_features(jx_shard_params(jp, jx_make_mesh(model_parallelism=2)), jnp.asarray(batch), cfg))
+    sharded = jx_shard_params(jp, jx_make_mesh(model_parallelism=2))
+    assert MODEL_AXIS in str(sharded["vision"]["encoder"]["fc1_kernel"].sharding.spec)
+    tp = np.asarray(get_image_features(sharded, jnp.asarray(batch), cfg))
+    np.testing.assert_allclose(tp, np.asarray(get_image_features(jp, jnp.asarray(batch), cfg)), rtol=1e-4, atol=1e-5)
     model = _port_model(params)
     np.testing.assert_allclose(model.get_image_features(_t(batch)).numpy(), tp, rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 16"):
-        shard_params(model, make_mesh(["cpu"] * 8, model_parallelism=2))
+    replicas = shard_params(model, make_mesh(["cpu"] * 8, model_parallelism=2))
+    assert len(replicas) == 4
+    assert any(".shards.1." in name for name, _ in replicas[0].named_parameters())
+    got = np.concatenate([r.get_image_features(_t(batch[2 * j : 2 * j + 2])).numpy()
+                          for j, r in enumerate(replicas)])
+    np.testing.assert_allclose(got, tp, rtol=1e-4, atol=1e-5)
 
 
 def test_param_shardings_table_equals_tpuclip(tiny):

@@ -17,8 +17,8 @@ the CLI, ``train`` included, on the SigLIP towers and SigLIP2's NaFlex
 towers (``models/naflex.py``), with tpuclip's fused query programs as CUDA
 graphs (``ops/graphs.py``), every Pallas kernel of tpuclip in CUDA
 (``csrc/``) and the mesh (``parallel/``: row-sharded searches,
-cluster-sharded IVF, the multi-host bootstrap, data-parallel training).
-Not ported: tensor-parallel towers (ROADMAP Queue 1 item 16).
+cluster-sharded IVF, the multi-host bootstrap, tensor-parallel towers and
+data x model parallel training).
 """
 
 __version__ = "0.1.0"

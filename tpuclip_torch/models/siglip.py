@@ -68,10 +68,37 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias, self.eps)
 
 
+def attend(
+    q_in: torch.Tensor, kv_in: torch.Tensor, wq: nn.Linear, wk: nn.Linear, wv: nn.Linear,
+    num_heads: int, mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The heads of ``wq`` / ``wk`` / ``wv`` (``num_heads`` of them, contiguous
+    in the projections' output, as ``view(b, s, h, hd)`` reads it) attending
+    from ``q_in`` (B, Sq, D) over ``kv_in`` (B, Sk, D): the heads' outputs
+    (B, Sq, num_heads * hd), before the output projection. Scale
+    1/sqrt(head_dim), fp32 logits and softmax; ``mask`` additive,
+    broadcastable to (B, num_heads, Sq, Sk)."""
+    b, sq, _ = q_in.shape
+    sk = kv_in.shape[1]
+    h = num_heads
+    width = wq.weight.shape[0]
+    q = dense(q_in, wq).view(b, sq, h, width // h).transpose(1, 2)
+    k = dense(kv_in, wk).view(b, sk, h, width // h).transpose(1, 2)
+    v = dense(kv_in, wv).view(b, sk, h, width // h).transpose(1, 2)
+    scale = 1.0 / math.sqrt(width // h)
+    # fp32 logits: products of bf16 values are exact in fp32, so this is
+    # the JAX tower's bf16 x bf16 -> f32 contraction (TF32 must be off).
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if mask is not None:
+        logits = logits + mask.float()
+    weights = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.matmul(weights, v).transpose(1, 2)  # (B, Sq, H, hd)
+    return out.reshape(b, sq, width)
+
+
 class Attention(nn.Module):
-    """Multi-head attention, HF SiglipAttention eager semantics: scale
-    1/sqrt(head_dim), fp32 logits and softmax. ``q_in`` (B, Sq, D),
-    ``kv_in`` (B, Sk, D); ``mask`` additive, broadcastable to (B, H, Sq, Sk)."""
+    """Multi-head attention, HF SiglipAttention eager semantics
+    (:func:`attend`, then the output projection)."""
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
@@ -84,21 +111,7 @@ class Attention(nn.Module):
     def forward(
         self, q_in: torch.Tensor, kv_in: torch.Tensor, mask: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
-        b, sq, d = q_in.shape
-        sk = kv_in.shape[1]
-        h = self.num_heads
-        q = dense(q_in, self.q).view(b, sq, h, d // h).transpose(1, 2)
-        k = dense(kv_in, self.k).view(b, sk, h, d // h).transpose(1, 2)
-        v = dense(kv_in, self.v).view(b, sk, h, d // h).transpose(1, 2)
-        scale = 1.0 / math.sqrt(d // h)
-        # fp32 logits: products of bf16 values are exact in fp32, so this is
-        # the JAX tower's bf16 x bf16 -> f32 contraction (TF32 must be off).
-        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-        if mask is not None:
-            logits = logits + mask.float()
-        weights = torch.softmax(logits, dim=-1).to(q.dtype)
-        out = torch.matmul(weights, v).transpose(1, 2)  # (B, Sq, H, hd)
-        return dense(out.reshape(b, sq, d), self.o)
+        return dense(attend(q_in, kv_in, self.q, self.k, self.v, self.num_heads, mask), self.o)
 
 
 class MLP(nn.Module):

@@ -8,11 +8,11 @@ names, per dimension, the mesh axis it splits over (``MODEL_AXIS``) or
 None. tpuclip's encoder leaves carry a leading layer axis; the port's
 layers are separate tensors, so its specs have none.
 
-Only the data-parallel placement runs: :func:`shard_params` with
-``model_parallelism == 1`` gives one replica of the model per data shard
-(what ``train`` uses). Running the towers tensor-parallel is not ported
-(ROADMAP Queue 1 item 16); no entry point of tpuclip reaches it either,
-its ``train`` builds a model axis of 1.
+:func:`shard_params` places the model on the mesh: one replica per local
+data shard. With ``model_parallelism == 1`` each replica is the whole
+model on its data device (what ``train`` uses; tpuclip's ``train`` also
+builds a model axis of 1). Above 1 each replica is split over its mesh
+row by the table (``tensor_parallel.py``).
 """
 
 from __future__ import annotations
@@ -60,13 +60,16 @@ def param_shardings(model: SiglipModel, mesh: Mesh) -> Dict[str, Spec]:
 
 
 def shard_params(model: SiglipModel, mesh: Mesh) -> List[SiglipModel]:
-    """One replica of ``model`` per local data shard, each on its device
-    (the first is ``model`` itself, moved to the lead device). A model axis
-    above 1 (tensor-parallel towers) raises ``NotImplementedError``."""
-    if mesh.model_parallelism > 1:
-        raise NotImplementedError(
-            f"tensor-parallel towers (model_parallelism={mesh.model_parallelism}) are not ported to "
-            "tpuclip_torch (ROADMAP Queue 1 item 16); use a data-parallel mesh (model_parallelism=1)"
-        )
+    """One replica of ``model`` per local data shard, the first on the lead
+    row. With ``model_parallelism == 1`` each is on its data device (the
+    first is ``model`` itself, moved to the lead device); above 1 each is a
+    tensor-parallel copy over its row, ``mesh.devices[j * mp : (j + 1) * mp]``
+    (:func:`~tpuclip_torch.parallel.tensor_parallel.to_tensor_parallel`),
+    and ``model`` is left as it is."""
+    mp = mesh.model_parallelism
+    if mp > 1:
+        from tpuclip_torch.parallel.tensor_parallel import to_tensor_parallel
+
+        return [to_tensor_parallel(model, mesh.devices[j * mp : (j + 1) * mp]) for j in range(len(mesh.data_devices))]
     lead = model.to(mesh.lead)
     return [lead] + [copy.deepcopy(lead).to(dev) for dev in mesh.data_devices[1:]]

@@ -32,12 +32,23 @@ the processes of the mesh's group) before the loss; the replicas'
 gradients are summed there, clipped and applied once, and the updated
 parameters copied back to every replica. The gradients equal the
 single-device step's on the same batch.
+
+With a model axis above 1 each replica is tensor parallel over its mesh
+row (``tensor_parallel.py``) and the step is data x model parallel: a
+shard's gradient is summed over the rows on that shard's device, its
+optimizer state lives there, and each update is the one-device update of
+the logical tensor: the global norm counts every logical parameter once,
+and Adafactor takes its factored dims, its statistics' means and its RMS
+clip over the logical tensor, summing across the ranks where a mean runs
+over the split dim. A sum over devices adds each device's partial on its
+own device first and moves only the partials; the all_reduce across
+processes runs once a rank of the row, on that rank's device.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -47,8 +58,10 @@ import torch.nn.functional as F
 
 from tpuclip_torch.models.siglip import SiglipModel, remat_scope
 from tpuclip_torch.parallel.mesh import DATA_AXIS, Mesh
+from tpuclip_torch.parallel.tensor_parallel import Shard, shard_layout, sum_on
 
 Params = Dict[str, torch.Tensor]
+Layout = Dict[str, Shard]
 # optax's adamw defaults.
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
@@ -125,12 +138,73 @@ def _factored_dims(shape) -> Optional[Tuple[int, int]]:
     return int(order[-2]), int(order[-1])
 
 
+def _reduced(split: Optional[int], removed: int) -> Optional[int]:
+    """The split dim of a statistic that reduces dim ``removed`` of a tensor
+    split along ``split``: None (whole on every rank) when the reduction
+    runs over the split dim."""
+    if split is None or split == removed:
+        return None
+    return split - 1 if split > removed else split
+
+
+def state_split_dim(part: str, shard: Shard, shape) -> Optional[int]:
+    """The dim along which a parameter's optimizer state ``part`` (``mu``,
+    ``nu``, ``v``, ``v_row``, ``v_col``) holds its rank's slice of the
+    logical state, given the parameter's ``shard`` and its own ``shape``;
+    None: each rank holds the whole."""
+    if part in ("mu", "nu", "v"):
+        return shard.dim
+    d1, d0 = _factored_dims(shard.logical_shape(shape))
+    return _reduced(shard.dim, d0 if part == "v_row" else d1)
+
+
+def _split_mean(xs: List[torch.Tensor], dim: int, split: Optional[int], extent: int,
+                keepdim: bool = False) -> List[torch.Tensor]:
+    """Each rank's share of the mean over ``dim`` of the logical tensor whose
+    rank slices are ``xs`` (split along ``split``, ``extent`` long in
+    ``dim``): over the split dim, the ranks' sums added on the first rank's
+    device, divided, and copied back to every rank; else each slice's own."""
+    if dim != split:
+        return [x.mean(dim=dim, keepdim=keepdim) for x in xs]
+    total = sum_on([x.sum(dim=dim, keepdim=keepdim) for x in xs], xs[0].device) / extent
+    return [total.to(x.device) for x in xs]
+
+
+def global_norm(grads: Params) -> torch.Tensor:
+    """sqrt of the sum of every gradient's squares, on the first gradient's
+    device: each device's squares summed on that device, in order, and only
+    the devices' sums moved."""
+    sums: Dict[torch.device, torch.Tensor] = {}
+    for g in grads.values():
+        s = (g * g).sum()
+        sums[g.device] = sums[g.device] + s if g.device in sums else s
+    return torch.sqrt(sum_on(list(sums.values()), next(iter(sums))))
+
+
+def _whole(params: Params, layout: Optional[Layout]) -> Layout:
+    """``layout``, or where none is given each parameter its own logical
+    one, held whole."""
+    return layout if layout is not None else {n: Shard(n) for n in params}
+
+
+def _groups(names, layout: Layout) -> List[List[str]]:
+    """The names grouped by logical parameter, each group in rank order."""
+    groups: Dict[str, List[str]] = {}
+    for n in names:
+        groups.setdefault(layout[n].logical, []).append(n)
+    return [sorted(g, key=lambda n: layout[n].rank) for g in groups.values()]
+
+
 @dataclass
 class Optimizer:
     """AdamW or Adafactor (``factored``) with global-norm clipping and a
     schedule, as :func:`make_optimizer` builds it. ``init`` makes the state
     of a ``{name: parameter}`` dict; ``update`` turns gradients into the
-    updates to add, advancing the state in place."""
+    updates to add, advancing the state in place. Both take the model's
+    ``layout`` (``tensor_parallel.shard_layout``; without one each
+    parameter is whole): a tensor-parallel model's state is kept per
+    shard, on the shard's device, and each update is the logical
+    tensor's."""
 
     schedule: Callable[[int], float]
     weight_decay: float = 1e-4
@@ -141,15 +215,19 @@ class Optimizer:
     def decays(p: torch.Tensor) -> bool:
         return p.dim() >= 2
 
-    def init(self, params: Params) -> dict:
+    def init(self, params: Params, layout: Optional[Layout] = None) -> dict:
         state: dict = {"count": 0}
+        layout = _whole(params, layout)
         if not self.factored:
             state["mu"] = {n: torch.zeros_like(p) for n, p in params.items()}
             state["nu"] = {n: torch.zeros_like(p) for n, p in params.items()}
             return state
         state["v_row"], state["v_col"], state["v"] = {}, {}, {}
         for n, p in params.items():
-            dims = _factored_dims(p.shape)
+            # A shard's statistics drop the logical tensor's factored dims
+            # from its own shape: a whole vector where the dropped dim is
+            # the split one, else the rank's slice.
+            dims = _factored_dims(layout[n].logical_shape(p.shape))
             if dims is None:
                 state["v"][n] = torch.zeros_like(p)
             else:
@@ -159,19 +237,25 @@ class Optimizer:
         return state
 
     @torch.no_grad()
-    def update(self, grads: Params, state: dict, params: Params) -> Params:
+    def update(self, grads: Params, state: dict, params: Params, layout: Optional[Layout] = None) -> Params:
         count = state["count"]
         if self.grad_clip_norm is not None:
             # No host sync: optax's select between the gradient and its
             # clipped value, per element.
-            g_norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+            g_norm = global_norm(grads)
             keep = g_norm < self.grad_clip_norm
-            grads = {n: torch.where(keep, g, (g / g_norm) * self.grad_clip_norm) for n, g in grads.items()}
+            grads = {
+                n: torch.where(keep.to(g.device), g, (g / g_norm.to(g.device)) * self.grad_clip_norm)
+                for n, g in grads.items()
+            }
         lr = self.schedule(count)
         t = np.float32(count + 1)
         if self.factored:
             decay = float(np.float32(1.0) - t ** np.float32(-0.8))
-            updates = {n: self._adafactor(n, g, params[n], state, decay, lr) for n, g in grads.items()}
+            layout = _whole(grads, layout)
+            updates = {}
+            for names in _groups(grads, layout):
+                updates.update(self._adafactor(names, grads, params, state, decay, lr, layout))
         else:
             # Bias corrections 1 - b**t in f32, as optax computes them.
             c1 = float(np.float32(1.0) - np.float32(_B1) ** t)
@@ -189,26 +273,44 @@ class Optimizer:
             u = u + self.weight_decay * p
         return u * -lr
 
-    def _adafactor(self, name, g, p, state, decay, lr):
-        g2 = g * g + 1e-30
-        dims = _factored_dims(g.shape)
+    def _adafactor(self, names, grads, params, state, decay, lr, layout) -> Params:
+        """The updates of one logical parameter held as ``names``' slices (in
+        rank order; a single name where it is whole): the factored dims of
+        the logical shape, each statistic's mean over the logical tensor,
+        the RMS clip over the logical update."""
+        split = layout[names[0]].dim
+        shape = layout[names[0]].logical_shape(grads[names[0]].shape)
+        gs = [grads[n] for n in names]
+        g2s = [g * g + 1e-30 for g in gs]
+        dims = _factored_dims(shape)
+        us = []
         if dims is None:
-            v = decay * state["v"][name] + (1.0 - decay) * g2
-            state["v"][name] = v
-            u = g * v ** -0.5
+            for n, g, g2 in zip(names, gs, g2s):
+                v = decay * state["v"][n] + (1.0 - decay) * g2
+                state["v"][n] = v
+                us.append(g * v ** -0.5)
         else:
             d1, d0 = dims
-            v_row = decay * state["v_row"][name] + (1.0 - decay) * g2.mean(dim=d0)
-            v_col = decay * state["v_col"][name] + (1.0 - decay) * g2.mean(dim=d1)
-            state["v_row"][name], state["v_col"][name] = v_row, v_col
+            rows = _split_mean(g2s, d0, split, shape[d0])
+            cols = _split_mean(g2s, d1, split, shape[d1])
+            for n, row, col in zip(names, rows, cols):
+                state["v_row"][n] = decay * state["v_row"][n] + (1.0 - decay) * row
+                state["v_col"][n] = decay * state["v_col"][n] + (1.0 - decay) * col
             reduced_d1 = d1 - 1 if d1 > d0 else d1
-            row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
-            u = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
-        u = u / torch.clamp(torch.sqrt((u * u).mean()), min=1.0)
-        u = u * lr
-        if self.weight_decay and self.decays(p):
-            u = u + self.weight_decay * p
-        return -u
+            v_rows = [state["v_row"][n] for n in names]
+            row_means = _split_mean(v_rows, reduced_d1, _reduced(split, d0), shape[d1], keepdim=True)
+            for n, g, v_row, row_mean in zip(names, gs, v_rows, row_means):
+                row_factor = (v_row / row_mean) ** -0.5
+                us.append(g * row_factor.unsqueeze(d0) * (state["v_col"][n] ** -0.5).unsqueeze(d1))
+        squares = sum_on([(u * u).sum() for u in us], us[0].device)
+        clip = torch.clamp(torch.sqrt(squares / math.prod(shape)), min=1.0)
+        updates = {}
+        for n, u in zip(names, us):
+            u = u / clip.to(u.device) * lr
+            if self.weight_decay and self.decays(params[n]):
+                u = u + self.weight_decay * params[n]
+            updates[n] = -u
+        return updates
 
 
 def make_optimizer(
@@ -248,13 +350,20 @@ class TrainState:
     step: int = 0
     # Under a mesh: every replica, ``model`` first, one per local data shard.
     replicas: Optional[List[SiglipModel]] = None
+    # Each parameter's place in the logical model (each its own, whole, on
+    # one device or a model axis of 1).
+    layout: Layout = field(init=False)
+
+    def __post_init__(self):
+        self.layout = shard_layout(self.model)
 
     def params(self) -> Params:
         return dict(self.model.named_parameters())
 
     @torch.no_grad()
     def sync_replicas(self) -> None:
-        """Copy the lead replica's parameters into the others."""
+        """Copy the lead replica's parameters into the others (each shard
+        into the same rank of the other rows)."""
         lead = self.params()
         for replica in (self.replicas or [])[1:]:
             for name, p in replica.named_parameters():
@@ -264,7 +373,8 @@ class TrainState:
 def init_train_state(model: SiglipModel, optimizer: Optimizer, mesh: Optional[Mesh] = None) -> TrainState:
     """The state of ``model`` (and, with a mesh, its replicas: one per local
     data shard, ``sharding.shard_params``); the optimizer's state lives with
-    the lead replica."""
+    the lead replica, per shard on the shard's device where the replicas
+    are tensor parallel."""
     model.requires_grad_(True)
     replicas = None
     if mesh is not None:
@@ -272,7 +382,7 @@ def init_train_state(model: SiglipModel, optimizer: Optimizer, mesh: Optional[Me
 
         replicas = shard_params(model, mesh)
         model = replicas[0]
-    return TrainState(model, optimizer.init(dict(model.named_parameters())), 0, replicas)
+    return TrainState(model, optimizer.init(dict(model.named_parameters()), shard_layout(model)), 0, replicas)
 
 
 def _all_gather_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
@@ -295,8 +405,9 @@ def data_parallel_value_and_grad(
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> Tuple[torch.Tensor, Params]:
     """The loss over the global batch and its gradients, summed over the
-    replicas (and the processes), on the lead device; equal to the
-    single-device loss and gradients on the same batch.
+    replicas (and the processes), each on its parameter's device in the
+    lead replica; equal to the single-device loss and gradients on the same
+    batch.
 
     Global shard ``s`` takes rows [s * b, (s + 1) * b) of the batch (b =
     B / ndev). Each replica's unit features go to the lead device (and
@@ -331,20 +442,26 @@ def data_parallel_value_and_grad(
         for replica in state.replicas[1:]:
             other = replica.get_parameter(name).grad
             if other is not None:
-                g = g + other.to(lead)
+                g = g + other.to(g.device)
         grads[name] = g
     if mesh.group is not None:
-        names = list(grads)
-        flat = torch.cat([grads[n].reshape(-1) for n in names])
+        # One all_reduce a rank of the row, over the gradients on that
+        # rank's device flattened there and put back: no device holds more
+        # than its own shards' gradients.
         on_host = dist.get_backend(mesh.group) != "nccl"
-        buf = flat.cpu() if on_host else flat
-        dist.all_reduce(buf, group=mesh.group)
-        flat = buf.to(lead)
-        offset = 0
-        for n in names:
-            size = grads[n].numel()
-            grads[n] = flat[offset : offset + size].view_as(grads[n])
-            offset += size
+        by_rank: Dict[int, List[str]] = {}
+        for n in grads:
+            by_rank.setdefault(state.layout[n].rank, []).append(n)
+        for names in by_rank.values():
+            flat = torch.cat([grads[n].reshape(-1) for n in names])
+            buf = flat.cpu() if on_host else flat
+            dist.all_reduce(buf, group=mesh.group)
+            flat = buf.to(flat.device)
+            offset = 0
+            for n in names:
+                size = grads[n].numel()
+                grads[n] = flat[offset : offset + size].view_as(grads[n])
+                offset += size
     for replica in state.replicas:
         replica.zero_grad(set_to_none=True)
     return loss.detach(), grads
@@ -368,7 +485,7 @@ def make_train_step(
             loss, grads = data_parallel_value_and_grad(
                 state, mesh, images, input_ids, attention_mask, compute_dtype
             )
-            apply_updates(params, optimizer.update(grads, state.opt_state, params))
+            apply_updates(params, optimizer.update(grads, state.opt_state, params, state.layout))
             state.sync_replicas()
         else:
             for p in params.values():
@@ -377,7 +494,7 @@ def make_train_step(
                 loss = sigmoid_contrastive_loss(state.model, images, input_ids, compute_dtype, attention_mask)
             loss.backward()
             grads = {n: p.grad for n, p in params.items()}
-            apply_updates(params, optimizer.update(grads, state.opt_state, params))
+            apply_updates(params, optimizer.update(grads, state.opt_state, params, state.layout))
             for p in params.values():
                 p.grad = None
             loss = loss.detach()
