@@ -27,6 +27,7 @@ from tpuclip_torch.io.thumbnails import Thumbnailer
 from tpuclip_torch.text.tokenizer import build_prompt, load_tokenizer
 from tpuclip_torch.utils.bucketing import batch_bucket
 from tpuclip_torch.utils.logging import banner, log, safe_print_path
+from tpuclip_torch.utils.profiling import span
 from tpuclip_torch.device import DeviceLike, default_dtype, resolve_device
 from tpuclip_torch.index.search import DeviceIndex
 from tpuclip_torch.models.configs import DEFAULT_MODEL
@@ -109,11 +110,15 @@ class ImageDatabase:
                 self._embed_two_shapes(features, [a[i : i + step] for a in arrays], pad_rows)
                 for i in range(0, b, step)
             ])
-        target = 1 if b == 1 else step
-        if target > b:
-            arrays = [np.concatenate([a, np.repeat(p, target - b, axis=0)]) for a, p in zip(arrays, pad_rows)]
-        inputs = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in arrays]
-        return features(*inputs)[:b].cpu().numpy()
+        with span("engine.stage"):
+            target = 1 if b == 1 else step
+            if target > b:
+                arrays = [np.concatenate([a, np.repeat(p, target - b, axis=0)]) for a, p in zip(arrays, pad_rows)]
+            inputs = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in arrays]
+        with span("engine.forward"):
+            out = features(*inputs)
+        with span("engine.fetch"):
+            return out[:b].cpu().numpy()
 
     def embed_images_uint8(self, batch_uint8: np.ndarray) -> np.ndarray:
         """uint8 (B, S, S, 3) → L2-normalized fp32 (B, D). A single image runs

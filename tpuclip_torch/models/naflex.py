@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from tpuclip_torch.models.siglip import dense, normalize_pixels
+from tpuclip_torch.utils.profiling import span
 
 
 def _axis_weights(src: int, dst: torch.Tensor, out_idx: torch.Tensor) -> torch.Tensor:
@@ -89,14 +90,16 @@ def vision_forward_naflex(
     only to real patches (an additive fp32 key mask, ``finfo(f32).min`` on
     padded slots: it overflows bf16)."""
     cfg = tower.cfg
-    x = dense(normalize_patches(patches, dtype), tower.patch)
-    s = int(round(cfg.max_num_patches ** 0.5))
-    pos_grid = tower.pos_embed.view(s, s, -1)
-    x = x + resize_position_embeddings(pos_grid, spatial_shapes, cfg.max_num_patches).to(x.dtype)
-    keep = pixel_mask.to(torch.float32)
-    mask4d = ((1.0 - keep) * torch.finfo(torch.float32).min)[:, None, None, :]
-    hidden = tower.post_ln(tower.encoder(x, mask4d))
-    return tower.head(hidden, mask4d)
+    with span("tower.patch"):
+        x = dense(normalize_patches(patches, dtype), tower.patch)
+        s = int(round(cfg.max_num_patches ** 0.5))
+        pos_grid = tower.pos_embed.view(s, s, -1)
+        x = x + resize_position_embeddings(pos_grid, spatial_shapes, cfg.max_num_patches).to(x.dtype)
+        keep = pixel_mask.to(torch.float32)
+        mask4d = ((1.0 - keep) * torch.finfo(torch.float32).min)[:, None, None, :]
+    x = tower.encoder(x, mask4d)
+    with span("tower.head"):
+        return tower.head(tower.post_ln(x), mask4d)
 
 
 def get_image_features_naflex(

@@ -15,6 +15,11 @@ Port of ``tpuclip/models/siglip.py`` with the same numerics contract:
   (ph, pw, c) order followed by one GEMM, on uint8 NHWC input normalised
   as x/127.5 - 1 inside the tower.
 
+Each sublayer runs inside a :func:`~tpuclip_torch.utils.profiling.span`
+(``tower.patch``, ``tower.attn`` around the projections, ``tower.attn.core``
+around the logits, softmax and weighted sum, ``tower.mlp``, ``tower.head``)
+that a profiler's trace shows; without a profiler each is a flag check.
+
 Layers are an ``nn.ModuleList`` looped in Python (the JAX tower scans a
 stacked layer axis). Training calls the towers directly (``model.vision``,
 ``model.text``) on fp32 parameters that require grad, with the compute
@@ -36,6 +41,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tpuclip_torch.models.configs import SiglipConfig, TextConfig, VisionConfig
+from tpuclip_torch.utils.profiling import span
 
 # =============================================================================
 # Primitive blocks
@@ -86,14 +92,15 @@ def attend(
     k = dense(kv_in, wk).view(b, sk, h, width // h).transpose(1, 2)
     v = dense(kv_in, wv).view(b, sk, h, width // h).transpose(1, 2)
     scale = 1.0 / math.sqrt(width // h)
-    # fp32 logits: products of bf16 values are exact in fp32, so this is
-    # the JAX tower's bf16 x bf16 -> f32 contraction (TF32 must be off).
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if mask is not None:
-        logits = logits + mask.float()
-    weights = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.matmul(weights, v).transpose(1, 2)  # (B, Sq, H, hd)
-    return out.reshape(b, sq, width)
+    with span("tower.attn.core"):
+        # fp32 logits: products of bf16 values are exact in fp32, so this is
+        # the JAX tower's bf16 x bf16 -> f32 contraction (TF32 must be off).
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+        if mask is not None:
+            logits = logits + mask.float()
+        weights = torch.softmax(logits, dim=-1).to(q.dtype)
+        out = torch.matmul(weights, v).transpose(1, 2)  # (B, Sq, H, hd)
+        return out.reshape(b, sq, width)
 
 
 class Attention(nn.Module):
@@ -111,7 +118,8 @@ class Attention(nn.Module):
     def forward(
         self, q_in: torch.Tensor, kv_in: torch.Tensor, mask: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
-        return dense(attend(q_in, kv_in, self.q, self.k, self.v, self.num_heads, mask), self.o)
+        with span("tower.attn"):
+            return dense(attend(q_in, kv_in, self.q, self.k, self.v, self.num_heads, mask), self.o)
 
 
 class MLP(nn.Module):
@@ -121,7 +129,8 @@ class MLP(nn.Module):
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(gelu_tanh(dense(x, self.fc1)), self.fc2)
+        with span("tower.mlp"):
+            return dense(gelu_tanh(dense(x, self.fc1)), self.fc2)
 
 
 class EncoderLayer(nn.Module):
@@ -236,10 +245,12 @@ class VisionTower(nn.Module):
 
     def forward(self, pixel_values: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """(B, H, W, C) uint8 or pre-normalised float → pooled (B, D)."""
-        x = self.patch_embed(normalize_pixels(pixel_values, dtype))
-        x = x + self.pos_embed.to(x.dtype)
-        hidden = self.post_ln(self.encoder(x))
-        return self.head(hidden)
+        with span("tower.patch"):
+            x = self.patch_embed(normalize_pixels(pixel_values, dtype))
+            x = x + self.pos_embed.to(x.dtype)
+        x = self.encoder(x)
+        with span("tower.head"):
+            return self.head(self.post_ln(x))
 
 
 # =============================================================================

@@ -310,13 +310,15 @@ def scan_directory(
 
     # Opt-in device tracing behind the same --profile flag: the wall-clock
     # timers show host time; a Chrome trace under TPUCLIP_TRACE_DIR shows
-    # the device/host overlap.
+    # the device/host overlap, with the timers' steps as spans. Every
+    # thread is recorded: check_db runs in the prefetch producer's.
     trace_dir = os.environ.get("TPUCLIP_TRACE_DIR") if profile else None
     tracer = None
     if trace_dir:
         tracer = torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]
-            + ([torch.profiler.ProfilerActivity.CUDA] if engine.device.type == "cuda" else [])
+            + ([torch.profiler.ProfilerActivity.CUDA] if engine.device.type == "cuda" else []),
+            experimental_config=torch._C._profiler._ExperimentalConfig(profile_all_threads=True),
         )
         tracer.start()
 
