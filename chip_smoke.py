@@ -52,12 +52,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    16,384 patch rows x 588 -> 1152, seeded bf16 weights) within 1e-5 of the
    plain version in f32 out and one bf16 step in bf16 out, timed (the
    wrapper and the kernel's own launch) beside the tower's own cuBLAS patch
-   GEMM;
+   GEMM; and attention (kernel 9) at the vision encoder's launch in the
+   benchmark's cells (B = 256, S = 256, 16 heads of 72), unmasked, with
+   NaFlex's key masks and at the MAP head's Sq = 1, within what rounding P
+   once at bf16 allows of the plain version, timed beside the plain
+   version and scaled_dot_product_attention;
 4. end to end through the entry points: 512 seeded JPEGs, ``scan`` and
    ``search "a red car" -k 20 --no-session`` through tpuclip_torch.cli, and
    ``ImageDatabase.search_texts`` on 4 texts, with SigLIP2 SO400M-patch14-224
    at full width and random weights (TPUCLIP_INIT=random), bf16. Both int8
-   kernel launch counters must rise in this phase; the CLI's results must
+   kernel launch counters and kernel 9's must rise in this phase; the CLI's results must
    match a brute-force rescore of the database, the batch's the plain
    route's, and embeddings must be unit-norm;
 5. the other search paths end to end on phase 4's database: ``search
@@ -249,8 +253,11 @@ counts phase 10's session (0 where the session does not run it), its
 references and timing loops are not counted), its ``launches_shortlist``
 phase 15's (its checks and timing loops not counted) and its
 ``launches_tp`` phase 16's (the one-device references not counted); each count is zeroed just
-before its path runs. ``library_ms`` is null
-(no single PyTorch call computes any of these functions) and
+before its path runs; kernel 9 (``attention``) runs wherever a tower
+embeds with bf16 weights and no gradient, and training's phase 13 counts
+none (its inference checks are not counted). ``library_ms`` is null
+(no single PyTorch call computes any of these functions) but for kernel
+9's, ``scaled_dot_product_attention``, a yardstick the port never calls; and
 ``nearest_ms`` times the nearest route of PyTorch calls, where there is
 one (kernel 1's: ``torch._int_mm`` at Q = 32, then the scales). Kernels 4 and 8 also carry ``kernel_ms``, the kernel's own launch
 (``ms`` is the wrapper's).
@@ -260,6 +267,7 @@ import argparse
 import ctypes
 import functools
 import json
+import math
 import os
 import sqlite3
 import statistics
@@ -1072,6 +1080,60 @@ def phase_patch_embed(pops, gpu, variants):
             "kernel_ms": kernel_ms}
 
 
+def phase_attention(aops, gpu):
+    """Phase 3, kernel 9 at the vision encoder's launch in the benchmark's
+    cells (B = 256 images, S = 256 tokens, 16 heads of 72): against the
+    plain version within what rounding P once at bf16 allows (each side
+    within 2^-8 of w @ |v| of the exact sum, then rounded to bf16:
+    |kernel - plain| <= 2^-7 (w @ |v| + |plain|), 2^-12 w @ |v| more for the
+    logits' summation order), unmasked and with NaFlex's key masks (243-256
+    real keys), and the MAP head's Sq = 1; timed beside the plain version
+    and ``scaled_dot_product_attention`` (a yardstick the port never
+    calls). Returns its record."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    b, s, h, hd = 256, 256, 16, 72
+    width = h * hd
+    q, k, v = ((torch.randn((b, s, width), generator=gen, device=dev) * 1.5).to(torch.bfloat16) for _ in range(3))
+    real = torch.randint(243, s + 1, (b,), generator=gen, device=dev)
+    bias = torch.where(torch.arange(s, device=dev)[None] < real[:, None], 0.0, torch.finfo(torch.float32).min)
+
+    def heads(t):
+        return t.reshape(b, -1, h, hd).transpose(1, 2).float()
+
+    errs = {}
+    for name, qq, key_bias in (("unmasked", q, None), ("masked", q, bias), ("map_head", q[:, :1].contiguous(), bias)):
+        mask = None if key_bias is None else key_bias[:, None, None, :]
+        got = aops.attention(qq, k, v, h, key_bias).float()
+        plain = aops.attention_plain(qq, k, v, h, mask).float()
+        logits = torch.matmul(heads(qq), heads(k).transpose(-1, -2)) * (1.0 / math.sqrt(hd))
+        if mask is not None:
+            logits = logits + mask
+        a = torch.matmul(torch.softmax(logits, dim=-1), heads(v).abs()).transpose(1, 2).reshape(plain.shape)
+        del logits
+        diff = (got - plain).abs()
+        check(bool((diff <= 2.0**-7 * (a + plain.abs()) + 2.0**-12 * a).all()),
+              f"attention {name}: off the plain version by more than P's bf16 rounding allows")
+        errs[name] = float((diff / a).max())
+        del got, plain, a, diff
+    ms = p50_ms(lambda: aops.attention(q, k, v, h), 20)
+    ms_masked = p50_ms(lambda: aops.attention(q, k, v, h, bias), 20)
+    ms_head = p50_ms(lambda: aops.attention(q[:, :1].contiguous(), k, v, h, bias), 20)
+    plain = p50_ms(lambda: aops.attention_plain(q, k, v, h), 5)
+    qh, kh, vh = (t.view(b, s, h, hd).transpose(1, 2) for t in (q, k, v))
+    library = p50_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh).transpose(1, 2)
+                     .reshape(b, s, width), 20)
+    n_bytes = 4 * b * s * width * 2  # q, k, v read once, the output written once
+    flops = 4 * b * h * s * s * hd
+    print(f"[kernels] attention B={b} S={s} H={h} hd={hd}: within P's bf16 rounding of the plain version "
+          f"(max |kernel - plain| / (w @ |v|): {', '.join(f'{n} {e:.2e}' for n, e in errs.items())}); p50 "
+          f"{ms:.4f} ms unmasked, {ms_masked:.4f} masked, {ms_head:.4f} the MAP head's Sq = 1; bound "
+          f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes); plain {plain:.4f} ms; "
+          f"scaled_dot_product_attention {library:.4f} ms  ({gpu})", flush=True)
+    record = entry(max(errs.values()), ms, plain, n_bytes, flops, "bf16")
+    return {**record, "library_ms": library, "ms_masked": ms_masked, "ms_map_head": ms_head}
+
+
 def phase_binary_kernels(hops, gpu, variants):
     """Phase 3, the binary kernels on 10M packed rows of random bits (dense
     ties): returns ({kernel name: its record}, (the padded words, the 64
@@ -1191,11 +1253,12 @@ def check_brute_force(results, q, rows_bf16, row_of, what):
 
 
 def phase_end_to_end(mods, gpu, work):
-    """Phase 4: returns (launches of kernels 1 and 2, database, model cache,
-    engine)."""
+    """Phase 4: returns (launches of kernels 1, 2 and 9, database, model
+    cache, engine)."""
     ops = mods[0]
     from tpuclip_torch import cli
     from tpuclip_torch.engine import ImageDatabase
+    from tpuclip_torch.ops.attention import attention
 
     os.environ["TPUCLIP_HOME"] = str(work / "home")
     os.environ["TPUCLIP_INIT"] = "random"
@@ -1225,6 +1288,7 @@ def phase_end_to_end(mods, gpu, work):
     try:
         ops.int8_scores.launches = 0
         ops.int8_candidates_packed.launches = 0
+        attention.launches = 0
         t0 = time.perf_counter()
         cli.main(["scan", str(root), "--db", db, "--model-cache", cache,
                   "--inference-batch-size", "64", "--profile"])
@@ -1238,6 +1302,7 @@ def phase_end_to_end(mods, gpu, work):
         launches = {
             "int8_scores": ops.int8_scores.launches,
             "int8_candidates_packed": ops.int8_candidates_packed.launches,
+            "attention": attention.launches,
         }
     finally:
         ImageDatabase.scan_directory = original_scan
@@ -2374,7 +2439,8 @@ def phase_naflex(mods, gpu, work, resident):
     print(f"[naflex] kernel launches in this phase: {launches}; the fused search's runs: {runs}", flush=True)
     check(all(launches[name] == n > 0 for name, n in runs.items()),
           f"kernels 1 and 2 launched {launches}, not once per run of the search {runs}")
-    check(all(n == 0 for name, n in launches.items() if name not in runs),
+    check(launches["attention"] > 0, f"the NaFlex towers did not launch kernel 9: {launches}")
+    check(all(n == 0 for name, n in launches.items() if name not in runs and name != "attention"),
           f"a kernel off the NaFlex path was launched: {launches}")
     check(not thread.is_alive() and not srv.batcher._thread.is_alive(), "the server did not shut down")
     check(all(code == 200 for code in statuses), f"statuses other than 200: {statuses}")
@@ -2715,7 +2781,7 @@ def phase_ivf(mods, gpu, work, db):
     print(f"[ivf] kernel launches on the IVF path: {launches}; the probe's: {probes[0]}", flush=True)
     check(launches["int8_scores"] == probes[0] > 0, f"kernel 1 launched {launches['int8_scores']} times, "
           f"the probe {probes[0]}")
-    check(all(n == 0 for name, n in launches.items() if name != "int8_scores"),
+    check(all(n == 0 for name, n in launches.items() if name not in ("int8_scores", "attention")),
           f"a kernel off the IVF path was launched: {launches}")
 
     # The kernel route against the route through kernel 1's plain version.
@@ -2818,7 +2884,8 @@ def phase_train(gpu, work):
             size = (model.cfg.vision.image_size,) * 2
             pixels = torch.from_numpy(np.stack([np.asarray(Image.open(f).convert("RGB").resize(size))
                                                 for f in sorted(data.glob("*.jpg"))[:4]])).cuda()
-            emb = model.get_image_features(pixels)
+            with uncounted():  # inference (kernel 9), not training
+                emb = model.get_image_features(pixels)
             norm_err = (torch.linalg.vector_norm(emb, dim=1) - 1).abs().max().item()
             check(bool(torch.isfinite(emb).all()) and norm_err <= 1e-5,
                   f"the trained model's embeddings are not unit rows ({norm_err})")
@@ -2846,7 +2913,7 @@ def phase_train(gpu, work):
         images, ids, mask = next(batches)
         batches.close()
         images, ids, mask = (torch.from_numpy(a).cuda() for a in (images, ids, mask))
-        with torch.no_grad():
+        with torch.no_grad(), uncounted():  # no gradient: bf16 attention takes kernel 9
             loss32 = sigmoid_contrastive_loss(model, images, ids, torch.float32, mask).item()
             loss16 = sigmoid_contrastive_loss(model, images, ids, torch.bfloat16, mask).item()
         rel = abs(loss16 - loss32) / abs(loss32)
@@ -3958,6 +4025,7 @@ def main():
         rank, port, out = args.mesh_worker
         return mesh_worker(int(rank), port, out)
     from tpuclip_torch.ops import _build
+    from tpuclip_torch.ops import attention as aops
     from tpuclip_torch.ops import hamming as hops
     from tpuclip_torch.ops import patch_embed as pops
     from tpuclip_torch.ops import topk as tops
@@ -3989,6 +4057,8 @@ def main():
     record.update(binary)
     torch.cuda.empty_cache()
     record["patch_embed_fused"] = phase_patch_embed(pops, gpu, variants.get("patch_embed.cu"))
+    torch.cuda.empty_cache()
+    record["attention"] = phase_attention(aops, gpu)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches, db, cache, engine = phase_end_to_end(mods, gpu, Path(tmp))
@@ -4026,6 +4096,7 @@ def main():
         "binary_topk_batched": ("tpuclip_torch/csrc/binary_scan.cu", "tpuclip/ops/hamming.py:132"),
         "binary_topk_batched_q16": ("tpuclip_torch/csrc/binary_scan.cu", "tpuclip/ops/hamming.py:132"),
         "patch_embed_fused": ("tpuclip_torch/csrc/patch_embed.cu", "tpuclip/ops/patch_embed.py:24"),
+        "attention": ("tpuclip_torch/csrc/attention.cu", None),
     }
     launches["binary_topk_batched_q16"] = launches["binary_topk_batched"]  # one kernel, two cases
     kernels = [

@@ -872,7 +872,7 @@ def _fake(x):
 
 @pytest.mark.parametrize("wrapper", [
     "int8_scores", "int8_candidates_packed", "int8_candidates", "topk_tiles", "binary_scores",
-    "binary_topk_q1", "binary_topk_batched", "patch_embed_fused",
+    "binary_topk_q1", "binary_topk_batched", "patch_embed_fused", "attention",
 ])
 def test_wrappers_launch_on_their_inputs_device(monkeypatch, wrapper):
     """Every CUDA wrapper makes its input's device current and passes that
@@ -882,6 +882,7 @@ def test_wrappers_launch_on_their_inputs_device(monkeypatch, wrapper):
     from types import SimpleNamespace
 
     import tpuclip_torch.ops._build as build
+    import tpuclip_torch.ops.attention as aops
     import tpuclip_torch.ops.hamming as hops
     import tpuclip_torch.ops.patch_embed as pops
     import tpuclip_torch.ops.topk as tops
@@ -932,6 +933,8 @@ def test_wrappers_launch_on_their_inputs_device(monkeypatch, wrapper):
         "patch_embed_fused": lambda: pops.patch_embed_fused(
             _fake(torch.from_numpy(rng.integers(0, 256, (16, 12), dtype=np.uint8))),
             _fake(torch.randn(12, 16).to(torch.bfloat16)), _fake(torch.zeros(16))),
+        "attention": lambda: aops.attention(*(_fake(torch.randn(2, 8, 32).to(torch.bfloat16)) for _ in range(3)),
+                                            4, _fake(torch.zeros(2, 8))),
     }
     runs[wrapper]()
     assert calls and all(dev == torch.device("cuda", 1) and s == 1001 for _, dev, s in calls), calls

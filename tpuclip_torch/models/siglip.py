@@ -8,16 +8,23 @@ Port of ``tpuclip/models/siglip.py`` with the same numerics contract:
   PyTorch's own ops keep that contract fused for bf16 inputs (``F.linear``
   adds the bias to the fp32 accumulator, ``F.layer_norm`` and ``F.gelu``
   compute in fp32 internally), so each is one pass over the activations;
-- attention is explicit matmuls, as the JAX tower's einsum is: at SigLIP's
-  fixed 256-patch / 64-token sequences attention is a few percent of the
-  tower's FLOPs and was never a kernel;
+- attention (:func:`attend`) is one hand-written kernel on the card
+  (kernel 9, :func:`tpuclip_torch.ops.attention.attention`) for bf16 inputs
+  that need no gradient: it reads the q / k / v projections in place and
+  keeps the fp32 logits on chip. At SigLIP's 256-patch / 64-token
+  sequences attention is a few percent of the tower's FLOPs, but as a
+  chain of PyTorch operators its fp32 logits' round trips through device
+  memory took over half the tower's time. Everywhere else (the CPU, fp32,
+  training) it is explicit matmuls, as the JAX tower's einsum is, which
+  autograd differentiates;
 - the patch embedding is a reshape into (B, patches, P*P*C) patch rows in
   (ph, pw, c) order followed by one GEMM, on uint8 NHWC input normalised
   as x/127.5 - 1 inside the tower.
 
 Each sublayer runs inside a :func:`~tpuclip_torch.utils.profiling.span`
 (``tower.patch``, ``tower.attn`` around the projections, ``tower.attn.core``
-around the logits, softmax and weighted sum, ``tower.mlp``, ``tower.head``)
+around the attention kernel, or the logits, softmax and weighted sum,
+``tower.mlp``, ``tower.head``)
 that a profiler's trace shows; without a profiler each is a flag check.
 
 Layers are an ``nn.ModuleList`` looped in Python (the JAX tower scans a
@@ -41,6 +48,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tpuclip_torch.models.configs import SiglipConfig, TextConfig, VisionConfig
+from tpuclip_torch.ops.attention import attention, attention_plain
 from tpuclip_torch.utils.profiling import span
 
 # =============================================================================
@@ -74,6 +82,15 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias, self.eps)
 
 
+def _key_bias(mask: Optional[torch.Tensor], batch: int, sk: int) -> Optional[torch.Tensor]:
+    """An additive (B or 1, 1, 1, Sk) key mask, the form the towers build,
+    as the (B, Sk) bias the attention kernel takes (a view); any other mask
+    as it is (the kernel refuses it)."""
+    if mask is not None and mask.dim() == 4 and mask.shape[1] == mask.shape[2] == 1 and mask.shape[3] == sk:
+        return mask[:, 0, 0, :].expand(batch, sk)
+    return mask
+
+
 def attend(
     q_in: torch.Tensor, kv_in: torch.Tensor, wq: nn.Linear, wk: nn.Linear, wv: nn.Linear,
     num_heads: int, mask: Optional[torch.Tensor] = None,
@@ -83,24 +100,19 @@ def attend(
     from ``q_in`` (B, Sq, D) over ``kv_in`` (B, Sk, D): the heads' outputs
     (B, Sq, num_heads * hd), before the output projection. Scale
     1/sqrt(head_dim), fp32 logits and softmax; ``mask`` additive,
-    broadcastable to (B, num_heads, Sq, Sk)."""
-    b, sq, _ = q_in.shape
-    sk = kv_in.shape[1]
-    h = num_heads
-    width = wq.weight.shape[0]
-    q = dense(q_in, wq).view(b, sq, h, width // h).transpose(1, 2)
-    k = dense(kv_in, wk).view(b, sk, h, width // h).transpose(1, 2)
-    v = dense(kv_in, wv).view(b, sk, h, width // h).transpose(1, 2)
-    scale = 1.0 / math.sqrt(width // h)
+    broadcastable to (B, num_heads, Sq, Sk).
+
+    bf16 projections that need no gradient go to
+    :func:`~tpuclip_torch.ops.attention.attention` (on the card, kernel 9,
+    with the mask as a (B, Sk) key bias); fp32 ones, and any that autograd
+    must differentiate, to the explicit matmuls of
+    :func:`~tpuclip_torch.ops.attention.attention_plain`."""
+    q, k, v = dense(q_in, wq), dense(kv_in, wk), dense(kv_in, wv)
     with span("tower.attn.core"):
-        # fp32 logits: products of bf16 values are exact in fp32, so this is
-        # the JAX tower's bf16 x bf16 -> f32 contraction (TF32 must be off).
-        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-        if mask is not None:
-            logits = logits + mask.float()
-        weights = torch.softmax(logits, dim=-1).to(q.dtype)
-        out = torch.matmul(weights, v).transpose(1, 2)  # (B, Sq, H, hd)
-        return out.reshape(b, sq, width)
+        grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+        if q.dtype != torch.bfloat16 or grad:
+            return attention_plain(q, k, v, num_heads, mask)
+        return attention(q, k, v, num_heads, _key_bias(mask, q.shape[0], k.shape[1]))
 
 
 class Attention(nn.Module):

@@ -31,9 +31,9 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Every entry point of the libraries: argtypes (pointers and the stream as
-# void*, ints as int); each returns a cudaError_t as int.
+# void*, ints as int, floats as float); each returns a cudaError_t as int.
 SIGNATURES = {
     "tpuclip_int8_scores": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tpuclip_int8_candidates_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -43,6 +43,7 @@ SIGNATURES = {
     "tpuclip_binary_scores": [_P, _P, _P, _I, _I, _I, _P],
     "tpuclip_binary_topk_q1": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "tpuclip_binary_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "tpuclip_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()
