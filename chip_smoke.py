@@ -54,9 +54,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    wrapper and the kernel's own launch) beside the tower's own cuBLAS patch
    GEMM; and attention (kernel 9) at the vision encoder's launch in the
    benchmark's cells (B = 256, S = 256, 16 heads of 72), unmasked, with
-   NaFlex's key masks and at the MAP head's Sq = 1, within what rounding P
-   once at bf16 allows of the plain version, timed beside the plain
-   version and scaled_dot_product_attention;
+   NaFlex's key masks and at the MAP head's Sq = 1, and at the 384 px
+   cell's (B = 64, S = 729, ragged last query block and key tile),
+   unmasked and at Sq = 1, within what rounding P once at bf16 allows of
+   the plain version, timed beside the plain version and
+   scaled_dot_product_attention, with the bound's share;
 4. end to end through the entry points: 512 seeded JPEGs, ``scan`` and
    ``search "a red car" -k 20 --no-session`` through tpuclip_torch.cli, and
    ``ImageDatabase.search_texts`` on 4 texts, with SigLIP2 SO400M-patch14-224
@@ -233,7 +235,22 @@ Phases, each printing its own lines; any failure exits non-zero:
    per rank; (e) the bf16 vision tower at batch 64: p50 and launches a
    call at (1, 2) and (1, 4) against one device. Every replica's blocks
    must be split (no one-device module on a tensor-parallel path).
-   Neither jax nor the JAX package (tpuclip) may ever have been imported.
+   Neither jax nor the JAX package (tpuclip) may ever have been imported;
+17. SigLIP2 at 384 px end to end, after phase 11: ``google/siglip2-so400m-
+   patch14-384`` (27 x 27 = 729 tokens, random weights, bf16), 128 seeded
+   JPEGs of four sizes resized to 384 x 384: ``scan --inference-batch-size
+   64``, ``search "a red car"`` and ``search --image`` through
+   tpuclip_torch.cli against a brute force over the stored rows (the query
+   image first, rows unit-norm), ``search_image_pil`` through the index's
+   image graph at 384 x 384 against the two-stage route; then, with the
+   benchmark's seeded weights (``bench_port/weights.py``) in the model,
+   ``image_topk_fused`` over phase 3's 1M rows captured as a graph at batch
+   16 (captured once, replayed on a second batch) and 1, under
+   ``verified`` with ``keep_scores`` so that its query rows come out:
+   bit-equal to eager, and its rows and ``embed_images_uint8``'s (batch 64)
+   within the ``embed.so400m-384.b64`` cell's ``max_row_dist`` of the plain
+   fp32 reference (``bench_port/reference/siglip_ref.py``); the graphs'
+   and eager device p50s and the tower's at batch 64.
 
 The last two lines are the kernels' JSON record and then
 ``{"ok": true, "device": {...}}``. Kernel 7 has two records, at Q = 4,
@@ -247,7 +264,8 @@ phase 2 measures), at the recorded case's shapes; ``launches`` counts
 phase 4's path for kernels 1 and 2, and their ``launches_fused`` and
 ``launches_serve`` phases 8's and 9's; every kernel's ``launches_session``
 counts phase 10's session (0 where the session does not run it), its
-``launches_naflex`` phase 11's NaFlex path, its ``launches_ivf`` phase
+``launches_naflex`` phase 11's NaFlex path, its ``launches_so400m_384``
+phase 17's 384 px path (its graph and reference checks not counted), its ``launches_ivf`` phase
 12's IVF path, its ``launches_train`` phase 13's training, its
 ``launches_mesh`` phase 14's mesh path (one run of each case: the
 references and timing loops are not counted), its ``launches_shortlist``
@@ -1080,29 +1098,33 @@ def phase_patch_embed(pops, gpu, variants):
             "kernel_ms": kernel_ms}
 
 
-def phase_attention(aops, gpu):
-    """Phase 3, kernel 9 at the vision encoder's launch in the benchmark's
-    cells (B = 256 images, S = 256 tokens, 16 heads of 72): against the
-    plain version within what rounding P once at bf16 allows (each side
-    within 2^-8 of w @ |v| of the exact sum, then rounded to bf16:
-    |kernel - plain| <= 2^-7 (w @ |v| + |plain|), 2^-12 w @ |v| more for the
-    logits' summation order), unmasked and with NaFlex's key masks (243-256
-    real keys), and the MAP head's Sq = 1; timed beside the plain version
-    and ``scaled_dot_product_attention`` (a yardstick the port never
-    calls). Returns its record."""
+def attention_case(aops, gpu, b, s, masked, seed):
+    """Kernel 9 at B = ``b`` images of S = ``s`` tokens, 16 heads of 72:
+    against the plain version within what rounding P once at bf16 allows
+    (each side within 2^-8 of w @ |v| of the exact sum, then rounded to
+    bf16: |kernel - plain| <= 2^-7 (w @ |v| + |plain|), 2^-12 w @ |v| more
+    for the logits' summation order), unmasked, with NaFlex's key masks
+    (243-256 real keys) where ``masked``, and at the MAP head's Sq = 1 (with
+    the same masks where ``masked``); timed beside the plain version and
+    ``scaled_dot_product_attention`` (a yardstick the port never calls).
+    Prints one line and returns its record."""
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(9)
-    b, s, h, hd = 256, 256, 16, 72
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h, hd = 16, 72
     width = h * hd
     q, k, v = ((torch.randn((b, s, width), generator=gen, device=dev) * 1.5).to(torch.bfloat16) for _ in range(3))
-    real = torch.randint(243, s + 1, (b,), generator=gen, device=dev)
-    bias = torch.where(torch.arange(s, device=dev)[None] < real[:, None], 0.0, torch.finfo(torch.float32).min)
+    bias = None
+    if masked:
+        real = torch.randint(243, s + 1, (b,), generator=gen, device=dev)
+        bias = torch.where(torch.arange(s, device=dev)[None] < real[:, None], 0.0, torch.finfo(torch.float32).min)
 
     def heads(t):
         return t.reshape(b, -1, h, hd).transpose(1, 2).float()
 
+    cases = [("unmasked", q, None)] + ([("masked", q, bias)] if masked else [])
+    cases.append(("map_head", q[:, :1].contiguous(), bias))
     errs = {}
-    for name, qq, key_bias in (("unmasked", q, None), ("masked", q, bias), ("map_head", q[:, :1].contiguous(), bias)):
+    for name, qq, key_bias in cases:
         mask = None if key_bias is None else key_bias[:, None, None, :]
         got = aops.attention(qq, k, v, h, key_bias).float()
         plain = aops.attention_plain(qq, k, v, h, mask).float()
@@ -1113,11 +1135,11 @@ def phase_attention(aops, gpu):
         del logits
         diff = (got - plain).abs()
         check(bool((diff <= 2.0**-7 * (a + plain.abs()) + 2.0**-12 * a).all()),
-              f"attention {name}: off the plain version by more than P's bf16 rounding allows")
+              f"attention B={b} S={s} {name}: off the plain version by more than P's bf16 rounding allows")
         errs[name] = float((diff / a).max())
         del got, plain, a, diff
     ms = p50_ms(lambda: aops.attention(q, k, v, h), 20)
-    ms_masked = p50_ms(lambda: aops.attention(q, k, v, h, bias), 20)
+    ms_masked = p50_ms(lambda: aops.attention(q, k, v, h, bias), 20) if masked else None
     ms_head = p50_ms(lambda: aops.attention(q[:, :1].contiguous(), k, v, h, bias), 20)
     plain = p50_ms(lambda: aops.attention_plain(q, k, v, h), 5)
     qh, kh, vh = (t.view(b, s, h, hd).transpose(1, 2) for t in (q, k, v))
@@ -1125,13 +1147,27 @@ def phase_attention(aops, gpu):
                      .reshape(b, s, width), 20)
     n_bytes = 4 * b * s * width * 2  # q, k, v read once, the output written once
     flops = 4 * b * h * s * s * hd
+    record = entry(max(errs.values()), ms, plain, n_bytes, flops, "bf16")
+    share = record["bound_ms"] / ms
     print(f"[kernels] attention B={b} S={s} H={h} hd={hd}: within P's bf16 rounding of the plain version "
           f"(max |kernel - plain| / (w @ |v|): {', '.join(f'{n} {e:.2e}' for n, e in errs.items())}); p50 "
-          f"{ms:.4f} ms unmasked, {ms_masked:.4f} masked, {ms_head:.4f} the MAP head's Sq = 1; bound "
-          f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes); plain {plain:.4f} ms; "
+          f"{ms:.4f} ms unmasked" + (f", {ms_masked:.4f} masked" if masked else "")
+          + f", {ms_head:.4f} the MAP head's Sq = 1; bound {record['bound_ms']:.4f} ms "
+          f"({record['bound_by']}), {100 * share:.1f}% of it; plain {plain:.4f} ms; "
           f"scaled_dot_product_attention {library:.4f} ms  ({gpu})", flush=True)
-    record = entry(max(errs.values()), ms, plain, n_bytes, flops, "bf16")
-    return {**record, "library_ms": library, "ms_masked": ms_masked, "ms_map_head": ms_head}
+    return {**record, "library_ms": library, "ms_masked": ms_masked, "ms_map_head": ms_head, "bound_share": share}
+
+
+def phase_attention(aops, gpu):
+    """Phase 3, kernel 9 (:func:`attention_case`) at the vision encoder's
+    launch in the benchmark's cells: B = 256, S = 256 (patch14-224 and
+    NaFlex, with its key masks), and B = 64, S = 729 (patch14-384: 6 query
+    blocks of 128 rows and 12 key tiles of 64, each last one ragged). The
+    record is the S = 256 case's, with the S = 729 one under ``s729``."""
+    record = attention_case(aops, gpu, 256, 256, True, 9)
+    torch.cuda.empty_cache()
+    record["s729"] = attention_case(aops, gpu, 64, 729, False, 10)
+    return record
 
 
 def phase_binary_kernels(hops, gpu, variants):
@@ -2542,6 +2578,165 @@ def phase_naflex(mods, gpu, work, resident):
         "pool_bytes": pool_bytes, "warm_calls": warmed, "warm_s": warm_s,
         "serve_capture_s": serve_graphs.capture_seconds, "serve_pool_bytes": serve_pool,
         "mixed_windows": mixed, "launches": launches}), flush=True)
+    return launches
+
+
+MODEL_384 = "google/siglip2-so400m-patch14-384"
+N_384 = 128
+# (height, width) of the 384 px phase's photos, resized to 384 x 384 by the
+# scan: 4:3, 3:4, square and a small 3:2 that is scaled up.
+SIZES_384 = [(480, 640), (640, 480), (384, 384), (200, 300)]
+CELL_384 = "embed.so400m-384.b64"
+
+
+def write_384_jpegs(root):
+    """N_384 seeded JPEGs, the sizes in turn, one folder each."""
+    from PIL import Image
+
+    rng = np.random.default_rng(17)
+    for i in range(N_384):
+        h, w = SIZES_384[i % len(SIZES_384)]
+        folder = root / f"{h}x{w}"
+        folder.mkdir(parents=True, exist_ok=True)
+        arr = np.clip(rng.integers(0, 256, (1, 1, 3)) + rng.integers(-40, 40, (h, w, 3)), 0, 255)
+        Image.fromarray(arr.astype(np.uint8)).save(folder / f"img_{i:04d}.jpg", quality=90)
+
+
+def phase_so400m_384(mods, gpu, work, resident):
+    """Phase 17: SigLIP2 so400m-patch14-384 (729 tokens) end to end;
+    returns every counted kernel's launches in the phase."""
+    from bench_port import weights
+    from bench_port.reference import siglip_ref
+    from bench_port.shapes import vision_shape
+    from tpuclip_torch import cli
+    from tpuclip_torch.engine import ImageDatabase
+    from tpuclip_torch.io.decode import load_image
+    from tpuclip_torch.io.preprocess import preprocess_batch
+    from tpuclip_torch.ops._counters import COUNTED
+    from tpuclip_torch.ops.graphs import FusedGraphs
+
+    ops = mods[0]
+    rows, m, scales = resident[:3]
+    root, db, cache = work / "images_384", str(work / "so400m_384.db"), str(work / "models")
+    write_384_jpegs(root)
+    files = sorted(root.rglob("*.jpg"))
+    print(f"[so400m-384] wrote {len(files)} JPEGs of {SIZES_384} (h x w)", flush=True)
+
+    saved = (ImageDatabase.scan_directory, ImageDatabase.generate_html_gallery)
+    scan_seconds, galleries = [], []
+
+    def timed_scan(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = saved[0](self, *args, **kwargs)
+        torch.cuda.synchronize()
+        scan_seconds.append(time.perf_counter() - t0)
+        return out
+
+    query_file = files[5]
+    model_args = ["--db", db, "--model", MODEL_384, "--model-cache", cache]
+    ImageDatabase.scan_directory = timed_scan
+    ImageDatabase.generate_html_gallery = lambda self, results, *a, **kw: galleries.append(list(results))
+    try:
+        with environ(TPUCLIP_SEARCH_PRECISION="int8", TPUCLIP_SEARCH_MODE="exact", TPUCLIP_DEVICE_RERANK="1"):
+            for wrapper in COUNTED:
+                wrapper.launches = 0
+            cli.main(["scan", str(root), *model_args, "--inference-batch-size", "64"])
+            cli.main(["search", "a red car", "-k", str(K), *model_args, "--no-session"])
+            cli.main(["search", str(query_file), "--image", "-k", str(K), *model_args, "--no-session"])
+            engine = ImageDatabase(db, cache, model_name=MODEL_384, inference_batch_size=64)
+            model = engine.model
+            query = load_image(str(query_file))
+            fused = engine.search_image_pil(query, K)  # the index's image graph at 384 x 384
+            torch.cuda.synchronize()
+            launches = {wrapper.__name__: wrapper.launches for wrapper in COUNTED}
+    finally:
+        ImageDatabase.scan_directory, ImageDatabase.generate_html_gallery = saved
+    print(f"[so400m-384] kernel launches in this phase: {launches}", flush=True)
+    check(launches["attention"] > 0 and launches["int8_scores"] > 0,
+          f"the 384 px towers or the int8 search did not launch their kernels: {launches}")
+    check(engine.config.vision.num_patches == 729 and tuple(model.vision.pos_embed.shape) == (729, 1152),
+          f"the 384 px preset is not 729 tokens at width 1152: {tuple(model.vision.pos_embed.shape)}")
+
+    # scan: every image stored, unit norm; the CLI's searches against a brute force.
+    check(len(scan_seconds) == 1, "scan did not run")
+    rate = N_384 / scan_seconds[0]
+    ids, vectors = engine.index.cache.load()
+    vectors = np.array(vectors, np.float32)
+    check(len(ids) == N_384, f"{len(ids)} rows indexed, expected {N_384}")
+    norm_err = float(np.abs(np.linalg.norm(vectors, axis=1) - 1).max())
+    check(norm_err <= 1e-3, f"384 px embeddings off unit norm by {norm_err}")
+    paths = engine.store.fetch_paths_for_ids(ids)
+    row_of = {paths[int(i)]: r for r, i in enumerate(ids)}
+    rows_bf16 = torch.from_numpy(vectors).to(torch.bfloat16)
+    check(len(galleries) == 2, f"the CLI searches produced {len(galleries)} galleries, expected 2")
+    query_row = engine._embed_pil(query)
+    check_brute_force(galleries[0], engine.embed_texts(["a red car"])[0], rows_bf16, row_of, "CLI text search")
+    check_brute_force(galleries[1], query_row, rows_bf16, row_of, "CLI search --image")
+    check(galleries[1][0][0] == str(query_file), "search --image does not rank its own image first")
+    image_keys = [key for key in engine.index._graphs._graphs if key[0] == "image"]
+    check(len(image_keys) == 1 and image_keys[0][2] == 1, f"search_image_pil captured no image graph: {image_keys}")
+    two_stage = engine.index.search(query_row, K)
+    check([p for p, _ in fused] == [p for p, _ in two_stage], "the fused image graph's ids differ from two-stage")
+    graph_err = max(abs(a - b) for (_, a), (_, b) in zip(fused, two_stage))
+    check(graph_err <= 1e-6, f"the fused image graph's scores are off the two-stage route by {graph_err}")
+    print(f"[so400m-384] scan: {N_384} images in {scan_seconds[0]:.3f} s = {rate:.1f} images/s (scan_directory, "
+          f"batch 64, so400m-patch14-384 bf16 random weights); CLI search (text) and search --image in the "
+          f"brute-force order over the stored rows, the query image first; search_image_pil through the "
+          f"index's image graph {image_keys[0]}: ids equal to the two-stage route, scores within "
+          f"{graph_err:.2e}  ({gpu})", flush=True)
+
+    # The benchmark's seeded weights in the engine's model: the fused image
+    # program as a graph (its embedding kept: ``verified`` with
+    # ``keep_scores``), eager, the engine's embedding entry and the plain
+    # fp32 reference on the same pixels.
+    root_dir = Path(__file__).resolve().parent
+    config = json.loads((root_dir / "bench_port/configs/siglip2-so400m-patch14-384.json").read_text())
+    limit = json.loads((root_dir / f"bench_port/limits/{CELL_384}.json").read_text())["max_row_dist"]
+    shape = vision_shape(config)
+    w = weights.make_vision_weights(shape, 2**31 + 384, model.vision.pos_embed.device, torch.bfloat16)
+    weights.load_into_port(model, w, shape)
+    pixels = preprocess_batch([load_image(str(f)) for f in files[:64]], engine.image_size)
+    ref = siglip_ref.reference_rows(siglip_ref.fp32_weights(w), {"pixels": pixels}, np.arange(64), shape)
+    ref = ref.cpu().numpy()
+    del w
+
+    def program(px):
+        return ops.image_topk_fused(model, px, m, scales, rows, K, N_ROWS, shortlist_method="verified",
+                                    keep_scores=True)
+
+    def host(out):
+        return out[0].cpu().numpy(), out[1].cpu().numpy(), out[4].cpu().numpy()
+
+    graphs, report = FusedGraphs("cuda"), []
+    for batch, first in ((16, 0), (16, 16), (1, 32)):  # the second batch replays the first's graph
+        px = pixels[first : first + batch]
+        key = ("image", 0, batch, K, "verified")
+        s_g, r_g, emb_g = graphs.run(key, program, [px], host)
+        s_e, r_e, emb_e = host(program(torch.from_numpy(px).cuda()))
+        check(np.array_equal(emb_g, emb_e) and np.array_equal(s_g, s_e) and np.array_equal(r_g, r_e),
+              f"image graph at batch {batch}: not bit-equal to eager")
+        dist = float(np.linalg.norm(emb_g.astype(np.float64) - ref[first : first + batch], axis=1).max())
+        check(dist <= limit, f"image graph at batch {batch}: rows {dist} from the fp32 reference (limit {limit})")
+        report.append({"batch": batch, "first": first, "max_row_dist": dist})
+    check(len(graphs) == 2, f"{len(graphs)} image graphs captured, expected 2 (batches 16 and 1)")
+    graph_ms = {b: p50_ms(graphs._graphs[("image", 0, b, K, "verified")].graph.replay, 20) for b in (1, 16)}
+    dev_pixels = torch.from_numpy(pixels).cuda()
+    eager_ms = {b: p50_ms(lambda: program(dev_pixels[:b]), 20) for b in (1, 16)}
+    del graphs
+    rows_engine = engine.embed_images_uint8(pixels)
+    engine_dist = float(np.linalg.norm(rows_engine.astype(np.float64) - ref, axis=1).max())
+    check(engine_dist <= limit, f"embed_images_uint8: rows {engine_dist} from the fp32 reference (limit {limit})")
+    vision_ms = p50_ms(lambda: model.get_image_features(dev_pixels), 5)
+    print(f"[so400m-384] the benchmark's seeded weights: the fused image program as a graph at batch 16 (twice, "
+          f"one capture) and 1, bit-equal to eager; its rows against the plain fp32 reference max "
+          f"{max(r['max_row_dist'] for r in report):.4f}, embed_images_uint8's (batch 64) {engine_dist:.4f} "
+          f"(the cell's limit {limit}); device p50 graph {graph_ms[1]:.4f} / {graph_ms[16]:.4f} ms, eager "
+          f"{eager_ms[1]:.4f} / {eager_ms[16]:.4f} ms (batch 1 / 16, over {N_ROWS:,} rows); vision tower "
+          f"alone, batch 64 p50 {vision_ms:.2f} ms = {64e3 / vision_ms:.1f} images/s  ({gpu})", flush=True)
+    print("[phase17-json] " + json.dumps({
+        "gpu": gpu, "scan_images_per_s": rate, "scan_s": scan_seconds[0], "fused_graph_max_err": graph_err,
+        "graphs": report, "graph_ms": graph_ms, "eager_ms": eager_ms, "engine_max_row_dist": engine_dist,
+        "limit": limit, "vision_batch64_ms": vision_ms, "launches": launches}), flush=True)
     return launches
 
 
@@ -4076,6 +4271,8 @@ def main():
         del engine
         naflex = phase_naflex(mods, gpu, Path(tmp), resident)
         torch.cuda.empty_cache()
+        so384 = phase_so400m_384(mods, gpu, Path(tmp), resident)
+        torch.cuda.empty_cache()
         ivf, ivf_ctx = phase_ivf(mods, gpu, Path(tmp), db)
         torch.cuda.empty_cache()
         train = phase_train(gpu, Path(tmp))
@@ -4104,6 +4301,7 @@ def main():
          "launches": launches[name], **paths.get(name, {}),
          "launches_session": session[name.removesuffix("_q16")],
          "launches_naflex": naflex[name.removesuffix("_q16")],
+         "launches_so400m_384": so384[name.removesuffix("_q16")],
          "launches_ivf": ivf[name.removesuffix("_q16")],
          "launches_train": train[name.removesuffix("_q16")],
          "launches_mesh": mesh[name.removesuffix("_q16")],

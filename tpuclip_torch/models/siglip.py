@@ -247,11 +247,14 @@ class VisionTower(nn.Module):
 
     def patch_embed(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC (B, H, W, C) → (B, patches, D): patch rows flattened in
-        (ph, pw, c) order, patches in row-major grid order, one GEMM."""
+        (ph, pw, c) order, patches in row-major grid order, one GEMM.
+        Pixels past the last whole patch are dropped, as HF's Conv2d with
+        stride = kernel drops them (384 px at patch 14: a 27 x 27 grid over
+        the first 378 rows and columns)."""
         b, h, w, c = x.shape
         ps = self.cfg.patch_size
         hp, wp = h // ps, w // ps
-        x = x.reshape(b, hp, ps, wp, ps, c).permute(0, 1, 3, 2, 4, 5)
+        x = x[:, : hp * ps, : wp * ps].reshape(b, hp, ps, wp, ps, c).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(b, hp * wp, ps * ps * c)
         return dense(x, self.patch)
 
