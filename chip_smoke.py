@@ -58,7 +58,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    cell's (B = 64, S = 729, ragged last query block and key tile),
    unmasked and at Sq = 1, within what rounding P once at bf16 allows of
    the plain version, timed beside the plain version and
-   scaled_dot_product_attention, with the bound's share;
+   scaled_dot_product_attention, with the bound's share; then kernel 9's
+   two designs alone (mma.sync and the Hopper one) in turns at every
+   caller's shape, each within P's rounding, with the design the shape
+   rule takes, and the Hopper design's registers and spills by
+   ``nvcc -Xptxas -v``;
 4. end to end through the entry points: 512 seeded JPEGs, ``scan`` and
    ``search "a red car" -k 20 --no-session`` through tpuclip_torch.cli, and
    ``ImageDatabase.search_texts`` on 4 texts, with SigLIP2 SO400M-patch14-224
@@ -311,6 +315,8 @@ N_ROWS_4M = 4_000_000  # past the rerank gate (~2.31M rows): kernel 3's route is
 # H100 SXM peaks (NVIDIA's data sheet; popcounts: 16 per SM per clock,
 # 132 SMs, 1.98 GHz boost clock).
 HBM_BYTES_PER_S = 3.35e12
+# Kernel 9's launch counters: every launch, and the Hopper design's share.
+KERNEL_9 = ("attention", "attention_sm90")
 PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "popc": 16 * 132 * 1.98e9}
 
 
@@ -1098,12 +1104,30 @@ def phase_patch_embed(pops, gpu, variants):
             "kernel_ms": kernel_ms}
 
 
+def attention_off_plain(aops, got, q, k, v, h, key_bias):
+    """Whether kernel 9's ``got`` lies within what rounding P once at bf16
+    allows of the plain version (each side within 2^-8 of w @ |v| of the
+    exact sum, then rounded to bf16: |kernel - plain| <= 2^-7 (w @ |v| +
+    |plain|), 2^-12 w @ |v| more for the logits' summation order), and the
+    largest |kernel - plain| / (w @ |v|)."""
+    b, sq, width = q.shape
+    sk, hd = k.shape[1], width // h
+    mask = None if key_bias is None else key_bias[:, None, None, :]
+    plain = aops.attention_plain(q, k, v, h, mask).float()
+    heads = lambda t, s: t.reshape(b, s, h, hd).transpose(1, 2).float()  # noqa: E731
+    logits = torch.matmul(heads(q, sq), heads(k, sk).transpose(-1, -2)) * (1.0 / math.sqrt(hd))
+    if mask is not None:
+        logits = logits + mask
+    a = torch.matmul(torch.softmax(logits, dim=-1), heads(v, sk).abs()).transpose(1, 2).reshape(b, sq, width)
+    del logits
+    diff = (got.float() - plain).abs()
+    return bool((diff <= 2.0**-7 * (a + plain.abs()) + 2.0**-12 * a).all()), float((diff / a).max())
+
+
 def attention_case(aops, gpu, b, s, masked, seed):
     """Kernel 9 at B = ``b`` images of S = ``s`` tokens, 16 heads of 72:
     against the plain version within what rounding P once at bf16 allows
-    (each side within 2^-8 of w @ |v| of the exact sum, then rounded to
-    bf16: |kernel - plain| <= 2^-7 (w @ |v| + |plain|), 2^-12 w @ |v| more
-    for the logits' summation order), unmasked, with NaFlex's key masks
+    (:func:`attention_off_plain`), unmasked, with NaFlex's key masks
     (243-256 real keys) where ``masked``, and at the MAP head's Sq = 1 (with
     the same masks where ``masked``); timed beside the plain version and
     ``scaled_dot_product_attention`` (a yardstick the port never calls).
@@ -1118,26 +1142,12 @@ def attention_case(aops, gpu, b, s, masked, seed):
         real = torch.randint(243, s + 1, (b,), generator=gen, device=dev)
         bias = torch.where(torch.arange(s, device=dev)[None] < real[:, None], 0.0, torch.finfo(torch.float32).min)
 
-    def heads(t):
-        return t.reshape(b, -1, h, hd).transpose(1, 2).float()
-
     cases = [("unmasked", q, None)] + ([("masked", q, bias)] if masked else [])
     cases.append(("map_head", q[:, :1].contiguous(), bias))
     errs = {}
     for name, qq, key_bias in cases:
-        mask = None if key_bias is None else key_bias[:, None, None, :]
-        got = aops.attention(qq, k, v, h, key_bias).float()
-        plain = aops.attention_plain(qq, k, v, h, mask).float()
-        logits = torch.matmul(heads(qq), heads(k).transpose(-1, -2)) * (1.0 / math.sqrt(hd))
-        if mask is not None:
-            logits = logits + mask
-        a = torch.matmul(torch.softmax(logits, dim=-1), heads(v).abs()).transpose(1, 2).reshape(plain.shape)
-        del logits
-        diff = (got - plain).abs()
-        check(bool((diff <= 2.0**-7 * (a + plain.abs()) + 2.0**-12 * a).all()),
-              f"attention B={b} S={s} {name}: off the plain version by more than P's bf16 rounding allows")
-        errs[name] = float((diff / a).max())
-        del got, plain, a, diff
+        ok, errs[name] = attention_off_plain(aops, aops.attention(qq, k, v, h, key_bias), qq, k, v, h, key_bias)
+        check(ok, f"attention B={b} S={s} {name}: off the plain version by more than P's bf16 rounding allows")
     ms = p50_ms(lambda: aops.attention(q, k, v, h), 20)
     ms_masked = p50_ms(lambda: aops.attention(q, k, v, h, bias), 20) if masked else None
     ms_head = p50_ms(lambda: aops.attention(q[:, :1].contiguous(), k, v, h, bias), 20)
@@ -1158,15 +1168,130 @@ def attention_case(aops, gpu, b, s, masked, seed):
     return {**record, "library_ms": library, "ms_masked": ms_masked, "ms_map_head": ms_head, "bound_share": share}
 
 
+def attention_ptxas(gpu):
+    """``nvcc -Xptxas -v`` on the Hopper design's source with the build's
+    flags: each instantiation's registers and spills, and any wgmma
+    serialization the compiler reports (C7510-C7520). Returns them."""
+    import re
+
+    from tpuclip_torch.ops import _build
+
+    src = _build.SOURCES[[x.name for x in _build.SOURCES].index("attention_sm90.cu")]
+    with tempfile.TemporaryDirectory(prefix="ptxas_") as tmp:
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", f"{tmp}/lib.so", str(src)],
+                              capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"nvcc -Xptxas -v on {src.name} failed:\n{proc.stderr[-3000:]}")
+    kernels, name = {}, None
+    for line in proc.stderr.splitlines():
+        found = re.search(r"attention_sm90_kernelILi(\d+)ELb(\d)E", line)
+        if "Compiling entry function" in line and found:
+            name = f"<{found.group(1)}, bias={found.group(2)}>"
+        elif name and "spill stores" in line:
+            kernels[name] = {"spill_stores": int(re.search(r"(\d+) bytes spill stores", line).group(1)),
+                             "spill_loads": int(re.search(r"(\d+) bytes spill loads", line).group(1))}
+        elif name and "Used" in line and "registers" in line:
+            kernels[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    serialized = sorted({f"<{m.group(1)}, bias={m.group(2)}> {code}"
+                         for line in proc.stderr.splitlines() if "C75" in line
+                         for code in re.findall(r"\((C75\d\d)\)", line)
+                         for m in [re.search(r"attention_sm90_kernelILi(\d+)ELb(\d)E", line)] if m})
+    print(f"[kernels] attention_sm90.cu -Xptxas -v: " + "; ".join(
+        f"{k} {v['registers']} registers, {v['spill_stores']} / {v['spill_loads']} bytes spilled (stores / loads)"
+        for k, v in kernels.items()) + f"; compiler remarks: {', '.join(serialized) or 'none'}  ({gpu})", flush=True)
+    return {"kernels": kernels, "remarks": serialized}
+
+
+# Kernel 9's launches in the benchmark's cells and the towers' other
+# callers: (label, batch, Sq, Sk, heads, head width, NaFlex-style key
+# masks). SO400M's 16 heads of 72, then the B/16 preset's 12 of 64 at 224
+# px, g's 16 of 96 at 384 px (576 tokens) and a head width of 128.
+ATTENTION_SHAPES = [
+    ("384 layer", 64, 729, 729, 16, 72, False),
+    ("224 layer", 256, 256, 256, 16, 72, False),
+    ("NaFlex layer", 256, 256, 256, 16, 72, True),
+    ("text layer", 64, 64, 64, 16, 72, True),
+    ("S 128", 128, 128, 128, 16, 72, False),
+    ("384 MAP head", 64, 1, 729, 16, 72, False),
+    ("NaFlex MAP head", 256, 1, 256, 16, 72, True),
+    ("B/16 layer, hd 64", 256, 196, 196, 12, 64, False),
+    ("g-384 layer, hd 96", 64, 576, 576, 16, 96, False),
+    ("hd 128", 64, 512, 512, 8, 128, False),
+]
+
+
+def attention_designs(aops, gpu):
+    """Kernel 9's two designs alone, each launched through its own C entry
+    (mma.sync: ``tpuclip_attention``, Hopper: ``tpuclip_attention_sm90``)
+    at every shape of :data:`ATTENTION_SHAPES`, both within
+    P's bf16 rounding of the plain version, timed in turns (mma, Hopper,
+    Hopper, mma; p50 of 20 launches each) beside the bound and
+    ``scaled_dot_product_attention`` (a yardstick the port never calls).
+    Prints a line a shape with the design ``takes_sm90`` gives; returns
+    {label: record}."""
+    from tpuclip_torch.ops._build import library
+
+    dev = torch.device("cuda")
+    lib = library()
+    records = {}
+    for label, b, sq, sk, h, hd, masked in ATTENTION_SHAPES:
+        width = h * hd
+        gen = torch.Generator(device=dev).manual_seed(b * 1000 + sq)
+        q = (torch.randn((b, sq, width), generator=gen, device=dev) * 1.5).to(torch.bfloat16)
+        k, v = ((torch.randn((b, sk, width), generator=gen, device=dev) * 1.5).to(torch.bfloat16) for _ in range(2))
+        bias = None
+        if masked:
+            real = torch.randint(243 if sk == 256 else 1, sk + 1, (b,), generator=gen, device=dev)
+            bias = torch.where(torch.arange(sk, device=dev)[None] < real[:, None], 0.0, torch.finfo(torch.float32).min)
+        out = torch.empty((b, sq, width), dtype=torch.bfloat16, device=dev)
+        args = aops._kernel_args(q, k, v, h, bias, out)
+        runs = {"mma": lambda: lib.tpuclip_attention(*args), "sm90": lambda: lib.tpuclip_attention_sm90(*args)}
+        for design, run in runs.items():
+            check(run() == 0, f"attention {label}: the {design} design's launch failed")
+            torch.cuda.synchronize()
+            check(attention_off_plain(aops, out, q, k, v, h, bias)[0],
+                  f"attention {label}: the {design} design is off the plain version by more than P's rounding")
+        times = {}
+        for design in ("mma", "sm90", "sm90", "mma"):
+            times.setdefault(design, []).append(p50_ms(runs[design], 20))
+        qh, kh, vh = (t.view(b, -1, h, hd).transpose(1, 2) for t in (q, k, v))
+        mask = None if bias is None else bias[:, None, None, :]
+        library_ms = p50_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask).transpose(1, 2).reshape(b, sq, width), 20)
+        bound = entry(0.0, 1.0, None, (2 * b * sq + 2 * b * sk) * width * 2, 4 * b * h * sq * sk * hd, "bf16")
+        best = {d: min(ts) for d, ts in times.items()}
+        rule = "sm90" if aops.takes_sm90(sq, sk, hd) else "mma"
+        records[label] = {"batch": b, "sq": sq, "sk": sk, "heads": h, "head_dim": hd, "masked": masked, "ms": times,
+                          "library_ms": library_ms,
+                          "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "rule": rule,
+                          "bound_share": {d: bound["bound_ms"] / t for d, t in best.items()}}
+        print(f"[kernels] attention designs, {label} (B={b} Sq={sq} Sk={sk} H={h} hd={hd}"
+              f"{' masked' if masked else ''}): "
+              f"mma.sync {' / '.join(f'{t:.4f}' for t in times['mma'])} ms "
+              f"({100 * bound['bound_ms'] / best['mma']:.1f}% of the bound), Hopper "
+              f"{' / '.join(f'{t:.4f}' for t in times['sm90'])} ms ({100 * bound['bound_ms'] / best['sm90']:.1f}%); "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}); scaled_dot_product_attention "
+              f"{library_ms:.4f} ms; the rule takes {rule}  ({gpu})", flush=True)
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    return records
+
+
 def phase_attention(aops, gpu):
     """Phase 3, kernel 9 (:func:`attention_case`) at the vision encoder's
     launch in the benchmark's cells: B = 256, S = 256 (patch14-224 and
     NaFlex, with its key masks), and B = 64, S = 729 (patch14-384: 6 query
-    blocks of 128 rows and 12 key tiles of 64, each last one ragged). The
-    record is the S = 256 case's, with the S = 729 one under ``s729``."""
+    tiles of 128 rows and 6 key tiles of 128, each last one ragged), through
+    the wrapper's shape rule; then its two designs alone in turns at every
+    caller's shape (:func:`attention_designs`) and the Hopper design's
+    registers (:func:`attention_ptxas`). The record is the S = 256 case's,
+    with the S = 729 one under ``s729``, the designs' times under
+    ``designs`` and the compiler's report under ``ptxas``."""
     record = attention_case(aops, gpu, 256, 256, True, 9)
     torch.cuda.empty_cache()
     record["s729"] = attention_case(aops, gpu, 64, 729, False, 10)
+    torch.cuda.empty_cache()
+    record["designs"] = attention_designs(aops, gpu)
+    record["ptxas"] = attention_ptxas(gpu)
     return record
 
 
@@ -1289,12 +1414,12 @@ def check_brute_force(results, q, rows_bf16, row_of, what):
 
 
 def phase_end_to_end(mods, gpu, work):
-    """Phase 4: returns (launches of kernels 1, 2 and 9, database, model
-    cache, engine)."""
+    """Phase 4: returns (launches of kernels 1, 2 and 9 (its Hopper design
+    also under ``attention_sm90``), database, model cache, engine)."""
     ops = mods[0]
     from tpuclip_torch import cli
     from tpuclip_torch.engine import ImageDatabase
-    from tpuclip_torch.ops.attention import attention
+    from tpuclip_torch.ops.attention import attention, attention_sm90
 
     os.environ["TPUCLIP_HOME"] = str(work / "home")
     os.environ["TPUCLIP_INIT"] = "random"
@@ -1325,6 +1450,7 @@ def phase_end_to_end(mods, gpu, work):
         ops.int8_scores.launches = 0
         ops.int8_candidates_packed.launches = 0
         attention.launches = 0
+        attention_sm90.launches = 0
         t0 = time.perf_counter()
         cli.main(["scan", str(root), "--db", db, "--model-cache", cache,
                   "--inference-batch-size", "64", "--profile"])
@@ -1339,6 +1465,7 @@ def phase_end_to_end(mods, gpu, work):
             "int8_scores": ops.int8_scores.launches,
             "int8_candidates_packed": ops.int8_candidates_packed.launches,
             "attention": attention.launches,
+            "attention_sm90": attention_sm90.launches,
         }
     finally:
         ImageDatabase.scan_directory = original_scan
@@ -2476,7 +2603,7 @@ def phase_naflex(mods, gpu, work, resident):
     check(all(launches[name] == n > 0 for name, n in runs.items()),
           f"kernels 1 and 2 launched {launches}, not once per run of the search {runs}")
     check(launches["attention"] > 0, f"the NaFlex towers did not launch kernel 9: {launches}")
-    check(all(n == 0 for name, n in launches.items() if name not in runs and name != "attention"),
+    check(all(n == 0 for name, n in launches.items() if name not in runs and name not in KERNEL_9),
           f"a kernel off the NaFlex path was launched: {launches}")
     check(not thread.is_alive() and not srv.batcher._thread.is_alive(), "the server did not shut down")
     check(all(code == 200 for code in statuses), f"statuses other than 200: {statuses}")
@@ -2976,7 +3103,7 @@ def phase_ivf(mods, gpu, work, db):
     print(f"[ivf] kernel launches on the IVF path: {launches}; the probe's: {probes[0]}", flush=True)
     check(launches["int8_scores"] == probes[0] > 0, f"kernel 1 launched {launches['int8_scores']} times, "
           f"the probe {probes[0]}")
-    check(all(n == 0 for name, n in launches.items() if name not in ("int8_scores", "attention")),
+    check(all(n == 0 for name, n in launches.items() if name != "int8_scores" and name not in KERNEL_9),
           f"a kernel off the IVF path was launched: {launches}")
 
     # The kernel route against the route through kernel 1's plain version.
@@ -3584,7 +3711,7 @@ def phase_mesh(mods, gpu, work, db, cache, resident, binary_rows, ivf_ctx):
     torch.cuda.synchronize()
     launches = {wrapper.__name__: wrapper.launches for wrapper in COUNTED}
     print(f"[mesh] kernel launches on the mesh path: {launches}", flush=True)
-    check(all(n > 0 for name, n in launches.items() if name != "patch_embed_fused"),
+    check(all(n > 0 for name, n in launches.items() if name not in ("patch_embed_fused", "attention_sm90")),
           f"a kernel of the mesh path was not launched: {launches}")
     check(launches["patch_embed_fused"] == 0, f"kernel 8 ran on the mesh path: {launches}")
     report["launches"] = launches
@@ -4294,7 +4421,11 @@ def main():
         "binary_topk_batched_q16": ("tpuclip_torch/csrc/binary_scan.cu", "tpuclip/ops/hamming.py:132"),
         "patch_embed_fused": ("tpuclip_torch/csrc/patch_embed.cu", "tpuclip/ops/patch_embed.py:24"),
         "attention": ("tpuclip_torch/csrc/attention.cu", None),
+        "attention_sm90": ("tpuclip_torch/csrc/attention_sm90.cu", None),
     }
+    # Kernel 9's Hopper design: its launches (a share of "attention"'s) and
+    # phase 3's record of the two designs in turns.
+    record["attention_sm90"] = {key: record["attention"].pop(key) for key in ("designs", "ptxas")}
     launches["binary_topk_batched_q16"] = launches["binary_topk_batched"]  # one kernel, two cases
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

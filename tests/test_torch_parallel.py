@@ -872,7 +872,7 @@ def _fake(x):
 
 @pytest.mark.parametrize("wrapper", [
     "int8_scores", "int8_candidates_packed", "int8_candidates", "topk_tiles", "binary_scores",
-    "binary_topk_q1", "binary_topk_batched", "patch_embed_fused", "attention",
+    "binary_topk_q1", "binary_topk_batched", "patch_embed_fused", "attention", "attention_sm90",
 ])
 def test_wrappers_launch_on_their_inputs_device(monkeypatch, wrapper):
     """Every CUDA wrapper makes its input's device current and passes that
@@ -935,9 +935,15 @@ def test_wrappers_launch_on_their_inputs_device(monkeypatch, wrapper):
             _fake(torch.randn(12, 16).to(torch.bfloat16)), _fake(torch.zeros(16))),
         "attention": lambda: aops.attention(*(_fake(torch.randn(2, 8, 32).to(torch.bfloat16)) for _ in range(3)),
                                             4, _fake(torch.zeros(2, 8))),
+        # kernel 9's Hopper design: a shape its rule takes (128 rows, two heads of 72)
+        "attention_sm90": lambda: aops.attention(
+            *(_fake(torch.randn(2, 128, 144).to(torch.bfloat16)) for _ in range(3)), 2, _fake(torch.zeros(2, 128))),
     }
     runs[wrapper]()
     assert calls and all(dev == torch.device("cuda", 1) and s == 1001 for _, dev, s in calls), calls
+    assert [name for name, _, _ in calls] == [{"attention": "tpuclip_attention",
+                                               "attention_sm90": "tpuclip_attention_sm90"}.get(wrapper, name)
+                                              for name, _, _ in calls]
     assert current[0] == torch.device("cuda", 0)
 
 

@@ -65,7 +65,10 @@
 // rows a warp (64-row blocks), 2 or 8 warps a block, 2 blocks an SM at the
 // full register count. wgmma with TMA (FlashAttention-3's form, the
 // softmax of one warpgroup overlapping the other's products) is the route
-// past this latency.
+// past this latency: attention_sm90.cu takes it, and this kernel keeps the
+// launches where it is the faster one (tpuclip_torch/ops/attention.py,
+// takes_sm90: Sq under 128, such as the MAP head's Sq = 1 and the text
+// tower's 64, and head widths the other is not built for).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

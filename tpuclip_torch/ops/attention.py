@@ -1,6 +1,10 @@
-"""Fused multi-head attention for the towers (kernel 9,
-``tpuclip_torch/csrc/attention.cu``; replaces no TPU kernel: tpuclip
-computes attention as two einsums and leaves the fusion to XLA).
+"""Fused multi-head attention for the towers (kernel 9; replaces no TPU
+kernel: tpuclip computes attention as two einsums and leaves the fusion to
+XLA). Kernel 9 has two hand-written designs with one C signature:
+``tpuclip_torch/csrc/attention.cu`` (mma.sync, FlashAttention-2's form) and
+``tpuclip_torch/csrc/attention_sm90.cu`` (wgmma and TMA, two consumer
+warpgroups in ping-pong, FlashAttention-3's form); :func:`takes_sm90` picks
+one by shape.
 
 :func:`attention` takes the q / k / v projections' (B, S, H * hd) outputs,
 head ``h`` at columns ``h * hd`` of each row, and returns the heads'
@@ -11,8 +15,9 @@ towers build.
 
 The wrapper dispatches on its tensors' device: CPU tensors go to the plain
 version :func:`attention_plain` (the towers' explicit-matmul arithmetic,
-tpuclip's einsums); CUDA tensors go to the kernel, which runs or raises,
-and count in ``attention.launches``. On the card the kernel rounds the
+tpuclip's einsums); CUDA tensors go to one of the two kernels, which runs
+or raises, and count in ``attention.launches``; the Hopper design's
+launches count in ``attention_sm90.launches`` as well. On the card the kernel rounds the
 unnormalised weights exp(s - m) to bf16 and divides by their fp32 sum at
 the end, where the plain version rounds the normalised weights: both round
 P once at bf16 precision.
@@ -28,6 +33,25 @@ import torch
 from tpuclip_torch.ops._counters import counted
 
 _MAX_HEAD_DIM = 128  # the kernel's widest instantiation
+
+# The shape rule between the two designs, from kernel-alone times on the
+# H100 (both designs in turns in one call, 16 heads of 72; PERF.md, kernel
+# 9): the Hopper design where Sq fills its 128-row tiles (B 64 x S 729:
+# 0.483 against 0.857 ms; B 256 x S 256: 0.315 against 0.487 ms, 0.331
+# against 0.511 with NaFlex's key bias); the mma.sync design below that
+# (the text tower's B 64 x S 64: 0.040 against 0.044 ms, half of each
+# Hopper tile empty) and for the MAP head's Sq = 1, the tiny presets' head
+# width 16, the widths the Hopper design is not built for, and key counts
+# whose two key-bias rows would not fit in its shared memory.
+_SM90_HEAD_DIMS = (64, 72, 96, 128)
+_SM90_MIN_SQ = 128
+_SM90_MAX_SK = 4096
+
+
+def takes_sm90(sq: int, sk: int, hd: int) -> bool:
+    """Whether a launch of Sq query rows over Sk keys at head width ``hd``
+    goes to the Hopper design (else to the mma.sync one)."""
+    return hd in _SM90_HEAD_DIMS and sq >= _SM90_MIN_SQ and sk <= _SM90_MAX_SK
 
 
 def attention_plain(
@@ -94,6 +118,31 @@ def _check_cuda_args(q, k, v, num_heads, key_bias) -> None:
             raise ValueError(f"the key bias's keys must be contiguous, got strides {key_bias.stride()}")
 
 
+def _kernel_args(q, k, v, num_heads, key_bias, out):
+    """The C entry points' arguments (both designs take the same)."""
+    b, sq, width = q.shape
+    hd = width // num_heads
+    return (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), 0 if key_bias is None else key_bias.data_ptr(),
+        out.data_ptr(), b, sq, k.shape[1], num_heads, hd, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), 0 if key_bias is None else key_bias.stride(0), 1.0 / math.sqrt(hd),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+
+
+@counted
+def attention_sm90(q, k, v, num_heads, key_bias, out) -> None:
+    """Launches the Hopper design (``tpuclip_attention_sm90``) into ``out``;
+    :func:`attention` checks the arguments and calls it where
+    :func:`takes_sm90` says."""
+    from tpuclip_torch.ops._build import library
+
+    rc = library().tpuclip_attention_sm90(*_kernel_args(q, k, v, num_heads, key_bias, out))
+    if rc != 0:
+        raise RuntimeError(f"attention kernel (Hopper design) launch failed: cudaError {rc}")
+    attention_sm90.launches += 1
+
+
 @counted
 def attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, key_bias: Optional[torch.Tensor] = None
@@ -104,7 +153,8 @@ def attention(
     :func:`_check_cuda_args`), an f32 ``key_bias``; the output is a new
     contiguous tensor, from
     ``torch.empty`` on the current stream, with no host sync, so the call
-    can be captured in a CUDA graph."""
+    can be captured in a CUDA graph. Which of kernel 9's two designs runs
+    is :func:`takes_sm90`'s rule on (Sq, Sk, hd)."""
     _check_args(q, k, v, num_heads, key_bias)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, num_heads, None if key_bias is None else key_bias[:, None, None, :])
@@ -114,19 +164,15 @@ def attention(
     from tpuclip_torch.ops._build import library
 
     b, sq, width = q.shape
-    sk = k.shape[1]
-    hd = width // num_heads
     out = torch.empty((b, sq, width), dtype=q.dtype, device=q.device)
     if b == 0 or sq == 0:
         return out
     with torch.cuda.device(q.device):
-        rc = library().tpuclip_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), 0 if key_bias is None else key_bias.data_ptr(),
-            out.data_ptr(), b, sq, sk, num_heads, hd, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), 0 if key_bias is None else key_bias.stride(0), 1.0 / math.sqrt(hd),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"attention kernel launch failed: cudaError {rc}")
+        if takes_sm90(sq, k.shape[1], width // num_heads):
+            attention_sm90(q, k, v, num_heads, key_bias, out)
+        else:
+            rc = library().tpuclip_attention(*_kernel_args(q, k, v, num_heads, key_bias, out))
+            if rc != 0:
+                raise RuntimeError(f"attention kernel launch failed: cudaError {rc}")
     attention.launches += 1
     return out
