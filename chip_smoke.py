@@ -93,8 +93,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 7. the library entry point ``tpuclip_torch.ops.patch_embed_fused`` on 64 of
    the JPEGs with the vision tower's own patch weights, loosely equal to
    the tower's patch embedding; kernel 8's launch counter must rise;
-8. the fused query programs (``text_topk_fused``, ``image_topk_fused``,
-   ``mixed_topk_fused``) at SO400M width over phase 3's 1M resident rows,
+8. the fused query program (``query_topk_fused`` on texts, an image and
+   mixed blocks) at SO400M width over phase 3's 1M resident rows,
    k = 20, each captured as a CUDA graph by the index's runner
    (``tpuclip_torch.ops.graphs``): text buckets 1, 4, 16, 64, the lone
    image, mixed (1, 1), (4, 4), (16, 16). Graph replay bit-equal to the
@@ -248,7 +248,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    image first, rows unit-norm), ``search_image_pil`` through the index's
    image graph at 384 x 384 against the two-stage route; then, with the
    benchmark's seeded weights (``bench_port/weights.py``) in the model,
-   ``image_topk_fused`` over phase 3's 1M rows captured as a graph at batch
+   ``query_topk_fused`` on images over phase 3's 1M rows captured as a graph at batch
    16 (captured once, replayed on a second batch) and 1, under
    ``verified`` with ``keep_scores`` so that its query rows come out:
    bit-equal to eager, and its rows and ``embed_images_uint8``'s (batch 64)
@@ -1843,13 +1843,6 @@ def phase_fused_programs(mods, gpu, resident, engine):
     size = engine.image_size
     tail = (m, scales, rows, K, N_ROWS)
 
-    def program_of(kind, method):
-        if kind == "text":
-            return lambda i, a: ops.text_topk_fused(model, i, a, *tail, shortlist_method=method)
-        if kind == "image":
-            return lambda p: ops.image_topk_fused(model, p, *tail, shortlist_method=method)
-        return lambda i, a, p: ops.mixed_topk_fused(model, i, a, p, *tail, shortlist_method=method)
-
     graphs = FusedGraphs("cuda")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1863,7 +1856,7 @@ def phase_fused_programs(mods, gpu, resident, engine):
             host.append(rng.integers(0, 256, (ni, size, size, 3), dtype=np.uint8))
         method = ops.resolve_shortlist_method(nt + ni)
         key = (kind, nt, ni, K, method)
-        program = program_of(kind, method)
+        program = fused_program(ops, model, nt, tail, method)
         before = graphs.capture_seconds
         out = graphs.run(key, program, host)  # the warm-up run, the capture, one replay
         # A run of the program launches its shortlist kernel once: here the
@@ -2003,13 +1996,8 @@ def bucketed_image_embs(engine, images):
     fused mixed program runs it; the real rows, on the host."""
     from tpuclip_torch.utils.bucketing import batch_bucket
 
-    rows = batch_bucket(len(images))
-    if engine.is_naflex:
-        inputs = [torch.from_numpy(x).cuda() for x in engine._naflex_inputs(images, rows)]
-        out = engine.model.get_image_features_naflex(*inputs)
-    else:
-        out = engine.model.get_image_features(torch.from_numpy(engine._pixels_bucketed(images)).cuda())
-    return out[: len(images)].cpu().numpy()
+    inputs = [torch.from_numpy(x).cuda() for x in engine._image_inputs(images, batch_bucket(len(images)))]
+    return engine.model.image_features(*inputs)[: len(images)].cpu().numpy()
 
 
 def same_served(engine, body, want, what, dedup=True):
@@ -2565,10 +2553,10 @@ def phase_naflex(mods, gpu, work, resident):
             # through a graph runner as the index's: warm-up, capture, replay.
             for kind, nt, ni in NAFLEX_PROGRAMS:
                 host = list(engine._tokenize_bucketed(texts[:nt])) if nt else []
-                host += engine._naflex_inputs(spread[:ni], ni)
+                host += engine._image_inputs(spread[:ni], ni)
                 method = ops.resolve_shortlist_method(nt + ni)
                 key = (kind, nt, ni, K, method)
-                program = naflex_program(ops, model, kind, tail, method)
+                program = fused_program(ops, model, nt, tail, method)
                 before = graphs.capture_seconds
                 out = graphs.run(key, program, host)
                 cases.append((key, program, host, out, graphs.capture_seconds - before))
@@ -2618,7 +2606,7 @@ def phase_naflex(mods, gpu, work, resident):
     check(norm_err <= 1e-3, f"NaFlex embeddings off unit norm by {norm_err}")
     paths = engine.store.fetch_paths_for_ids(ids)
     row_of = {paths[int(i)]: r for r, i in enumerate(ids)}
-    pixels64 = [torch.from_numpy(x).cuda() for x in engine._naflex_inputs([load_image(str(f)) for f in files[:64]], 64)]
+    pixels64 = [torch.from_numpy(x).cuda() for x in engine._image_inputs([load_image(str(f)) for f in files[:64]], 64)]
     vision_ms = p50_ms(lambda: model.get_image_features_naflex(*pixels64), 5)
     print(f"[naflex] scan: {N_NAFLEX} images in {scan_seconds[0]:.3f} s = {rate:.1f} images/s "
           f"(scan_directory, batch 64, so400m-patch16-naflex bf16 random weights); NaFlex vision tower "
@@ -2800,8 +2788,8 @@ def phase_so400m_384(mods, gpu, work, resident):
     check_brute_force(galleries[0], engine.embed_texts(["a red car"])[0], rows_bf16, row_of, "CLI text search")
     check_brute_force(galleries[1], query_row, rows_bf16, row_of, "CLI search --image")
     check(galleries[1][0][0] == str(query_file), "search --image does not rank its own image first")
-    image_keys = [key for key in engine.index._graphs._graphs if key[0] == "image"]
-    check(len(image_keys) == 1 and image_keys[0][2] == 1, f"search_image_pil captured no image graph: {image_keys}")
+    image_keys = [key for key in engine.index._graphs._graphs if key[0] == 0]  # (tb, ib, k, method)
+    check(len(image_keys) == 1 and image_keys[0][1] == 1, f"search_image_pil captured no image graph: {image_keys}")
     two_stage = engine.index.search(query_row, K)
     check([p for p, _ in fused] == [p for p, _ in two_stage], "the fused image graph's ids differ from two-stage")
     graph_err = max(abs(a - b) for (_, a), (_, b) in zip(fused, two_stage))
@@ -2828,7 +2816,7 @@ def phase_so400m_384(mods, gpu, work, resident):
     del w
 
     def program(px):
-        return ops.image_topk_fused(model, px, m, scales, rows, K, N_ROWS, shortlist_method="verified",
+        return ops.query_topk_fused(model, (), (px,), m, scales, rows, K, N_ROWS, shortlist_method="verified",
                                     keep_scores=True)
 
     def host(out):
@@ -2867,12 +2855,12 @@ def phase_so400m_384(mods, gpu, work, resident):
     return launches
 
 
-def naflex_program(ops, model, kind, tail, method):
-    """The fused NaFlex program ``kind`` over the resident ``tail`` (m,
-    scales, rows, k, n_valid) as a function of its host inputs."""
-    if kind == "naflex_image":
-        return lambda p, pm, s: ops.naflex_image_topk_fused(model, p, pm, s, *tail, shortlist_method=method)
-    return lambda i, a, p, pm, s: ops.mixed_naflex_topk_fused(model, i, a, p, pm, s, *tail, shortlist_method=method)
+def fused_program(ops, model, n_texts, tail, method):
+    """``query_topk_fused`` over the resident ``tail`` (m, scales, rows, k,
+    n_valid) as a function of its host inputs: the texts' ids and mask
+    first when ``n_texts``, then the vision tower's inputs."""
+    t = 2 if n_texts else 0
+    return lambda *x: ops.query_topk_fused(model, x[:t], x[t:], *tail, shortlist_method=method)
 
 
 # IVF at the main path's size (phase 12): tests/test_ivf.py's mixture on the
@@ -3912,14 +3900,14 @@ def phase_shortlist(mods, gpu, resident, engine):
         host = list(engine._tokenize_bucketed(texts[:b]))
 
         def program(i, a, b=b):
-            return ops.text_topk_fused(model, i, a, *tail, shortlist_method="verified", keep_scores=True,
-                                       scores_out=buf[:b])
+            return ops.query_topk_fused(model, (i, a), (), *tail, shortlist_method="verified", keep_scores=True,
+                                        scores_out=buf[:b])
 
         s_g, r_g, ok_g = graphs.run(("text", b, "verified"), program, host, verified_tail)
         inputs = [torch.from_numpy(x).to(dev) for x in host]
         with uncounted():
-            s_e, r_e, ok_e = ops.text_topk_fused(model, *inputs, *tail, shortlist_method="verified")
-            exact = ops.text_topk_fused(model, *inputs, *tail, shortlist_method="exact")
+            s_e, r_e, ok_e = ops.query_topk_fused(model, inputs, (), *tail, shortlist_method="verified")
+            exact = ops.query_topk_fused(model, inputs, (), *tail, shortlist_method="exact")
         check(np.array_equal(s_g, s_e.cpu().numpy()) and np.array_equal(r_g, r_e.cpu().numpy())
               and ok_g == bool(ok_e), f"verified text graph at bucket {b} is not bit-equal to eager")
         check(all(np.array_equal(x, y.cpu().numpy()) for x, y in zip(kept["fallback"], exact)),
@@ -3978,8 +3966,8 @@ def phase_shortlist(mods, gpu, resident, engine):
         for method in SHORTLIST_METHODS:
             key = ("text", 1, method, "timed")
             verified = method == "verified"
-            graphs.run(key, lambda i, a, method=method, verified=verified: ops.text_topk_fused(
-                model, i, a, *tail, shortlist_method=method, keep_scores=verified,
+            graphs.run(key, lambda i, a, method=method, verified=verified: ops.query_topk_fused(
+                model, (i, a), (), *tail, shortlist_method=method, keep_scores=verified,
                 scores_out=buf[:1] if verified else None), host, lambda outs: None)
             timings["graph_q1"][method] = p50_ms(graphs._graphs[key].graph.replay, 20)
         q1 = queries[:1]

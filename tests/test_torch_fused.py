@@ -4,9 +4,10 @@ tpuclip's, on the CPU: the same tiny checkpoint (written by tpuclip's
 rerank rows resident (``TPUCLIP_DEVICE_RERANK=1``). tpuclip runs its
 programs with ``use_pallas=False``, as off the TPU.
 
-- ``text_topk_fused`` / ``image_topk_fused`` / ``mixed_topk_fused`` against
-  tpuclip's (identical ids, scores within 1e-5: the two towers differ by
-  about 1e-6) and against the port's own two-stage route (bit-equal);
+- ``query_topk_fused`` on texts, images and mixed blocks against tpuclip's
+  text, image and mixed fused programs (identical ids, scores within 1e-5:
+  the two towers differ by about 1e-6) and against the port's own
+  two-stage route (bit-equal);
 - the engine's fused entry points and ``search --image`` against tpuclip's;
 - the fusion gate against tpuclip's on the same index states;
 - cascade ``search_batch`` (ladder-padded) against single searches;
@@ -101,18 +102,16 @@ def _inputs(eng_t, n_texts, n_images):
     return ids, mask, _pixels(n_images, eng_t.image_size) if n_images else None
 
 
-def _port_fused(eng_t, program, ids, mask, pixels):
+def _port_fused(eng_t, ids, mask, pixels):
+    """The port's one fused program on the block (texts and / or pixels)."""
     idx = eng_t.index
-    q_count = (0 if ids is None else len(ids)) + (0 if pixels is None else len(pixels))
-    tail = (idx._matrix, idx._scales, idx._rows_device, K, idx._n_valid)
-    method = pt_ops.resolve_shortlist_method(q_count)
     t = torch.from_numpy
-    if program == "text":
-        out = pt_ops.text_topk_fused(eng_t.model, t(ids), t(mask), *tail, shortlist_method=method)
-    elif program == "image":
-        out = pt_ops.image_topk_fused(eng_t.model, t(pixels), *tail, shortlist_method=method)
-    else:
-        out = pt_ops.mixed_topk_fused(eng_t.model, t(ids), t(mask), t(pixels), *tail, shortlist_method=method)
+    text_inputs = () if ids is None else (t(ids), t(mask))
+    image_inputs = () if pixels is None else (t(pixels),)
+    q_count = (0 if ids is None else len(ids)) + (0 if pixels is None else len(pixels))
+    method = pt_ops.resolve_shortlist_method(q_count)
+    tail = (idx._matrix, idx._scales, idx._rows_device, K, idx._n_valid)
+    out = pt_ops.query_topk_fused(eng_t.model, text_inputs, image_inputs, *tail, shortlist_method=method)
     return out[0].numpy(), out[1].numpy()
 
 
@@ -120,7 +119,7 @@ def _port_fused(eng_t, program, ids, mask, pixels):
 def test_fused_programs_match_tpuclip(env, program, n_texts, n_images):
     *_, eng_j, eng_t = env
     ids, mask, pixels = _inputs(eng_t, n_texts, n_images)
-    s_t, r_t = _port_fused(eng_t, program, ids, mask, pixels)
+    s_t, r_t = _port_fused(eng_t, ids, mask, pixels)
 
     jdx = eng_j.index
     tail = (jdx._matrix, jdx._scales, jdx._rows_device, eng_j.config, K)
@@ -146,7 +145,7 @@ def test_fused_programs_equal_two_stage(env, program, n_texts, n_images):
     the embeddings to the host and back, then the fused int8 search."""
     *_, eng_t = env
     ids, mask, pixels = _inputs(eng_t, n_texts, n_images)
-    s_f, r_f = _port_fused(eng_t, program, ids, mask, pixels)
+    s_f, r_f = _port_fused(eng_t, ids, mask, pixels)
     model, idx = eng_t.model, eng_t.index
     parts = []
     if ids is not None:
@@ -276,17 +275,15 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _eager_results(eng, program, ids, mask, pixels, q_count, row_sel=None):
+def _eager_results(eng, ids, mask, pixels, q_count, row_sel=None):
     """The fused program run eager (no graph), mapped like the index does."""
     idx = eng.index
     t = lambda x: torch.from_numpy(x).cuda()  # noqa: E731
     n = len(ids) + (0 if pixels is None else len(pixels))
     tail = (idx._matrix, idx._scales, idx._rows_device, K, idx._n_valid)
     method = pt_ops.resolve_shortlist_method(n)
-    if program == "text":
-        s, r = pt_ops.text_topk_fused(eng.model, t(ids), t(mask), *tail, shortlist_method=method)
-    else:
-        s, r = pt_ops.mixed_topk_fused(eng.model, t(ids), t(mask), t(pixels), *tail, shortlist_method=method)
+    image_inputs = () if pixels is None else (t(pixels),)
+    s, r = pt_ops.query_topk_fused(eng.model, (t(ids), t(mask)), image_inputs, *tail, shortlist_method=method)
     s, r = s.cpu().numpy(), r.cpu().numpy()
     sel = row_sel if row_sel is not None else list(range(q_count))
     return idx._map_batch_results(s[sel], r[sel], len(sel))
@@ -309,13 +306,13 @@ def test_cuda_graph_replay_equals_eager_and_refresh_drops_graphs(env, cuda_devic
     again = eng._search_texts_fused(texts, K)  # replays it
     # One launch per run of the program: the warm-up, then two replays.
     assert pt_ops.int8_candidates_packed.launches - launches == 3
-    assert first == again == _eager_results(eng, "text", ids, mask, None, 3)
+    assert first == again == _eager_results(eng, ids, mask, None, 3)
 
     img = Image.open(root / "a" / "img_02.png")
-    pixels = eng._pixels_bucketed([img])
+    (pixels,) = eng._image_inputs([img], 1)
     ids1, mask1 = eng._tokenize_bucketed(TEXTS[:1])
     got = eng._search_mixed_fused(TEXTS[:1], [img], K)
-    want = _eager_results(eng, "mixed", ids1, mask1, pixels, 2, row_sel=[0, 1])
+    want = _eager_results(eng, ids1, mask1, pixels, 2, row_sel=[0, 1])
     assert list(got[0]) + list(got[1]) == want
     graphs = eng.index._graphs
     assert len(graphs) == 2 and graphs.pool_bytes() > 0
@@ -327,7 +324,7 @@ def test_cuda_graph_replay_equals_eager_and_refresh_drops_graphs(env, cuda_devic
     assert eng.index.can_fuse_text_search(K, None)
     assert eng.index._graphs is None  # the new row was uploaded: the graphs held the old tensors
     after = eng._search_texts_fused(texts, K)
-    assert after == _eager_results(eng, "text", ids, mask, None, 3)
+    assert after == _eager_results(eng, ids, mask, None, 3)
     assert len(eng.index._graphs) == 1
 
 

@@ -9,9 +9,13 @@ position grid).
   with pad rows (within 1e-5; measured 1.5e-7), against HF's
   ``Siglip2VisionModel`` with random init (cosine >= 0.9999), and
   invariant to the pad rows;
-- ``naflex_image_topk_fused`` / ``mixed_naflex_topk_fused`` against
-  tpuclip's with ``use_pallas=False`` (identical ids, scores within 1e-5)
-  and bit-equal to the port's own two-stage route;
+- ``SiglipModel.image_features`` on both tiny presets: the named entry
+  of the model's format, bit for bit, and a replacement set on the
+  instance;
+- ``query_topk_fused`` on NaFlex image and mixed blocks against tpuclip's
+  NaFlex image and mixed fused programs with ``use_pallas=False``
+  (identical ids, scores within 1e-5) and bit-equal to the port's own
+  two-stage route;
 - a mixed-aspect tree scanned by the port into ONE database that both
   packages open: stored rows, text and image searches, the engine's fused
   entry points, ``search --image``, the session's ``image:`` line and the
@@ -257,6 +261,27 @@ def test_random_init_of_naflex_presets():
     assert torch.equal(out, b.get_image_features_naflex(*inputs)) and torch.isfinite(out).all()
 
 
+@pytest.mark.parametrize("model_name", ["tpuclip/test-tiny", MODEL])
+def test_image_features_takes_the_models_format(model_name):
+    """``image_features`` is the named entry of the model's input format,
+    bit for bit, and calls a replacement of that entry set on the
+    instance."""
+    cfg, model = load_model(model_name, None, device="cpu", allow_random=True, seed=4)
+    if cfg.vision.naflex:
+        name, inputs = "get_image_features_naflex", _batch(_images(SIZES[:3]), 4)
+    else:
+        size = cfg.vision.image_size
+        name = "get_image_features"
+        inputs = (np.random.default_rng(6).integers(0, 256, (3, size, size, 3), dtype=np.uint8),)
+    inputs = [torch.from_numpy(x) for x in inputs]
+    want = getattr(model, name)(*inputs)
+    assert torch.equal(model.image_features(*inputs), want) and torch.isfinite(want).all()
+    calls = []
+    setattr(model, name, lambda *args: calls.append(args) or want[:1])
+    assert torch.equal(model.image_features(*inputs), want[:1])
+    assert len(calls) == 1 and all(a is b for a, b in zip(calls[0], inputs))
+
+
 # ---------------------------------------------------------------- database
 
 
@@ -366,20 +391,19 @@ def _inputs(eng_t, root, n_texts, n_images):
     ids, mask = eng_t._tokenize_bucketed(TEXTS[:n_texts]) if n_texts else (None, None)
     files = sorted(root.rglob("img_*.png"))[::3][:n_images]
     images = [Image.open(f) for f in files] + _images([(24, 72)], seed=11)[: max(0, n_images - len(files))]
-    return ids, mask, eng_t._naflex_inputs(images, n_images)
+    return ids, mask, eng_t._image_inputs(images, n_images)
 
 
-def _port_fused(eng_t, program, ids, mask, naflex):
+def _port_fused(eng_t, ids, mask, naflex):
+    """The port's one fused program on the block (texts and / or NaFlex
+    images)."""
     idx = eng_t.index
     q_count = (0 if ids is None else len(ids)) + len(naflex[0])
     tail = (idx._matrix, idx._scales, idx._rows_device, K, idx._n_valid)
     method = pt_ops.resolve_shortlist_method(q_count)
     t = torch.from_numpy
-    if program == "image":
-        out = pt_ops.naflex_image_topk_fused(eng_t.model, *map(t, naflex), *tail, shortlist_method=method)
-    else:
-        out = pt_ops.mixed_naflex_topk_fused(eng_t.model, t(ids), t(mask), *map(t, naflex), *tail,
-                                             shortlist_method=method)
+    text_inputs = () if ids is None else (t(ids), t(mask))
+    out = pt_ops.query_topk_fused(eng_t.model, text_inputs, tuple(map(t, naflex)), *tail, shortlist_method=method)
     return out[0].numpy(), out[1].numpy()
 
 
@@ -387,7 +411,7 @@ def _port_fused(eng_t, program, ids, mask, naflex):
 def test_fused_naflex_programs_match_tpuclip(env, program, n_texts, n_images):
     tmp, cache, root, db, eng_j, eng_t, _ = env
     ids, mask, naflex = _inputs(eng_t, root, n_texts, n_images)
-    s_t, r_t = _port_fused(eng_t, program, ids, mask, naflex)
+    s_t, r_t = _port_fused(eng_t, ids, mask, naflex)
     jdx = eng_j.index
     tail = (jdx._matrix, jdx._scales, jdx._rows_device, eng_j.config, K)
     kw = dict(n_valid=jdx._n_valid, compute_dtype=eng_j.compute_dtype, use_pallas=False)
@@ -407,7 +431,7 @@ def test_fused_naflex_programs_match_tpuclip(env, program, n_texts, n_images):
 def test_fused_naflex_programs_equal_two_stage(env, program, n_texts, n_images):
     *_, eng_t, _ = env
     ids, mask, naflex = _inputs(eng_t, env[2], n_texts, n_images)
-    s_f, r_f = _port_fused(eng_t, program, ids, mask, naflex)
+    s_f, r_f = _port_fused(eng_t, ids, mask, naflex)
     model, idx = eng_t.model, eng_t.index
     parts = [] if ids is None else [model.get_text_features(torch.from_numpy(ids), torch.from_numpy(mask))]
     parts.append(model.get_image_features_naflex(*map(torch.from_numpy, naflex)))
@@ -518,9 +542,9 @@ def test_warm_programs_on_a_naflex_engine(env, monkeypatch):
     monkeypatch.setattr(idx, "_program", lambda key, *args: (keys.append(key), original(key, *args))[1])
     assert pt_serve.warm_programs(eng_t, k=K) == 24
     assert len(keys) == len(set(keys)) == 21
-    assert [key[0] for key in keys] == ["text"] * 4 + ["naflex_image"] + ["naflex_mixed"] * 16
-    assert {(key[1], key[2]) for key in keys if key[0] == "naflex_mixed"} == {
-        (t, i) for t in (1, 4, 16, 64) for i in (1, 4, 16, 64)}
+    buckets = (1, 4, 16, 64)
+    assert [key[:2] for key in keys] == [(t, 0) for t in buckets] + [(0, 1)] + [
+        (t, i) for t in buckets for i in buckets]
 
 
 def test_classify_refuses_naflex_like_tpuclip(env):
@@ -586,22 +610,22 @@ def test_cuda_naflex_graph_replay_equals_eager_and_refresh_drops_graphs(env, cud
     idx = eng.index
     tail = (idx._matrix, idx._scales, idx._rows_device, K, idx._n_valid)
     img = Image.open(root / "a" / "img_03.png")
-    naflex = eng._naflex_inputs([img], 1)
+    naflex = eng._image_inputs([img], 1)
     launches = pt_ops.int8_scores.launches
     first = eng._search_image_fused(img, K)  # captures the lone-image program
     again = eng._search_image_fused(img, K)  # replays it
     assert pt_ops.int8_scores.launches - launches == 3  # the warm-up, then two replays
-    s, r = pt_ops.naflex_image_topk_fused(eng.model, *[torch.from_numpy(x).cuda() for x in naflex], *tail,
-                                          shortlist_method="exact")
+    s, r = pt_ops.query_topk_fused(eng.model, (), [torch.from_numpy(x).cuda() for x in naflex], *tail,
+                                   shortlist_method="exact")
     want = idx._map_batch_results(s.cpu().numpy(), r.cpu().numpy(), 1)[0]
     assert first == again == want
 
     images = [img, Image.open(root / "b" / "img_11.png")]
     ids, mask = eng._tokenize_bucketed(TEXTS[:1])
     got = eng._search_mixed_fused(TEXTS[:1], images, K)
-    host = [ids, mask, *eng._naflex_inputs(images, 4)]
-    s, r = pt_ops.mixed_naflex_topk_fused(eng.model, *[torch.from_numpy(x).cuda() for x in host], *tail,
-                                          shortlist_method="extract")
+    text_inputs = [torch.from_numpy(x).cuda() for x in (ids, mask)]
+    image_inputs = [torch.from_numpy(x).cuda() for x in eng._image_inputs(images, 4)]
+    s, r = pt_ops.query_topk_fused(eng.model, text_inputs, image_inputs, *tail, shortlist_method="extract")
     sel = [0, 1, 2]
     assert list(got[0]) + list(got[1]) == idx._map_batch_results(s.cpu().numpy()[sel], r.cpu().numpy()[sel], 3)
     assert len(idx._graphs) == 2 and idx._graphs.pool_bytes() > 0

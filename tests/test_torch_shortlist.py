@@ -549,8 +549,8 @@ def _eager(eng, texts):
     maps it."""
     idx = eng.index
     ids, mask = eng._tokenize_bucketed(texts)
-    s, r, ok = pt.text_topk_fused(
-        eng.model, torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda(), idx._matrix,
+    s, r, ok = pt.query_topk_fused(
+        eng.model, (torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()), (), idx._matrix,
         idx._scales, idx._rows_device, K, idx._n_valid, shortlist_method="verified",
     )
     assert bool(ok)

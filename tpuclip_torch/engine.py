@@ -99,40 +99,37 @@ class ImageDatabase:
 
     # ------------------------------------------------------------- embeddings
 
-    def _embed_two_shapes(self, features, arrays, pad_rows) -> np.ndarray:
-        """``features(*arrays)`` (a tower of the model) on row-aligned host
-        arrays: a single row runs at batch 1; anything else pads (each
-        array with its one-row ``pad_rows`` entry) or chunks to the
-        inference batch. The real rows' L2-normalized fp32, on the host."""
+    def _embed_two_shapes(self, arrays) -> np.ndarray:
+        """The vision tower (``model.image_features``) on its row-aligned
+        host inputs: a single row runs at batch 1; anything else pads (with
+        :meth:`_image_inputs`' pad row) or chunks to the inference batch.
+        The real rows' L2-normalized fp32, on the host."""
         b, step = len(arrays[0]), self.inference_batch_size
         if b > step:
             return np.concatenate([
-                self._embed_two_shapes(features, [a[i : i + step] for a in arrays], pad_rows)
-                for i in range(0, b, step)
+                self._embed_two_shapes([a[i : i + step] for a in arrays]) for i in range(0, b, step)
             ])
         with span("engine.stage"):
             target = 1 if b == 1 else step
             if target > b:
-                arrays = [np.concatenate([a, np.repeat(p, target - b, axis=0)]) for a, p in zip(arrays, pad_rows)]
+                pad_rows = self._image_inputs([], target - b)
+                arrays = [np.concatenate([a, p]) for a, p in zip(arrays, pad_rows)]
             inputs = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in arrays]
         with span("engine.forward"):
-            out = features(*inputs)
+            out = self.model.image_features(*inputs)
         with span("engine.fetch"):
             return out[:b].cpu().numpy()
 
     def embed_images_uint8(self, batch_uint8: np.ndarray) -> np.ndarray:
         """uint8 (B, S, S, 3) → L2-normalized fp32 (B, D). A single image runs
         at batch 1; anything else pads (or chunks) to the inference batch."""
-        pad = np.zeros((1,) + batch_uint8.shape[1:], np.uint8)
-        return self._embed_two_shapes(self.model.get_image_features, [batch_uint8], [pad])
+        return self._embed_two_shapes([batch_uint8])
 
     def embed_patches_naflex(self, patches: np.ndarray, masks: np.ndarray, shapes: np.ndarray) -> np.ndarray:
         """NaFlex: uint8 patches (B, L, P*P*C) + masks (B, L) + patch grids
         (B, 2) → L2-normalized fp32 (B, D), under the two-shape policy of
-        :meth:`embed_images_uint8`; pad rows as :meth:`_naflex_inputs`'."""
-        return self._embed_two_shapes(
-            self.model.get_image_features_naflex, [patches, masks, shapes], self._naflex_inputs([], 1)
-        )
+        :meth:`embed_images_uint8`."""
+        return self._embed_two_shapes([patches, masks, shapes])
 
     def _tokenize_bucketed(self, texts: List[str]):
         """Prompt + tokenize, padded to the ladder batch size; pad rows are
@@ -193,29 +190,19 @@ class ImageDatabase:
         """Fused body of :meth:`search_texts`; the caller has checked
         ``can_fuse_text_search`` (the serve micro-batcher decides it once
         per group)."""
-        ids, mask = self._tokenize_bucketed(texts)
-        return self.index.search_texts_fused(self.model, ids, mask, k, len(texts))
+        return self.index.search_fused(self.model, self._tokenize_bucketed(texts), (), k, len(texts), 0)
 
-    def _pixels_bucketed(self, images) -> np.ndarray:
-        """Decoded images → (ladder bucket, S, S, 3) uint8, zero pad rows
-        (fixed-resolution towers)."""
-        from tpuclip_torch.io.preprocess import resize_to_uint8
-
-        pixels = np.stack([resize_to_uint8(img, self.image_size) for img in images])
-        bucket = batch_bucket(len(images))
-        if bucket > len(images):
-            pixels = np.concatenate(
-                [pixels, np.zeros((bucket - len(images),) + pixels.shape[1:], np.uint8)]
-            )
-        return pixels
-
-    def _naflex_inputs(self, images, rows: int):
-        """Decoded images → NaFlex (patches (rows, L, P*P*C) uint8, masks
-        (rows, L) int32, patch grids (rows, 2) int32), images first; the pad
-        rows keep slot 0 on a (1, 1) grid."""
+    def _image_inputs(self, images, rows: int) -> tuple:
+        """Decoded images → the vision tower's host inputs for ``rows`` rows,
+        images first: square models take (uint8 pixels (rows, S, S, 3),)
+        with zero pad rows; NaFlex models take (uint8 patches (rows, L,
+        P*P*C), int32 masks (rows, L), int32 patch grids (rows, 2)), whose
+        pad rows keep slot 0 on a (1, 1) grid."""
+        v = self.config.vision
+        if not v.naflex:
+            return (preprocess_batch(list(images) + [None] * (rows - len(images)), self.image_size),)
         from tpuclip_torch.io.preprocess import preprocess_naflex
 
-        v = self.config.vision
         length = v.max_num_patches
         patches = np.zeros((rows, length, v.patch_size**2 * v.num_channels), np.uint8)
         masks = np.zeros((rows, length), np.int32)
@@ -230,17 +217,10 @@ class ImageDatabase:
         program per (text bucket, image bucket); returns (text results,
         image results) aligned to the inputs. The caller has checked
         ``can_fuse_text_search``."""
-        ids, mask = self._tokenize_bucketed(texts)
-        if self.is_naflex:
-            res = self.index.search_mixed_fused_naflex(
-                self.model, ids, mask, *self._naflex_inputs(images, batch_bucket(len(images))), k,
-                n_texts=len(texts), n_images=len(images),
-            )
-        else:
-            res = self.index.search_mixed_fused(
-                self.model, ids, mask, self._pixels_bucketed(images), k,
-                n_texts=len(texts), n_images=len(images),
-            )
+        res = self.index.search_fused(
+            self.model, self._tokenize_bucketed(texts), self._image_inputs(images, batch_bucket(len(images))), k,
+            len(texts), len(images),
+        )
         return res[: len(texts)], res[len(texts):]
 
     def search_image_pil(self, img, k: int, filter_folders=None) -> List[tuple]:
@@ -254,19 +234,12 @@ class ImageDatabase:
     def _search_image_fused(self, img, k: int) -> List[tuple]:
         """Fused body of :meth:`search_image_pil` (one image, batch 1); the
         caller has checked ``can_fuse_image_search``."""
-        if self.is_naflex:
-            return self.index.search_images_fused_naflex(self.model, *self._naflex_inputs([img], 1), k, 1)[0]
-        return self.index.search_images_fused(self.model, self._pixels_bucketed([img]), k, 1)[0]
+        return self.index.search_fused(self.model, (), self._image_inputs([img], 1), k, 0, 1)[0]
 
     def _embed_pil(self, img) -> np.ndarray:
-        """Decoded PIL image → L2-normalized embedding (NaFlex-aware); the
-        embed path of path- and bytes-based image queries."""
-        if self.is_naflex:
-            return self.embed_patches_naflex(*self._naflex_inputs([img], 1))[0].flatten()
-        from tpuclip_torch.io.preprocess import resize_to_uint8
-
-        pixels = resize_to_uint8(img, self.image_size)
-        return self.embed_images_uint8(pixels[None])[0].flatten()
+        """Decoded PIL image → L2-normalized embedding; the embed path of
+        path- and bytes-based image queries."""
+        return self.embed_pils([img])[0].flatten()
 
     def _get_image_embedding(self, image_path: str) -> Optional[np.ndarray]:
         try:
@@ -281,11 +254,8 @@ class ImageDatabase:
             return None
 
     def embed_pils(self, images) -> np.ndarray:
-        """L2-normalized embeddings for decoded PIL images, one batched pass
-        (NaFlex-aware)."""
-        if self.is_naflex:
-            return self.embed_patches_naflex(*self._naflex_inputs(images, len(images)))
-        return self.embed_images_uint8(preprocess_batch(images, self.image_size))
+        """L2-normalized embeddings for decoded PIL images, one batched pass."""
+        return self._embed_two_shapes(self._image_inputs(images, len(images)))
 
     def _get_image_embeddings_batch(self, image_paths: List[str]) -> List[Optional[np.ndarray]]:
         """Embeddings of image files in one :meth:`embed_pils` pass, aligned

@@ -49,15 +49,12 @@ needs; every search then runs on the device. What is ported:
 - ``TPUCLIP_INDEX_HBM_GB`` caps the flat matrix: on CUDA always (12 GB by
   default, as tpuclip on the TPU), on the CPU only when it is set; an index
   over the cap serves from its binary rows.
-- **fused query programs** (:meth:`DeviceIndex.search_texts_fused`,
-  :meth:`~DeviceIndex.search_images_fused`,
-  :meth:`~DeviceIndex.search_mixed_fused`, and for the NaFlex towers
-  :meth:`~DeviceIndex.search_images_fused_naflex` and
-  :meth:`~DeviceIndex.search_mixed_fused_naflex`): token ids and / or
-  pixels (NaFlex: patches, masks and patch grids) go through the towers
-  and the fused int8 search without the embedding leaving the device,
-  under :meth:`~DeviceIndex.can_fuse_text_search`. On CUDA each program
-  shape is one captured CUDA graph
+- **fused query programs** (:meth:`DeviceIndex.search_fused`): token ids
+  and / or the vision tower's inputs (pixels, or NaFlex's patches, masks
+  and patch grids) go through the towers and the fused int8 search
+  without the embedding leaving the device, under
+  :meth:`~DeviceIndex.can_fuse_text_search`. On CUDA each program shape
+  is one captured CUDA graph
   (:class:`~tpuclip_torch.ops.graphs.FusedGraphs`), dropped whenever
   ``refresh`` re-uploads; on the CPU they run eager.
 - **shortlist methods** (``TPUCLIP_SHORTLIST``): the int8 searches with the
@@ -89,7 +86,6 @@ needs; every search then runs on the device. What is ported:
 from __future__ import annotations
 
 import os
-from functools import partial
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -127,15 +123,11 @@ from tpuclip_torch.ops.topk_int8 import (
     INT8_TILE_N,
     derive_int8_matrix,
     fallback_shortlist_depth,
-    image_topk_fused,
-    mixed_naflex_topk_fused,
-    mixed_topk_fused,
-    naflex_image_topk_fused,
     quantize_matrix,
     quantize_queries,
     quantize_query,
+    query_topk_fused,
     resolve_shortlist_method,
-    text_topk_fused,
     topk_exact_from_scores,
     topk_int8,
     topk_int8_rerank_fused_auto,
@@ -689,19 +681,24 @@ class DeviceIndex:
             )
         return self._scores_buf[:q_count]
 
-    def _run_fused(self, kind: str, program, host_inputs, tb: int, ib: int, k: int, row_sel):
-        """Shared body of the fused searches: ``program`` (a fused program of
-        :mod:`~tpuclip_torch.ops.topk_int8` with its model bound) on a block
-        of ``tb`` text and ``ib`` image rows, as the graph ``(kind, tb, ib,
-        k, method)``. The shortlist method is the block's
-        (:func:`~tpuclip_torch.ops.topk_int8.resolve_shortlist_method`), the
-        resident tensors are bound at call time, and only the real rows
-        ``row_sel`` are mapped to results (a mixed block pads each span to
-        its bucket). Under ``verified`` the program keeps its scores and
-        query embedding on the device, and when its proof fails the exact
-        selection over those scores answers (tpuclip's fallback), read
-        under the graph runner's lock before another replay can overwrite
-        them; only the results come to the host."""
+    def search_fused(self, model, text_inputs, image_inputs, k: int, n_texts: int, n_images: int):
+        """A block of queries through ONE fused program
+        (:func:`~tpuclip_torch.ops.topk_int8.query_topk_fused`): host
+        ``text_inputs`` () or (ids, mask) of Tb ladder-padded texts, and
+        ``image_inputs`` () or the vision tower's Ib rows in ``model``'s
+        format, as the graph ``(Tb, Ib, k, method)``. Results for the real
+        queries only, texts first, then images (a mixed block pads each span
+        to its bucket). The shortlist method is the block's
+        (:func:`~tpuclip_torch.ops.topk_int8.resolve_shortlist_method`) and
+        the resident tensors are bound at call time. Under ``verified`` the
+        program keeps its scores and query embedding on the device, and when
+        its proof fails the exact selection over those scores answers
+        (tpuclip's fallback), read under the graph runner's lock before
+        another replay can overwrite them; only the results come to the
+        host. Caller must have checked :meth:`can_fuse_text_search`."""
+        tb = len(text_inputs[0]) if text_inputs else 0
+        ib = len(image_inputs[0]) if image_inputs else 0
+        n_text_arrays = len(text_inputs)
         method = resolve_shortlist_method(tb + ib)
         stats = self.shortlist_stats
         stats[f"{method}_searches"] = stats.get(f"{method}_searches", 0) + 1
@@ -720,71 +717,16 @@ class DeviceIndex:
         if verified:
             stats["verified_queries"] += 1
         scores, found = self._program(
-            (kind, tb, ib, k, method),
-            lambda *x: program(
-                *x, m, sc, rows, k, n_valid, shortlist_method=method, keep_scores=verified, scores_out=buf
+            (tb, ib, k, method),
+            lambda *x: query_topk_fused(
+                model, x[:n_text_arrays], x[n_text_arrays:], m, sc, rows, k, n_valid,
+                shortlist_method=method, keep_scores=verified, scores_out=buf,
             ),
-            host_inputs,
+            (*text_inputs, *image_inputs),
             fallback_tail if verified else None,
         )
+        row_sel = list(range(n_texts)) + list(range(tb, tb + n_images))
         return self._map_batch_results(scores[row_sel], found[row_sel], len(row_sel))
-
-    def search_texts_fused(self, model, ids: np.ndarray, mask: np.ndarray, k: int, q_count: int):
-        """Tokenized (ladder-padded) text queries → ranked results through
-        :func:`~tpuclip_torch.ops.topk_int8.text_topk_fused`, one program.
-        Caller must have checked :meth:`can_fuse_text_search`."""
-        return self._run_fused(
-            "text", partial(text_topk_fused, model), (ids, mask), len(ids), 0, k, list(range(q_count))
-        )
-
-    def search_images_fused(self, model, pixels: np.ndarray, k: int, q_count: int):
-        """uint8 query pixels → ranked results through
-        :func:`~tpuclip_torch.ops.topk_int8.image_topk_fused`. Caller must
-        have checked :meth:`can_fuse_image_search`."""
-        return self._run_fused(
-            "image", partial(image_topk_fused, model), (pixels,), 0, len(pixels), k, list(range(q_count))
-        )
-
-    def search_mixed_fused(
-        self, model, ids: np.ndarray, mask: np.ndarray, pixels: np.ndarray, k: int,
-        n_texts: int, n_images: int,
-    ):
-        """A mixed text + image block through ONE program
-        (:func:`~tpuclip_torch.ops.topk_int8.mixed_topk_fused`): results for
-        the real queries only, texts first, then images (the block holds
-        texts at [0, Tb), images at [Tb, Tb + Ib)). Caller must have checked
-        :meth:`can_fuse_text_search`."""
-        tb, ib = len(ids), len(pixels)
-        return self._run_fused(
-            "mixed", partial(mixed_topk_fused, model), (ids, mask, pixels), tb, ib, k,
-            list(range(n_texts)) + list(range(tb, tb + n_images)),
-        )
-
-    def search_images_fused_naflex(
-        self, model, patches: np.ndarray, masks: np.ndarray, shapes: np.ndarray, k: int, q_count: int
-    ):
-        """:meth:`search_images_fused` for NaFlex inputs (uint8 patches
-        (B, L, P*P*C), int32 masks (B, L) and patch grids (B, 2)) through
-        :func:`~tpuclip_torch.ops.topk_int8.naflex_image_topk_fused`. Caller
-        must have checked :meth:`can_fuse_image_search`."""
-        return self._run_fused(
-            "naflex_image", partial(naflex_image_topk_fused, model), (patches, masks, shapes),
-            0, len(patches), k, list(range(q_count)),
-        )
-
-    def search_mixed_fused_naflex(
-        self, model, ids: np.ndarray, mask: np.ndarray, patches: np.ndarray, masks: np.ndarray,
-        shapes: np.ndarray, k: int, n_texts: int, n_images: int,
-    ):
-        """:meth:`search_mixed_fused` for NaFlex inputs through
-        :func:`~tpuclip_torch.ops.topk_int8.mixed_naflex_topk_fused`: the
-        same texts-first block and real-rows output. Caller must have
-        checked :meth:`can_fuse_text_search`."""
-        tb, ib = len(ids), len(patches)
-        return self._run_fused(
-            "naflex_mixed", partial(mixed_naflex_topk_fused, model), (ids, mask, patches, masks, shapes),
-            tb, ib, k, list(range(n_texts)) + list(range(tb, tb + n_images)),
-        )
 
     # ---------------------------------------------------------------- binary
 

@@ -344,6 +344,15 @@ class SiglipModel(nn.Module):
 
         return get_image_features_naflex(self, patches, pixel_mask, spatial_shapes)
 
+    def image_features(self, *inputs: torch.Tensor) -> torch.Tensor:
+        """The vision tower in this model's input format: NaFlex's (patches,
+        masks, patch grids) through :meth:`get_image_features_naflex`,
+        otherwise square uint8 pixels through :meth:`get_image_features`.
+        The entry is looked up at call time, so a replacement set on the
+        instance is the one that runs."""
+        name = "get_image_features_naflex" if self.cfg.vision.naflex else "get_image_features"
+        return getattr(self, name)(*inputs)
+
     @torch.inference_mode()
     def get_text_features(
         self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None

@@ -4,9 +4,9 @@ tpuclip answers a serving request with one jitted XLA program per ladder
 bucket: tower, int8 scan and rescore compiled together. Eager PyTorch
 instead launches each of a tower's hundreds of kernels from Python, one at a
 time. The port's counterpart of one compiled program is one captured
-``torch.cuda.CUDAGraph``: :class:`FusedGraphs` keeps one per (program, text
-bucket, image bucket, k, shortlist method), which the index builds as the
-key, and launches the whole program with one replay.
+``torch.cuda.CUDAGraph``: :class:`FusedGraphs` keeps one per (text bucket,
+image bucket, k, shortlist method), which the index builds as the key, and
+launches the whole program with one replay.
 
 - Static inputs live on the device (token ids and mask ``(B, 64)``, pixels
   ``(B, S, S, 3)`` uint8), and so do the static outputs (``(Q, k)`` scores

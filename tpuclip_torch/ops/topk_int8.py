@@ -31,8 +31,7 @@ Without the resident rows the int8 matrix comes from the fp32 originals
 (:func:`quantize_matrix`) and one query is quantized on the host
 (:func:`quantize_query`), as tpuclip does.
 
-:func:`text_topk_fused`, :func:`image_topk_fused` and
-:func:`mixed_topk_fused` put a tower in front of
+:func:`query_topk_fused` puts the towers in front of
 :func:`topk_int8_rerank_fused`: tpuclip's fused query programs, which the
 index runs as CUDA graphs (``tpuclip_torch.ops.graphs``).
 
@@ -49,7 +48,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -760,149 +759,49 @@ def topk_int8_rerank_fused_auto(
 
 
 # =============================================================================
-# Tower → scan → rescore programs
+# Tower → scan → rescore program
 # =============================================================================
-#
-# tpuclip's fused programs (``text_topk_fused`` & co.) jit the tower and the
-# search into one XLA program. Here each is a plain function of the port's
-# ``SiglipModel``: eager on the CPU, and on CUDA captured once per shape as a
-# CUDA graph (``tpuclip_torch.ops.graphs``), which is the port's counterpart
-# of one compiled program. Under ``verified`` with ``keep_scores`` each
-# returns, as tpuclip's, the proof flag, the resident scores and the fp32
-# query embedding, so that a proof miss re-runs neither the tower nor the
-# scan; ``scores_out`` is the index's buffer that kernel 1 writes the
-# scores into, shared by every captured program.
 
 
-def _fused_embedding_tail(out: tuple, emb: torch.Tensor, shortlist_method: str, keep_scores: bool) -> tuple:
-    """The fused programs' extra output (tpuclip's): with ``keep_scores``
-    under ``verified``, the fp32 query embedding follows the scores."""
-    if keep_scores and shortlist_method == "verified":
-        return out + (emb.float(),)
-    return out
-
-
-def _fused_search(emb, m_int8, scales, rows_full, k, n_valid, shortlist, shortlist_method, keep_scores, scores_out):
+@torch.inference_mode()
+def query_topk_fused(
+    model,
+    text_inputs: Sequence[torch.Tensor],
+    image_inputs: Sequence[torch.Tensor],
+    m_int8: torch.Tensor,
+    scales: torch.Tensor,
+    rows_full: torch.Tensor,
+    k: int,
+    n_valid: Optional[int] = None,
+    shortlist: int = 512,
+    shortlist_method: str = "extract",
+    keep_scores: bool = False,
+    scores_out: Optional[torch.Tensor] = None,
+) -> tuple:
+    """The towers, then ONE :func:`topk_int8_rerank_fused` over the query
+    block: ((Q, k) f32 scores, (Q, k) int64 rows). ``text_inputs`` is ()
+    or (token ids (Tb, 64), mask); ``image_inputs`` is () or the vision
+    tower's Ib rows in the model's format (``model.image_features``). The
+    block holds the texts at [0, Tb) and the images at [Tb, Tb + Ib), so a
+    mixed serve window reads the int8 matrix once. tpuclip's fused query
+    programs jit this into one XLA program; here it is eager on the CPU
+    and, on CUDA, captured once per shape as a CUDA graph
+    (``tpuclip_torch.ops.graphs``). The embedding never leaves the device;
+    results equal embed-then-search on the same block. Under ``verified``
+    the proof flag follows, and with ``keep_scores`` the resident (Q, N)
+    scores and the fp32 embedding, so that a proof miss re-runs neither
+    the tower nor the scan; ``scores_out`` is the index's buffer that
+    kernel 1 writes the scores into, shared by every captured program."""
+    parts = []
+    if text_inputs:
+        parts.append(model.get_text_features(*text_inputs))
+    if image_inputs:
+        parts.append(model.image_features(*image_inputs))
+    emb = parts[0] if len(parts) == 1 else torch.cat(parts)
     out = topk_int8_rerank_fused(
         emb, m_int8, scales, rows_full, k, shortlist=shortlist, n_valid=n_valid,
         shortlist_method=shortlist_method, keep_scores=keep_scores, scores_out=scores_out,
     )
-    return _fused_embedding_tail(out, emb, shortlist_method, keep_scores)
-
-
-@torch.inference_mode()
-def text_topk_fused(
-    model,
-    ids: torch.Tensor,
-    attn_mask: torch.Tensor,
-    m_int8: torch.Tensor,
-    scales: torch.Tensor,
-    rows_full: torch.Tensor,
-    k: int,
-    n_valid: Optional[int] = None,
-    shortlist: int = 512,
-    shortlist_method: str = "extract",
-    keep_scores: bool = False,
-    scores_out: Optional[torch.Tensor] = None,
-) -> tuple:
-    """(B, 64) token ids + mask → text tower → :func:`topk_int8_rerank_fused`:
-    ((B, k) f32 scores, (B, k) int64 rows). The embedding never leaves the
-    device; results equal embed-then-search on the same batch. Under
-    ``verified`` the proof flag follows, and with ``keep_scores`` the
-    resident (B, N) scores and the fp32 embedding."""
-    emb = model.get_text_features(ids, attn_mask)
-    return _fused_search(emb, m_int8, scales, rows_full, k, n_valid, shortlist, shortlist_method, keep_scores, scores_out)
-
-
-@torch.inference_mode()
-def image_topk_fused(
-    model,
-    pixels: torch.Tensor,
-    m_int8: torch.Tensor,
-    scales: torch.Tensor,
-    rows_full: torch.Tensor,
-    k: int,
-    n_valid: Optional[int] = None,
-    shortlist: int = 512,
-    shortlist_method: str = "extract",
-    keep_scores: bool = False,
-    scores_out: Optional[torch.Tensor] = None,
-) -> tuple:
-    """(B, S, S, 3) uint8 pixels → vision tower → the same search and
-    outputs as :func:`text_topk_fused`."""
-    emb = model.get_image_features(pixels)
-    return _fused_search(emb, m_int8, scales, rows_full, k, n_valid, shortlist, shortlist_method, keep_scores, scores_out)
-
-
-@torch.inference_mode()
-def mixed_topk_fused(
-    model,
-    ids: torch.Tensor,
-    attn_mask: torch.Tensor,
-    pixels: torch.Tensor,
-    m_int8: torch.Tensor,
-    scales: torch.Tensor,
-    rows_full: torch.Tensor,
-    k: int,
-    n_valid: Optional[int] = None,
-    shortlist: int = 512,
-    shortlist_method: str = "extract",
-    keep_scores: bool = False,
-    scores_out: Optional[torch.Tensor] = None,
-) -> tuple:
-    """Both towers, then ONE search over the (Tb + Ib, D) query block, texts
-    first: output rows [0, Tb) answer the texts, [Tb, Tb + Ib) the images.
-    A mixed serve window reads the int8 matrix once instead of twice. The
-    outputs of :func:`text_topk_fused`, the embedding being the block's."""
-    emb = torch.cat([model.get_text_features(ids, attn_mask), model.get_image_features(pixels)])
-    return _fused_search(emb, m_int8, scales, rows_full, k, n_valid, shortlist, shortlist_method, keep_scores, scores_out)
-
-
-@torch.inference_mode()
-def naflex_image_topk_fused(
-    model,
-    patches: torch.Tensor,
-    pixel_mask: torch.Tensor,
-    spatial_shapes: torch.Tensor,
-    m_int8: torch.Tensor,
-    scales: torch.Tensor,
-    rows_full: torch.Tensor,
-    k: int,
-    n_valid: Optional[int] = None,
-    shortlist: int = 512,
-    shortlist_method: str = "extract",
-    keep_scores: bool = False,
-    scores_out: Optional[torch.Tensor] = None,
-) -> tuple:
-    """:func:`image_topk_fused` for the NaFlex towers: uint8 patches
-    (B, L, P*P*C), mask (B, L) and patch grids (B, 2) → NaFlex vision tower
-    → the same search."""
-    emb = model.get_image_features_naflex(patches, pixel_mask, spatial_shapes)
-    return _fused_search(emb, m_int8, scales, rows_full, k, n_valid, shortlist, shortlist_method, keep_scores, scores_out)
-
-
-@torch.inference_mode()
-def mixed_naflex_topk_fused(
-    model,
-    ids: torch.Tensor,
-    attn_mask: torch.Tensor,
-    patches: torch.Tensor,
-    pixel_mask: torch.Tensor,
-    spatial_shapes: torch.Tensor,
-    m_int8: torch.Tensor,
-    scales: torch.Tensor,
-    rows_full: torch.Tensor,
-    k: int,
-    n_valid: Optional[int] = None,
-    shortlist: int = 512,
-    shortlist_method: str = "extract",
-    keep_scores: bool = False,
-    scores_out: Optional[torch.Tensor] = None,
-) -> tuple:
-    """:func:`mixed_topk_fused` for the NaFlex towers: the text tower, the
-    NaFlex vision tower, then ONE search over the texts-first query block."""
-    emb = torch.cat([
-        model.get_text_features(ids, attn_mask),
-        model.get_image_features_naflex(patches, pixel_mask, spatial_shapes),
-    ])
-    return _fused_search(emb, m_int8, scales, rows_full, k, n_valid, shortlist, shortlist_method, keep_scores, scores_out)
+    if keep_scores and shortlist_method == "verified":
+        return out + (emb.float(),)
+    return out

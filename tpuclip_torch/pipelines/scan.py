@@ -15,8 +15,8 @@ Differences from the reference, shared with tpuclip:
   are queued, not waited for); the host commits batch N-1 to SQLite while
   the device works. The drain's ``.cpu()`` is the barrier.
 - NaFlex models take native-aspect patch batches (patches, masks, patch
-  grids) from the prefetcher and embed them with
-  ``get_image_features_naflex``.
+  grids) from the prefetcher; every batch goes through the model's one
+  vision entry (``SiglipModel.image_features``).
 """
 
 from __future__ import annotations
@@ -393,17 +393,14 @@ def scan_directory(
                 continue
 
             # Dispatch this batch (async), then drain the previous one while
-            # the device works.
-            host = [batch.pixels] if naflex_cfg is None else [batch.pixels, batch.masks, batch.shapes]
+            # the device works. Square batches carry no masks or grids.
+            host = [x for x in (batch.pixels, batch.masks, batch.shapes) if x is not None]
             inputs = []
             for x in map(torch.from_numpy, host):
                 if engine.device.type == "cuda":
                     x = x.pin_memory()
                 inputs.append(x.to(engine.device, non_blocking=True))
-            if naflex_cfg is None:
-                emb_dev = engine.model.get_image_features(*inputs)
-            else:
-                emb_dev = engine.model.get_image_features_naflex(*inputs)
+            emb_dev = engine.model.image_features(*inputs)
             if pending_embed is not None:
                 # Clear BEFORE draining: a Ctrl-C landing mid-drain must not
                 # let the interrupt handler drain the same batch again
