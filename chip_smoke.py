@@ -62,12 +62,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    two designs alone (mma.sync and the Hopper one) in turns at every
    caller's shape, each within P's rounding, with the design the shape
    rule takes, and the Hopper design's registers and spills by
-   ``nvcc -Xptxas -v``;
+   ``nvcc -Xptxas -v``; and the residual add + LayerNorm (kernel 10) at D
+   1152 and 65,536, 46,656 and 4,096 rows, with and without the pending
+   residual: x_out bit-equal to PyTorch's add, y within one bf16 step of
+   F.layer_norm, the kernel alone, the wrapper, the plain version and
+   torch.add + F.layer_norm timed after an L2 flush each, with the byte
+   bound's share, and its registers and spills;
 4. end to end through the entry points: 512 seeded JPEGs, ``scan`` and
    ``search "a red car" -k 20 --no-session`` through tpuclip_torch.cli, and
    ``ImageDatabase.search_texts`` on 4 texts, with SigLIP2 SO400M-patch14-224
    at full width and random weights (TPUCLIP_INIT=random), bf16. Both int8
-   kernel launch counters and kernel 9's must rise in this phase; the CLI's results must
+   kernel launch counters and kernels 9's and 10's must rise in this phase; the CLI's results must
    match a brute-force rescore of the database, the batch's the plain
    route's, and embeddings must be unit-norm;
 5. the other search paths end to end on phase 4's database: ``search
@@ -275,13 +280,15 @@ phase 17's 384 px path (its graph and reference checks not counted), its ``launc
 references and timing loops are not counted), its ``launches_shortlist``
 phase 15's (its checks and timing loops not counted) and its
 ``launches_tp`` phase 16's (the one-device references not counted); each count is zeroed just
-before its path runs; kernel 9 (``attention``) runs wherever a tower
+before its path runs; kernels 9 (``attention``) and 10
+(``add_layer_norm``, 55 launches a tower call) run wherever a tower
 embeds with bf16 weights and no gradient, and training's phase 13 counts
 none (its inference checks are not counted). ``library_ms`` is null
 (no single PyTorch call computes any of these functions) but for kernel
-9's, ``scaled_dot_product_attention``, a yardstick the port never calls; and
+9's, ``scaled_dot_product_attention``, a yardstick the port never calls,
+and kernel 10's, ``torch.add`` + ``F.layer_norm``, the calls it replaced; and
 ``nearest_ms`` times the nearest route of PyTorch calls, where there is
-one (kernel 1's: ``torch._int_mm`` at Q = 32, then the scales). Kernels 4 and 8 also carry ``kernel_ms``, the kernel's own launch
+one (kernel 1's: ``torch._int_mm`` at Q = 32, then the scales). Kernels 4, 8 and 10 also carry ``kernel_ms``, the kernel's own launch
 (``ms`` is the wrapper's).
 """
 
@@ -317,6 +324,9 @@ N_ROWS_4M = 4_000_000  # past the rerank gate (~2.31M rows): kernel 3's route is
 HBM_BYTES_PER_S = 3.35e12
 # Kernel 9's launch counters: every launch, and the Hopper design's share.
 KERNEL_9 = ("attention", "attention_sm90")
+# The kernels every bf16 tower call launches: kernel 9 and kernel 10 (the
+# residual add and LayerNorm).
+TOWER_KERNELS = KERNEL_9 + ("add_layer_norm",)
 PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "popc": 16 * 132 * 1.98e9}
 
 
@@ -1168,37 +1178,44 @@ def attention_case(aops, gpu, b, s, masked, seed):
     return {**record, "library_ms": library, "ms_masked": ms_masked, "ms_map_head": ms_head, "bound_share": share}
 
 
-def attention_ptxas(gpu):
-    """``nvcc -Xptxas -v`` on the Hopper design's source with the build's
-    flags: each instantiation's registers and spills, and any wgmma
-    serialization the compiler reports (C7510-C7520). Returns them."""
+def ptxas_report(gpu, source, pattern, label):
+    """``nvcc -Xptxas -v`` on ``source`` (a file of ``csrc/``) with the
+    build's flags: each instantiation whose mangled name matches ``pattern``
+    (named by ``label`` formatted with its groups) with its registers and
+    spills, and any wgmma serialization the compiler reports (C7510-C7520).
+    Prints one line; returns {"kernels": ..., "remarks": ...}."""
     import re
 
     from tpuclip_torch.ops import _build
 
-    src = _build.SOURCES[[x.name for x in _build.SOURCES].index("attention_sm90.cu")]
+    src = _build.SOURCES[[x.name for x in _build.SOURCES].index(source)]
     with tempfile.TemporaryDirectory(prefix="ptxas_") as tmp:
         proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", f"{tmp}/lib.so", str(src)],
                               capture_output=True, text=True, timeout=600)
     check(proc.returncode == 0, f"nvcc -Xptxas -v on {src.name} failed:\n{proc.stderr[-3000:]}")
     kernels, name = {}, None
     for line in proc.stderr.splitlines():
-        found = re.search(r"attention_sm90_kernelILi(\d+)ELb(\d)E", line)
+        found = re.search(pattern, line)
         if "Compiling entry function" in line and found:
-            name = f"<{found.group(1)}, bias={found.group(2)}>"
+            name = label.format(*found.groups())
         elif name and "spill stores" in line:
             kernels[name] = {"spill_stores": int(re.search(r"(\d+) bytes spill stores", line).group(1)),
                              "spill_loads": int(re.search(r"(\d+) bytes spill loads", line).group(1))}
         elif name and "Used" in line and "registers" in line:
             kernels[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
-    serialized = sorted({f"<{m.group(1)}, bias={m.group(2)}> {code}"
-                         for line in proc.stderr.splitlines() if "C75" in line
-                         for code in re.findall(r"\((C75\d\d)\)", line)
-                         for m in [re.search(r"attention_sm90_kernelILi(\d+)ELb(\d)E", line)] if m})
-    print(f"[kernels] attention_sm90.cu -Xptxas -v: " + "; ".join(
+    remarks = sorted({f"{label.format(*m.groups())} {code}"
+                      for line in proc.stderr.splitlines() if "C75" in line
+                      for code in re.findall(r"\((C75\d\d)\)", line)
+                      for m in [re.search(pattern, line)] if m})
+    print(f"[kernels] {source} -Xptxas -v: " + "; ".join(
         f"{k} {v['registers']} registers, {v['spill_stores']} / {v['spill_loads']} bytes spilled (stores / loads)"
-        for k, v in kernels.items()) + f"; compiler remarks: {', '.join(serialized) or 'none'}  ({gpu})", flush=True)
-    return {"kernels": kernels, "remarks": serialized}
+        for k, v in kernels.items()) + f"; compiler remarks: {', '.join(remarks) or 'none'}  ({gpu})", flush=True)
+    return {"kernels": kernels, "remarks": remarks}
+
+
+def attention_ptxas(gpu):
+    """The Hopper design's registers and spills (:func:`ptxas_report`)."""
+    return ptxas_report(gpu, "attention_sm90.cu", r"attention_sm90_kernelILi(\d+)ELb(\d)E", "<{}, bias={}>")
 
 
 # Kernel 9's launches in the benchmark's cells and the towers' other
@@ -1292,6 +1309,105 @@ def phase_attention(aops, gpu):
     torch.cuda.empty_cache()
     record["designs"] = attention_designs(aops, gpu)
     record["ptxas"] = attention_ptxas(gpu)
+    return record
+
+
+# Kernel 10's row counts at D 1152: a 224 or NaFlex call of 256 images, a
+# 384 call of 64 images, a text call of 64 texts.
+ADD_LN_ROWS = (65_536, 46_656, 4_096)
+L2_FLUSH_BYTES = 256 << 20  # past the H100's 50 MB L2
+
+
+def cold_p50_ms(fn, reps, flush):
+    """Median CUDA-event time of ``fn`` over ``reps`` launches, each after
+    ``flush`` (a write of more than the L2 cache holds) and outside its
+    events: every launch finds its inputs in device memory, as a tower's
+    pass finds most of them, and the host enqueues the launch while the
+    flush runs."""
+    fn()
+    times = []
+    for _ in range(reps):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_add_layernorm(lops, gpu):
+    """Phase 3, kernel 10 at D 1152 and the cells' row counts
+    (:data:`ADD_LN_ROWS`), with the pending residual and without (the first
+    LN1): x_out bit-equal to PyTorch's bf16 add, y within one bf16 step of
+    ``F.layer_norm`` of it (plus 1e-5 near zero, for the statistics' other
+    summation order); the kernel alone (its C entry, outputs allocated
+    outside the timed launch), the wrapper, the plain version and
+    ``torch.add`` + ``F.layer_norm`` (the nearest PyTorch calls, which the
+    port no longer makes), each launch after an L2 flush, p50 of 20; then
+    the compiler's registers and spills. The record is the 65,536-row fused
+    case's, every case under ``cases``."""
+    from tpuclip_torch.ops._build import library
+
+    dev = torch.device("cuda")
+    lib = library()
+    scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    flush = scratch.zero_
+    stream = torch.cuda.current_stream().cuda_stream
+    d, eps = DIM, 1e-6
+    cases = {}
+    for rows in ADD_LN_ROWS:
+        gen = torch.Generator(device=dev).manual_seed(rows)
+        x = (torch.randn((rows, d), generator=gen, device=dev) * 3
+             + torch.randn((rows, 1), generator=gen, device=dev)).to(torch.bfloat16)
+        delta = torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16)
+        w = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(torch.bfloat16)
+        b = (0.1 * torch.randn(d, generator=gen, device=dev)).to(torch.bfloat16)
+        x_out, y = torch.empty_like(x), torch.empty_like(x)
+        for with_delta in (True, False):
+            dx = delta if with_delta else None
+            got_x, got_y = lops.add_layer_norm(x, dx, w, b, eps)
+            want_x, want_y = lops.add_layer_norm_plain(x, dx, w, b, eps)
+            check(torch.equal(got_x, want_x), f"add_layer_norm rows={rows}: x_out is not PyTorch's bf16 add")
+            err = (got_y.float() - want_y.float()).abs()
+            _, exp = torch.frexp(want_y.float())
+            step = torch.ldexp(torch.ones_like(err), exp - 8)
+            check(bool((err <= step + 1e-5).all()),
+                  f"add_layer_norm rows={rows} delta={with_delta}: y more than one bf16 step off "
+                  f"(max diff {err.max().item():.2e})")
+            args = (x.data_ptr(), dx.data_ptr() if with_delta else 0, w.data_ptr(), b.data_ptr(),
+                    x_out.data_ptr() if with_delta else 0, y.data_ptr(), rows, d, eps, stream)
+
+            def kernel(args=args):
+                check(lib.tpuclip_add_layernorm(*args) == 0, "add_layernorm launch failed")
+
+            kernel_ms = cold_p50_ms(kernel, 20, flush)
+            ms = cold_p50_ms(lambda: lops.add_layer_norm(x, dx, w, b, eps), 20, flush)
+            plain = cold_p50_ms(lambda: lops.add_layer_norm_plain(x, dx, w, b, eps), 20, flush)
+            library_ms = cold_p50_ms(lambda: torch.nn.functional.layer_norm(
+                torch.add(x, dx) if with_delta else x, (d,), w, b, eps), 20, flush)
+            n_bytes = rows * d * 2 * (4 if with_delta else 2) + 2 * d * 2
+            record = {**entry(err.max().item(), ms, plain, n_bytes, 0, "bf16"),
+                      "kernel_ms": kernel_ms, "library_ms": library_ms,
+                      "bit_equal_share": float((err == 0).float().mean())}
+            record["bound_share"] = record["bound_ms"] / kernel_ms
+            cases[f"{rows}{'' if with_delta else '_ln_only'}"] = record
+            print(f"[kernels] add_layer_norm rows={rows:,} D={d} {'x + delta' if with_delta else 'no delta'}: "
+                  f"x_out bit-equal to the add, y within one bf16 step of F.layer_norm (max diff "
+                  f"{record['max_abs_err']:.2e}, {100 * record['bit_equal_share']:.4f}% bit-equal); "
+                  f"kernel alone p50 {kernel_ms:.4f} ms, {100 * record['bound_share']:.1f}% of the byte bound "
+                  f"{record['bound_ms']:.4f} ms ({n_bytes / kernel_ms / 1e6:.0f} GB/s); wrapper {ms:.4f} ms; plain "
+                  f"{plain:.4f} ms; torch.add + F.layer_norm {library_ms:.4f} ms (L2 flushed before each launch)  "
+                  f"({gpu})", flush=True)
+        del x, delta, x_out, y
+        torch.cuda.empty_cache()
+    del scratch
+    record = dict(cases[str(ADD_LN_ROWS[0])])
+    record["cases"] = cases
+    record["ptxas"] = ptxas_report(gpu, "add_layernorm.cu", r"add_layernorm_kernelILi(\d+)ELb(\d)E",
+                                   "<{} vectors a lane, delta={}>")
     return record
 
 
@@ -1414,12 +1530,13 @@ def check_brute_force(results, q, rows_bf16, row_of, what):
 
 
 def phase_end_to_end(mods, gpu, work):
-    """Phase 4: returns (launches of kernels 1, 2 and 9 (its Hopper design
-    also under ``attention_sm90``), database, model cache, engine)."""
+    """Phase 4: returns (launches of kernels 1, 2, 9 (its Hopper design
+    also under ``attention_sm90``) and 10, database, model cache, engine)."""
     ops = mods[0]
     from tpuclip_torch import cli
     from tpuclip_torch.engine import ImageDatabase
     from tpuclip_torch.ops.attention import attention, attention_sm90
+    from tpuclip_torch.ops.layernorm import add_layer_norm
 
     os.environ["TPUCLIP_HOME"] = str(work / "home")
     os.environ["TPUCLIP_INIT"] = "random"
@@ -1451,6 +1568,7 @@ def phase_end_to_end(mods, gpu, work):
         ops.int8_candidates_packed.launches = 0
         attention.launches = 0
         attention_sm90.launches = 0
+        add_layer_norm.launches = 0
         t0 = time.perf_counter()
         cli.main(["scan", str(root), "--db", db, "--model-cache", cache,
                   "--inference-batch-size", "64", "--profile"])
@@ -1466,6 +1584,7 @@ def phase_end_to_end(mods, gpu, work):
             "int8_candidates_packed": ops.int8_candidates_packed.launches,
             "attention": attention.launches,
             "attention_sm90": attention_sm90.launches,
+            "add_layer_norm": add_layer_norm.launches,
         }
     finally:
         ImageDatabase.scan_directory = original_scan
@@ -2590,8 +2709,9 @@ def phase_naflex(mods, gpu, work, resident):
     print(f"[naflex] kernel launches in this phase: {launches}; the fused search's runs: {runs}", flush=True)
     check(all(launches[name] == n > 0 for name, n in runs.items()),
           f"kernels 1 and 2 launched {launches}, not once per run of the search {runs}")
-    check(launches["attention"] > 0, f"the NaFlex towers did not launch kernel 9: {launches}")
-    check(all(n == 0 for name, n in launches.items() if name not in runs and name not in KERNEL_9),
+    check(launches["attention"] > 0 and launches["add_layer_norm"] > 0,
+          f"the NaFlex towers did not launch kernels 9 and 10: {launches}")
+    check(all(n == 0 for name, n in launches.items() if name not in runs and name not in TOWER_KERNELS),
           f"a kernel off the NaFlex path was launched: {launches}")
     check(not thread.is_alive() and not srv.batcher._thread.is_alive(), "the server did not shut down")
     check(all(code == 200 for code in statuses), f"statuses other than 200: {statuses}")
@@ -2767,7 +2887,7 @@ def phase_so400m_384(mods, gpu, work, resident):
     finally:
         ImageDatabase.scan_directory, ImageDatabase.generate_html_gallery = saved
     print(f"[so400m-384] kernel launches in this phase: {launches}", flush=True)
-    check(launches["attention"] > 0 and launches["int8_scores"] > 0,
+    check(launches["attention"] > 0 and launches["add_layer_norm"] > 0 and launches["int8_scores"] > 0,
           f"the 384 px towers or the int8 search did not launch their kernels: {launches}")
     check(engine.config.vision.num_patches == 729 and tuple(model.vision.pos_embed.shape) == (729, 1152),
           f"the 384 px preset is not 729 tokens at width 1152: {tuple(model.vision.pos_embed.shape)}")
@@ -3091,7 +3211,7 @@ def phase_ivf(mods, gpu, work, db):
     print(f"[ivf] kernel launches on the IVF path: {launches}; the probe's: {probes[0]}", flush=True)
     check(launches["int8_scores"] == probes[0] > 0, f"kernel 1 launched {launches['int8_scores']} times, "
           f"the probe {probes[0]}")
-    check(all(n == 0 for name, n in launches.items() if name != "int8_scores" and name not in KERNEL_9),
+    check(all(n == 0 for name, n in launches.items() if name != "int8_scores" and name not in TOWER_KERNELS),
           f"a kernel off the IVF path was launched: {launches}")
 
     # The kernel route against the route through kernel 1's plain version.
@@ -4337,6 +4457,7 @@ def main():
     from tpuclip_torch.ops import _build
     from tpuclip_torch.ops import attention as aops
     from tpuclip_torch.ops import hamming as hops
+    from tpuclip_torch.ops import layernorm as lops
     from tpuclip_torch.ops import patch_embed as pops
     from tpuclip_torch.ops import topk as tops
     from tpuclip_torch.ops import topk_int8 as ops
@@ -4369,6 +4490,8 @@ def main():
     record["patch_embed_fused"] = phase_patch_embed(pops, gpu, variants.get("patch_embed.cu"))
     torch.cuda.empty_cache()
     record["attention"] = phase_attention(aops, gpu)
+    torch.cuda.empty_cache()
+    record["add_layer_norm"] = phase_add_layernorm(lops, gpu)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches, db, cache, engine = phase_end_to_end(mods, gpu, Path(tmp))
@@ -4410,6 +4533,7 @@ def main():
         "patch_embed_fused": ("tpuclip_torch/csrc/patch_embed.cu", "tpuclip/ops/patch_embed.py:24"),
         "attention": ("tpuclip_torch/csrc/attention.cu", None),
         "attention_sm90": ("tpuclip_torch/csrc/attention_sm90.cu", None),
+        "add_layer_norm": ("tpuclip_torch/csrc/add_layernorm.cu", None),
     }
     # Kernel 9's Hopper design: its launches (a share of "attention"'s) and
     # phase 3's record of the two designs in turns.

@@ -1,0 +1,213 @@
+// The residual add and the LayerNorm after it, one pass (kernel 10), for
+// the PyTorch port's towers (NVIDIA Hopper, sm_90a).
+//
+// Built by tpuclip_torch/ops/_build.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+// into a plain-C shared library bound with ctypes; every pointer argument
+// and the stream are void*, the entry point returns cudaGetLastError().
+//
+// Replaces no TPU kernel: tpuclip leaves LayerNorm and the residual add to
+// XLA's fusion. Added because, once the GEMMs and attention were the port's
+// own (kernel 9), the towers' largest removable cost was PyTorch's separate
+// passes over the activations: each pre-LN block adds a sublayer's output
+// to the residual stream and the next LayerNorm reads that sum straight
+// back. At SO400M (D 1152, 27 layers) and 256 tokens an image, PyTorch's
+// LayerNorm ran at ~46% of its byte bound (0.0424 ms an image against
+// 0.0194) and the adds at ~94% of theirs (0.0304 against 0.0285):
+// 0.0728 ms of the ~0.5 ms an image took on the H100 at 700 W.
+//
+// What it computes, for rows of width D (bf16, contiguous):
+//   x_out = bf16(f32(x) + f32(delta))                    (delta null: x_out is x, not written)
+//   y     = bf16((x_out - mean) * rsqrt(var + eps) * f32(weight) + f32(bias))
+// with the mean and the biased variance taken in fp32 from the rounded
+// x_out, so x_out is bit-equal to PyTorch's bf16 add and y differs from
+// F.layer_norm only by the order of the row's sums (one bf16 step at most).
+//
+// What bounds it on the H100: bytes. A fused row reads x and delta and
+// writes x_out and y, 4 * D * 2 bytes; a row without delta reads x and
+// writes y, 2 * D * 2 bytes. Weight and bias (2 * D * 2 bytes) are read
+// once a block. There are ~10 flops a byte, far below the ridge.
+//
+// Design, for the bytes: one row per warp (2,304 bytes at D 1152), each
+// lane holding up to 6 16-byte vectors of it (D up to 6 * 32 * 8 = 1536,
+// giant-opt's width; the template takes ceil(D / 256)). All of a row's x and
+// delta loads are issued before any arithmetic, so the whole row is in
+// flight at once; the sum is rounded to bf16, stored, and kept in
+// registers, and the mean and then the variance (two passes over the
+// registers, no second read of memory) come from warp shuffles. Weight and
+// bias are loaded once per block into shared memory and kept across the
+// rows of a grid-stride loop over as many blocks as fit on the card at once
+// (held in registers instead, they took the kernel to 189 registers a
+// thread at D 1152, one block of 8 warps an SM: the fused pass ran as fast,
+// 84% of its bound at 65,536 rows, but the LayerNorm alone at 69% against
+// 80% with two blocks an SM at 128 registers; three blocks at 80 registers
+// spill and fell to 68% fused). Loads and stores are 16
+// bytes a lane, neighbouring lanes on neighbouring addresses. Row counts
+// run from 64 (one text query) to 65,536 (a 224 batch of 256); nothing
+// else of the shape varies, so one design serves them all.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <algorithm>
+#include <cstdint>
+
+namespace {
+
+constexpr int kWarps = 8;        // warps a block, one row each at a time
+constexpr int kBlocksPerSm = 2;  // the register budget: 128 a thread
+constexpr int kMaxVecs = 6;      // 16-byte vectors a lane: D up to 6 * 32 * 8 = 1536
+
+__device__ __forceinline__ void widen(const uint4& v, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ uint4 narrow(const float (&f)[8]) {
+  uint4 v;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float s) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+
+// kVecs: 16-byte vectors a lane (ceil(D / 256)); vecs = D / 8, the row's
+// vectors, lane l holding vectors l, l + 32, ... below vecs.
+template <int kVecs, bool kDelta>
+__global__ void __launch_bounds__(kWarps * 32, kBlocksPerSm)
+add_layernorm_kernel(const uint4* __restrict__ x, const uint4* __restrict__ delta,
+                     const uint4* __restrict__ weight, const uint4* __restrict__ bias,
+                     uint4* __restrict__ x_out, uint4* __restrict__ y, int rows, int vecs, float eps) {
+  __shared__ uint4 w[kVecs * 32], b[kVecs * 32];
+  for (int c = threadIdx.x; c < vecs; c += kWarps * 32) {
+    w[c] = __ldg(weight + c);
+    b[c] = __ldg(bias + c);
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const float inv_d = 1.0f / static_cast<float>(vecs * 8);
+  const int stride = gridDim.x * kWarps;
+  for (int row = blockIdx.x * kWarps + (threadIdx.x >> 5); row < rows; row += stride) {
+    const size_t base = static_cast<size_t>(row) * vecs;
+    uint4 xv[kVecs], dv[kVecs];
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      const int c = lane + 32 * i;
+      if (c < vecs) {
+        xv[i] = __ldg(x + base + c);
+        if (kDelta) dv[i] = __ldg(delta + base + c);
+      }
+    }
+    float v[kVecs][8];
+    float sum = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      const int c = lane + 32 * i;
+      if (c < vecs) {
+        widen(xv[i], v[i]);
+        if (kDelta) {
+          float d[8];
+          widen(dv[i], d);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v[i][j] += d[j];
+          const uint4 rounded = narrow(v[i]);
+          x_out[base + c] = rounded;
+          widen(rounded, v[i]);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) sum += v[i][j];
+      }
+    }
+    const float mean = warp_sum(sum) * inv_d;
+    float sq = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      if (lane + 32 * i < vecs) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float t = v[i][j] - mean;
+          sq += t * t;
+        }
+      }
+    }
+    const float rstd = rsqrtf(warp_sum(sq) * inv_d + eps);
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      const int c = lane + 32 * i;
+      if (c < vecs) {
+        float wf[8], bf[8], out[8];
+        widen(w[c], wf);
+        widen(b[c], bf);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) out[j] = wf[j] * (rstd * (v[i][j] - mean)) + bf[j];
+        y[base + c] = narrow(out);
+      }
+    }
+  }
+}
+
+template <int kVecs, bool kDelta>
+cudaError_t launch(const void* x, const void* delta, const void* weight, const void* bias, void* x_out, void* y,
+                   int rows, int vecs, float eps, cudaStream_t stream) {
+  auto kernel = add_layernorm_kernel<kVecs, kDelta>;
+  static int blocks_per_sm = 0;  // the occupancy calculator's, once per instantiation
+  if (blocks_per_sm == 0) {
+    int n = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kWarps * 32, 0);
+    if (err != cudaSuccess) return err;
+    blocks_per_sm = std::max(n, 1);
+  }
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int blocks = std::min((rows + kWarps - 1) / kWarps, std::max(sms, 1) * blocks_per_sm);
+  kernel<<<blocks, kWarps * 32, 0, stream>>>(
+      static_cast<const uint4*>(x), static_cast<const uint4*>(delta), static_cast<const uint4*>(weight),
+      static_cast<const uint4*>(bias), static_cast<uint4*>(x_out), static_cast<uint4*>(y), rows, vecs, eps);
+  return cudaGetLastError();
+}
+
+template <int kVecs>
+cudaError_t launch_width(const void* x, const void* delta, const void* weight, const void* bias, void* x_out,
+                         void* y, int rows, int vecs, float eps, cudaStream_t stream) {
+  return delta != nullptr ? launch<kVecs, true>(x, delta, weight, bias, x_out, y, rows, vecs, eps, stream)
+                          : launch<kVecs, false>(x, delta, weight, bias, x_out, y, rows, vecs, eps, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// x_out = x + delta and y = LayerNorm(x_out) * weight + bias for rows of
+// width d; every tensor bf16, contiguous and 16-byte aligned, weight and
+// bias (d,). delta and x_out both null: a plain LayerNorm of x into y.
+// d % 8 == 0 and 8 <= d <= 1536.
+int tpuclip_add_layernorm(const void* x, const void* delta, const void* weight, const void* bias, void* x_out,
+                          void* y, int rows, int d, float eps, void* stream) {
+  if (rows < 1 || d < 8 || d % 8 != 0 || d > kMaxVecs * 256 || (delta == nullptr) != (x_out == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int vecs = d / 8;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((vecs + 31) / 32) {
+    case 1: return static_cast<int>(launch_width<1>(x, delta, weight, bias, x_out, y, rows, vecs, eps, s));
+    case 2: return static_cast<int>(launch_width<2>(x, delta, weight, bias, x_out, y, rows, vecs, eps, s));
+    case 3: return static_cast<int>(launch_width<3>(x, delta, weight, bias, x_out, y, rows, vecs, eps, s));
+    case 4: return static_cast<int>(launch_width<4>(x, delta, weight, bias, x_out, y, rows, vecs, eps, s));
+    case 5: return static_cast<int>(launch_width<5>(x, delta, weight, bias, x_out, y, rows, vecs, eps, s));
+    default: return static_cast<int>(launch_width<6>(x, delta, weight, bias, x_out, y, rows, vecs, eps, s));
+  }
+}
+
+}  // extern "C"

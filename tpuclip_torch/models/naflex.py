@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from tpuclip_torch.models.siglip import dense, normalize_pixels
+from tpuclip_torch.models.siglip import add_norm, dense, normalize_pixels
 from tpuclip_torch.utils.profiling import span
 
 
@@ -97,9 +97,9 @@ def vision_forward_naflex(
         x = x + resize_position_embeddings(pos_grid, spatial_shapes, cfg.max_num_patches).to(x.dtype)
         keep = pixel_mask.to(torch.float32)
         mask4d = ((1.0 - keep) * torch.finfo(torch.float32).min)[:, None, None, :]
-    x = tower.encoder(x, mask4d)
+    x, delta = tower.encoder(x, mask4d)
     with span("tower.head"):
-        return tower.head(tower.post_ln(x), mask4d)
+        return tower.head(add_norm(x, delta, tower.post_ln)[1], mask4d)
 
 
 def get_image_features_naflex(

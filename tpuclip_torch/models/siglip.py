@@ -17,6 +17,14 @@ Port of ``tpuclip/models/siglip.py`` with the same numerics contract:
   memory took over half the tower's time. Everywhere else (the CPU, fp32,
   training) it is explicit matmuls, as the JAX tower's einsum is, which
   autograd differentiates;
+- each residual add and the LayerNorm after it (:func:`add_norm`) are one
+  hand-written pass on the card (kernel 10,
+  :func:`tpuclip_torch.ops.layernorm.add_layer_norm`) for bf16 inputs that
+  need no gradient: the encoder layers carry the MLP's output as a pending
+  residual, which the next layer's first LayerNorm, or the tower's final
+  one, adds as it reads the stream. The sum is rounded once, as the add
+  rounds it, and the statistics come from the rounded sum. Everywhere else
+  it is the add, then ``F.layer_norm``;
 - the patch embedding is a reshape into (B, patches, P*P*C) patch rows in
   (ph, pw, c) order followed by one GEMM, on uint8 NHWC input normalised
   as x/127.5 - 1 inside the tower.
@@ -40,7 +48,7 @@ from __future__ import annotations
 
 import math
 from contextlib import contextmanager
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,6 +57,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tpuclip_torch.models.configs import SiglipConfig, TextConfig, VisionConfig
 from tpuclip_torch.ops.attention import attention, attention_plain
+from tpuclip_torch.ops.layernorm import add_layer_norm, add_layer_norm_plain
 from tpuclip_torch.utils.profiling import span
 
 # =============================================================================
@@ -80,6 +89,24 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+def add_norm(
+    x: torch.Tensor, delta: Optional[torch.Tensor], ln: LayerNorm
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pending residual ``delta`` added to ``x`` (``delta`` None: none)
+    and LayerNorm ``ln`` of the sum: ``(x + delta, ln(x + delta))``.
+
+    bf16 on CUDA with no gradient goes to
+    :func:`~tpuclip_torch.ops.layernorm.add_layer_norm` (kernel 10, one
+    pass); fp32, the CPU and anything autograd must differentiate to the add
+    and ``F.layer_norm`` of
+    :func:`~tpuclip_torch.ops.layernorm.add_layer_norm_plain`."""
+    args = (x, delta, ln.weight, ln.bias, ln.eps)
+    grad = torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args[:4])
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16 or grad:
+        return add_layer_norm_plain(*args)
+    return add_layer_norm(*args)
 
 
 def _key_bias(mask: Optional[torch.Tensor], batch: int, sk: int) -> Optional[torch.Tensor]:
@@ -146,7 +173,8 @@ class MLP(nn.Module):
 
 
 class EncoderLayer(nn.Module):
-    """Pre-LN block (SiglipEncoderLayer): x += attn(LN1(x)); x += mlp(LN2(x))."""
+    """Pre-LN block (SiglipEncoderLayer): x += attn(LN1(x)); x += mlp(LN2(x)),
+    with the MLP's add left pending for the next LayerNorm (:func:`add_norm`)."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -156,10 +184,15 @@ class EncoderLayer(nn.Module):
         self.ln2 = LayerNorm(d, cfg.layer_norm_eps)
         self.mlp = MLP(d, cfg.intermediate_size)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        y = self.ln1(x)
-        x = x + self.attn(y, y, mask)
-        return x + self.mlp(self.ln2(x))
+    def forward(
+        self, x: torch.Tensor, delta: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The residual stream ``x`` and the previous layer's pending MLP
+        output ``delta`` (None for the first layer) → this layer's stream
+        after attention and its MLP output, still to be added."""
+        x, h = add_norm(x, delta, self.ln1)
+        x, h = add_norm(x, self.attn(h, h, mask), self.ln2)
+        return x, self.mlp(h)
 
 
 class Encoder(nn.Module):
@@ -170,13 +203,18 @@ class Encoder(nn.Module):
         # recomputed in the backward pass instead of kept.
         self.remat = False
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """→ ``(x, delta)``: the stream and the last layer's MLP output, whose
+        add the caller folds into its final LayerNorm (:func:`add_norm`)."""
+        delta = None
         for layer in self.layers:
             if self.remat and torch.is_grad_enabled():
-                x = checkpoint(layer, x, mask, use_reentrant=False)
+                x, delta = checkpoint(layer, x, delta, mask, use_reentrant=False)
             else:
-                x = layer(x, mask)
-        return x
+                x, delta = layer(x, delta, mask)
+        return x, delta
 
 
 @contextmanager
@@ -263,9 +301,9 @@ class VisionTower(nn.Module):
         with span("tower.patch"):
             x = self.patch_embed(normalize_pixels(pixel_values, dtype))
             x = x + self.pos_embed.to(x.dtype)
-        x = self.encoder(x)
+        x, delta = self.encoder(x)
         with span("tower.head"):
-            return self.head(self.post_ln(x))
+            return self.head(add_norm(x, delta, self.post_ln)[1])
 
 
 # =============================================================================
@@ -301,7 +339,7 @@ class TextTower(nn.Module):
         if attention_mask is not None:
             keep = attention_mask.float()
             mask4d = ((1.0 - keep) * torch.finfo(torch.float32).min)[:, None, None, :]
-        hidden = self.final_ln(self.encoder(x, mask4d))
+        hidden = add_norm(*self.encoder(x, mask4d), self.final_ln)[1]
         return dense(hidden[:, -1, :], self.head)
 
 
