@@ -259,7 +259,26 @@ Phases, each printing its own lines; any failure exits non-zero:
    bit-equal to eager, and its rows and ``embed_images_uint8``'s (batch 64)
    within the ``embed.so400m-384.b64`` cell's ``max_row_dist`` of the plain
    fp32 reference (``bench_port/reference/siglip_ref.py``); the graphs'
-   and eager device p50s and the tower's at batch 64.
+   and eager device p50s and the tower's at batch 64;
+18. DINOv2 with registers at 518 px, after phase 17: (a) kernel 11
+   (``silu_mul``, SwiGLU's gate) at one ``embed.dinov2-g-518.b32`` call's
+   43,968 rows of 2 x 4,096 within one bf16 step of its plain version, and
+   kernel 10 at D 1536 with LayerScale's scale and without (x_out bit-equal
+   to the plain version, y within one bf16 step), each kernel alone after
+   an L2 flush (p50 of 20) against its byte bound, with the wrapper, the
+   plain version and the nearest PyTorch calls; their registers and
+   spills; (b) ``facebook/dinov2-with-registers-giant`` (37 x 37 patches
+   + 1 class + 4 registers = 1,374 tokens, random weights, bf16), 64
+   seeded JPEGs resized to 518 x 518: ``scan --inference-batch-size 32``
+   and ``search --image`` through tpuclip_torch.cli against a brute force
+   over the stored rows (the query image first, rows unit-norm, 1536-d), a
+   text search refused with exit code 2, ``search_image_pil`` through the
+   index's image graph against the two-stage route, 81 launches of kernel
+   10 and 40 of kernel 11 a tower call; then, with the benchmark's seeded
+   weights (``bench_port/drivers/embed_dinov2.py``) in the model,
+   ``embed_images_uint8``'s rows (batch 32) within the cell's
+   ``max_row_dist`` of the plain fp32 reference
+   (``bench_port/reference/dinov2_ref.py``), and the tower's p50 at batch 32.
 
 The last two lines are the kernels' JSON record and then
 ``{"ok": true, "device": {...}}``. Kernel 7 has two records, at Q = 4,
@@ -279,7 +298,8 @@ phase 17's 384 px path (its graph and reference checks not counted), its ``launc
 ``launches_mesh`` phase 14's mesh path (one run of each case: the
 references and timing loops are not counted), its ``launches_shortlist``
 phase 15's (its checks and timing loops not counted) and its
-``launches_tp`` phase 16's (the one-device references not counted); each count is zeroed just
+``launches_tp`` phase 16's (the one-device references not counted), its ``launches_dinov2``
+phase 18's DINOv2 path (its checks and timing not counted); each count is zeroed just
 before its path runs; kernels 9 (``attention``) and 10
 (``add_layer_norm``, 55 launches a tower call) run wherever a tower
 embeds with bf16 weights and no gradient, and training's phase 13 counts
@@ -288,8 +308,10 @@ none (its inference checks are not counted). ``library_ms`` is null
 9's, ``scaled_dot_product_attention``, a yardstick the port never calls,
 and kernel 10's, ``torch.add`` + ``F.layer_norm``, the calls it replaced; and
 ``nearest_ms`` times the nearest route of PyTorch calls, where there is
-one (kernel 1's: ``torch._int_mm`` at Q = 32, then the scales). Kernels 4, 8 and 10 also carry ``kernel_ms``, the kernel's own launch
-(``ms`` is the wrapper's).
+one (kernel 1's: ``torch._int_mm`` at Q = 32, then the scales; kernel
+11's: ``F.silu`` of the first half times the second). Kernels 4, 8, 10 and
+11 also carry ``kernel_ms``, the kernel's own launch (``ms`` is the
+wrapper's).
 """
 
 import argparse
@@ -1377,7 +1399,7 @@ def phase_add_layernorm(lops, gpu):
             check(bool((err <= step + 1e-5).all()),
                   f"add_layer_norm rows={rows} delta={with_delta}: y more than one bf16 step off "
                   f"(max diff {err.max().item():.2e})")
-            args = (x.data_ptr(), dx.data_ptr() if with_delta else 0, w.data_ptr(), b.data_ptr(),
+            args = (x.data_ptr(), dx.data_ptr() if with_delta else 0, 0, w.data_ptr(), b.data_ptr(),
                     x_out.data_ptr() if with_delta else 0, y.data_ptr(), rows, d, eps, stream)
 
             def kernel(args=args):
@@ -1406,8 +1428,8 @@ def phase_add_layernorm(lops, gpu):
     del scratch
     record = dict(cases[str(ADD_LN_ROWS[0])])
     record["cases"] = cases
-    record["ptxas"] = ptxas_report(gpu, "add_layernorm.cu", r"add_layernorm_kernelILi(\d+)ELb(\d)E",
-                                   "<{} vectors a lane, delta={}>")
+    record["ptxas"] = ptxas_report(gpu, "add_layernorm.cu", r"add_layernorm_kernelILi(\d+)ELb(\d)ELb(\d)E",
+                                   "<{} vectors a lane, delta={}, scale={}>")
     return record
 
 
@@ -1531,12 +1553,14 @@ def check_brute_force(results, q, rows_bf16, row_of, what):
 
 def phase_end_to_end(mods, gpu, work):
     """Phase 4: returns (launches of kernels 1, 2, 9 (its Hopper design
-    also under ``attention_sm90``) and 10, database, model cache, engine)."""
+    also under ``attention_sm90``), 10 and 11 (none: SigLIP has no SwiGLU
+    gate), database, model cache, engine)."""
     ops = mods[0]
     from tpuclip_torch import cli
     from tpuclip_torch.engine import ImageDatabase
     from tpuclip_torch.ops.attention import attention, attention_sm90
     from tpuclip_torch.ops.layernorm import add_layer_norm
+    from tpuclip_torch.ops.swiglu import silu_mul
 
     os.environ["TPUCLIP_HOME"] = str(work / "home")
     os.environ["TPUCLIP_INIT"] = "random"
@@ -1569,6 +1593,7 @@ def phase_end_to_end(mods, gpu, work):
         attention.launches = 0
         attention_sm90.launches = 0
         add_layer_norm.launches = 0
+        silu_mul.launches = 0
         t0 = time.perf_counter()
         cli.main(["scan", str(root), "--db", db, "--model-cache", cache,
                   "--inference-batch-size", "64", "--profile"])
@@ -1597,6 +1622,8 @@ def phase_end_to_end(mods, gpu, work):
           f"init)  ({gpu})", flush=True)
     print(f"[e2e] kernel launches in this phase: {launches}", flush=True)
     check(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
+    launches["silu_mul"] = silu_mul.launches
+    check(launches["silu_mul"] == 0, f"kernel 11 ran on the SigLIP path: {launches}")
 
     # What the database holds, and the brute-force reference over it.
     ids, vectors = engine.index.cache.load()
@@ -2975,6 +3002,224 @@ def phase_so400m_384(mods, gpu, work, resident):
     return launches
 
 
+MODEL_DINOV2 = "facebook/dinov2-with-registers-giant"
+CELL_DINOV2 = "embed.dinov2-g-518.b32"
+N_DINOV2 = 64
+GATE_ROWS = 32 * 1374  # one b32 call's token rows
+GATE_HIDDEN = 4096
+DINOV2_DIM = 1536
+
+
+def bf16_steps(got, want):
+    """(whether each value of ``got`` is within one bf16 step of ``want``,
+    plus 1e-5 near zero; the largest difference; the share bit-equal)."""
+    g, w = got.float(), want.float()
+    _, exp = torch.frexp(w)
+    err = (g - w).abs()
+    ok = bool((err <= torch.ldexp(torch.ones_like(w), exp - 8) + 1e-5).all())
+    return ok, err.max().item(), float((err == 0).float().mean())
+
+
+def phase_dinov2_kernels(lops, sops, gpu):
+    """Phase 18 (a): kernel 11 and kernel 10 with a scale at the DINOv2
+    cell's size, each alone after an L2 flush; returns kernel 11's record
+    with kernel 10's scaled and unscaled cases at D 1536 under
+    ``add_layer_norm_d1536``."""
+    from tpuclip_torch.ops._build import library
+
+    dev = torch.device("cuda")
+    lib = library()
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev).zero_
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(18)
+    rows, h = GATE_ROWS, GATE_HIDDEN
+    x = (torch.randn((rows, 2 * h), generator=gen, device=dev) * 3).to(torch.bfloat16)
+    out = torch.empty((rows, h), dtype=torch.bfloat16, device=dev)
+    got, want = sops.silu_mul(x), sops.silu_mul_plain(x)
+    ok, worst, equal = bf16_steps(got, want)
+    check(ok, f"silu_mul: more than one bf16 step off its plain version (max diff {worst:.2e})")
+
+    def kernel():
+        check(lib.tpuclip_silu_mul(x.data_ptr(), out.data_ptr(), rows, h, stream) == 0, "silu_mul launch failed")
+
+    kernel_ms = cold_p50_ms(kernel, 20, flush)
+    ms = cold_p50_ms(lambda: sops.silu_mul(x), 20, flush)
+    plain = cold_p50_ms(lambda: sops.silu_mul_plain(x), 20, flush)
+    a, b = x[:, :h], x[:, h:]
+    nearest = cold_p50_ms(lambda: torch.nn.functional.silu(a) * b, 20, flush)
+    n_bytes = rows * 3 * h * 2
+    record = {**entry(worst, ms, plain, n_bytes, 0, "bf16", "F.silu(a) * b (bf16 halves)", nearest),
+              "kernel_ms": kernel_ms, "bit_equal_share": equal}
+    record["bound_share"] = record["bound_ms"] / kernel_ms
+    print(f"[dinov2] silu_mul (kernel 11) M={rows:,} H={h}: within one bf16 step of the plain version (max diff "
+          f"{worst:.2e}, {100 * equal:.4f}% bit-equal); kernel alone p50 {kernel_ms:.4f} ms, "
+          f"{100 * record['bound_share']:.1f}% of the byte bound {record['bound_ms']:.4f} ms "
+          f"({n_bytes / kernel_ms / 1e6:.0f} GB/s); wrapper {ms:.4f} ms; plain {plain:.4f} ms; F.silu(a) * b "
+          f"{nearest:.4f} ms (L2 flushed before each launch)  ({gpu})", flush=True)
+    del x, out, got, want, a, b
+    torch.cuda.empty_cache()
+
+    d, eps = DINOV2_DIM, 1e-6
+    x = (torch.randn((rows, d), generator=gen, device=dev) * 3).to(torch.bfloat16)
+    delta = (torch.randn((rows, d), generator=gen, device=dev) * 4).to(torch.bfloat16)
+    gamma = (0.1 + 0.03 * torch.randn(d, generator=gen, device=dev)).to(torch.bfloat16)
+    w = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(torch.bfloat16)
+    bias = (0.1 * torch.randn(d, generator=gen, device=dev)).to(torch.bfloat16)
+    x_out, y = torch.empty_like(x), torch.empty_like(x)
+    cases = {}
+    for scale in (gamma, None):
+        got_x, got_y = lops.add_layer_norm(x, delta, w, bias, eps, scale)
+        want_x, want_y = lops.add_layer_norm_plain(x, delta, w, bias, eps, scale)
+        check(torch.equal(got_x, want_x), f"add_layer_norm D={d} scale={scale is not None}: x_out is not the plain sum")
+        ok, worst, equal = bf16_steps(got_y, want_y)
+        check(ok, f"add_layer_norm D={d}: y more than one bf16 step off (max diff {worst:.2e})")
+        args = (x.data_ptr(), delta.data_ptr(), 0 if scale is None else gamma.data_ptr(), w.data_ptr(),
+                bias.data_ptr(), x_out.data_ptr(), y.data_ptr(), rows, d, eps, stream)
+
+        def kernel(args=args):
+            check(lib.tpuclip_add_layernorm(*args) == 0, "add_layernorm launch failed")
+
+        k_ms = cold_p50_ms(kernel, 20, flush)
+        plain = cold_p50_ms(lambda: lops.add_layer_norm_plain(x, delta, w, bias, eps, scale), 20, flush)
+        n_bytes = rows * d * 2 * 4 + (3 if scale is not None else 2) * d * 2
+        case = {**entry(worst, None, plain, n_bytes, 0, "bf16"), "kernel_ms": k_ms, "bit_equal_share": equal}
+        case["bound_share"] = case["bound_ms"] / k_ms
+        cases["scaled" if scale is not None else "unscaled"] = case
+        print(f"[dinov2] add_layer_norm (kernel 10) rows={rows:,} D={d} x + {'gamma * ' if scale is not None else ''}"
+              f"delta: x_out bit-equal to the plain sum, y within one bf16 step (max diff {worst:.2e}); kernel "
+              f"alone p50 {k_ms:.4f} ms, {100 * case['bound_share']:.1f}% of the byte bound {case['bound_ms']:.4f} "
+              f"ms; plain {plain:.4f} ms (L2 flushed before each launch)  ({gpu})", flush=True)
+    del x, delta, x_out, y
+    torch.cuda.empty_cache()
+    record["add_layer_norm_d1536"] = cases
+    record["ptxas"] = ptxas_report(gpu, "silu_mul.cu", r"(silu_mul_kernel)", "{}")
+    return record
+
+
+def write_dinov2_jpegs(root):
+    """N_DINOV2 seeded JPEGs of two sizes, one folder each."""
+    from PIL import Image
+
+    rng = np.random.default_rng(18)
+    for i in range(N_DINOV2):
+        h, w = ((600, 800), (518, 518))[i % 2]
+        folder = root / f"{h}x{w}"
+        folder.mkdir(parents=True, exist_ok=True)
+        arr = np.clip(rng.integers(0, 256, (1, 1, 3)) + rng.integers(-40, 40, (h, w, 3)), 0, 255)
+        Image.fromarray(arr.astype(np.uint8)).save(folder / f"img_{i:04d}.jpg", quality=90)
+
+
+def phase_dinov2(gpu, work):
+    """Phase 18 (b): DINOv2-g with registers end to end; returns every
+    counted kernel's launches in the phase."""
+    from bench_port.drivers import embed_dinov2
+    from bench_port.flops_dinov2 import dinov2_shape
+    from bench_port.reference import dinov2_ref, siglip_ref
+    from tpuclip_torch import cli
+    from tpuclip_torch.engine import ImageDatabase
+    from tpuclip_torch.io.decode import load_image
+    from tpuclip_torch.io.preprocess import preprocess_batch
+    from tpuclip_torch.ops._counters import COUNTED
+
+    root, db, cache = work / "images_dinov2", str(work / "dinov2.db"), str(work / "models")
+    write_dinov2_jpegs(root)
+    files = sorted(root.rglob("*.jpg"))
+    query_file = files[7]
+    model_args = ["--db", db, "--model", MODEL_DINOV2, "--model-cache", cache]
+    saved = (ImageDatabase.scan_directory, ImageDatabase.generate_html_gallery)
+    scan_seconds, galleries = [], []
+
+    def timed_scan(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = saved[0](self, *args, **kwargs)
+        torch.cuda.synchronize()
+        scan_seconds.append(time.perf_counter() - t0)
+        return out
+
+    ImageDatabase.scan_directory = timed_scan
+    ImageDatabase.generate_html_gallery = lambda self, results, *a, **kw: galleries.append(list(results))
+    try:
+        with environ(TPUCLIP_SEARCH_PRECISION="int8", TPUCLIP_SEARCH_MODE="exact", TPUCLIP_DEVICE_RERANK="1",
+                     TPUCLIP_INIT="random"):
+            for wrapper in COUNTED:
+                wrapper.launches = 0
+            cli.main(["scan", str(root), *model_args, "--inference-batch-size", "32"])
+            cli.main(["search", str(query_file), "--image", "-k", str(K), *model_args, "--no-session"])
+            try:
+                cli.main(["search", "a red car", "-k", str(K), *model_args, "--no-session"])
+                refused = None
+            except SystemExit as e:
+                refused = e.code
+            engine = ImageDatabase(db, cache, model_name=MODEL_DINOV2, inference_batch_size=32)
+            model = engine.model
+            query = load_image(str(query_file))
+            fused = engine.search_image_pil(query, K)  # the index's image graph at 518 x 518
+            torch.cuda.synchronize()
+            launches = {wrapper.__name__: wrapper.launches for wrapper in COUNTED}
+    finally:
+        ImageDatabase.scan_directory, ImageDatabase.generate_html_gallery = saved
+    print(f"[dinov2] kernel launches in this phase: {launches}", flush=True)
+    check(refused == 2, f"a text search of the image-only model exited with {refused!r}, not 2")
+    check(launches["silu_mul"] > 0 and launches["add_layer_norm"] > 0 and launches["attention_sm90"] > 0,
+          f"the DINOv2 tower did not launch kernels 9, 10 and 11: {launches}")
+    check(engine.tokenizer is None and engine.embedding_dim == DINOV2_DIM,
+          f"the image-only engine: tokenizer {engine.tokenizer!r}, {engine.embedding_dim}-d")
+    check(len(scan_seconds) == 1, "scan did not run")
+    rate = N_DINOV2 / scan_seconds[0]
+    ids, vectors = engine.index.cache.load()
+    vectors = np.array(vectors, np.float32)
+    check(len(ids) == N_DINOV2 and vectors.shape[1] == DINOV2_DIM, f"{vectors.shape} rows indexed")
+    norm_err = float(np.abs(np.linalg.norm(vectors, axis=1) - 1).max())
+    check(norm_err <= 1e-3, f"DINOv2 embeddings off unit norm by {norm_err}")
+    paths = engine.store.fetch_paths_for_ids(ids)
+    row_of = {paths[int(i)]: r for r, i in enumerate(ids)}
+    check(len(galleries) == 1, f"the CLI image search produced {len(galleries)} galleries, expected 1")
+    query_row = engine._embed_pil(query)
+    check_brute_force(galleries[0], query_row, torch.from_numpy(vectors).to(torch.bfloat16), row_of,
+                      "CLI search --image")
+    check(galleries[0][0][0] == str(query_file), "search --image does not rank its own image first")
+    two_stage = engine.index.search(query_row, K)
+    check([p for p, _ in fused] == [p for p, _ in two_stage], "the fused image graph's ids differ from two-stage")
+    graph_err = max(abs(a - b) for (_, a), (_, b) in zip(fused, two_stage))
+    check(graph_err <= 1e-6, f"the fused image graph's scores are off the two-stage route by {graph_err}")
+    counts = {wrapper.__name__: wrapper.launches for wrapper in COUNTED}
+    pixels = preprocess_batch([load_image(str(f)) for f in files[:32]], engine.image_size)
+    dev_pixels = torch.from_numpy(pixels).cuda()
+    model.get_image_features(dev_pixels)
+    per_call = {w.__name__: w.launches - counts[w.__name__] for w in COUNTED}
+    check(per_call["add_layer_norm"] == 81 and per_call["silu_mul"] == 40,
+          f"a tower call launched {per_call['add_layer_norm']} kernel-10 and {per_call['silu_mul']} kernel-11 "
+          "kernels, expected 81 and 40")
+    print(f"[dinov2] scan: {N_DINOV2} images in {scan_seconds[0]:.3f} s = {rate:.1f} images/s (scan_directory, "
+          f"batch 32, dinov2-with-registers-giant bf16 random weights, 1536-d rows); CLI search --image in the "
+          f"brute-force order, the query image first; a text search refused (exit 2); search_image_pil through "
+          f"the index's image graph: ids equal to the two-stage route, scores within {graph_err:.2e}; a tower "
+          f"call launches kernel 10 81 times and kernel 11 40 times  ({gpu})", flush=True)
+
+    root_dir = Path(__file__).resolve().parent
+    config = json.loads((root_dir / "bench_port/configs/dinov2-with-registers-giant.json").read_text())
+    limit = json.loads((root_dir / f"bench_port/limits/{CELL_DINOV2}.json").read_text())["max_row_dist"]
+    shape = dinov2_shape(config)
+    w = embed_dinov2.make_weights(shape, 2**31 + 518, dev_pixels.device, torch.bfloat16)
+    embed_dinov2.load_into_port(model, w)
+    rows_engine = engine.embed_images_uint8(pixels)
+    vision_ms = p50_ms(lambda: model.get_image_features(dev_pixels), 5)
+    del engine, model, dev_pixels
+    torch.cuda.empty_cache()
+    ref = dinov2_ref.reference_rows(siglip_ref.fp32_weights(w), pixels, np.arange(32), shape).cpu().numpy()
+    del w
+    dist = float(np.linalg.norm(rows_engine.astype(np.float64) - ref, axis=1).max())
+    check(dist <= limit, f"embed_images_uint8: rows {dist} from the fp32 reference (limit {limit})")
+    print(f"[dinov2] the benchmark's seeded weights: embed_images_uint8's rows (batch 32) against the plain fp32 "
+          f"reference max {dist:.4f} (the cell's limit {limit}); vision tower alone, batch 32 p50 "
+          f"{vision_ms:.2f} ms = {32e3 / vision_ms:.1f} images/s  ({gpu})", flush=True)
+    print("[phase18-json] " + json.dumps({
+        "gpu": gpu, "scan_images_per_s": rate, "scan_s": scan_seconds[0], "fused_graph_max_err": graph_err,
+        "engine_max_row_dist": dist, "limit": limit, "vision_batch32_ms": vision_ms, "launches": launches}),
+        flush=True)
+    return launches
+
+
 def fused_program(ops, model, n_texts, tail, method):
     """``query_topk_fused`` over the resident ``tail`` (m, scales, rows, k,
     n_valid) as a function of its host inputs: the texts' ids and mask
@@ -3819,7 +4064,8 @@ def phase_mesh(mods, gpu, work, db, cache, resident, binary_rows, ivf_ctx):
     torch.cuda.synchronize()
     launches = {wrapper.__name__: wrapper.launches for wrapper in COUNTED}
     print(f"[mesh] kernel launches on the mesh path: {launches}", flush=True)
-    check(all(n > 0 for name, n in launches.items() if name not in ("patch_embed_fused", "attention_sm90")),
+    idle = ("patch_embed_fused", "attention_sm90", "silu_mul")  # no kernel 8, Hopper shape or SwiGLU here
+    check(all(n > 0 for name, n in launches.items() if name not in idle),
           f"a kernel of the mesh path was not launched: {launches}")
     check(launches["patch_embed_fused"] == 0, f"kernel 8 ran on the mesh path: {launches}")
     report["launches"] = launches
@@ -4459,6 +4705,7 @@ def main():
     from tpuclip_torch.ops import hamming as hops
     from tpuclip_torch.ops import layernorm as lops
     from tpuclip_torch.ops import patch_embed as pops
+    from tpuclip_torch.ops import swiglu as sops
     from tpuclip_torch.ops import topk as tops
     from tpuclip_torch.ops import topk_int8 as ops
 
@@ -4493,6 +4740,8 @@ def main():
     torch.cuda.empty_cache()
     record["add_layer_norm"] = phase_add_layernorm(lops, gpu)
     torch.cuda.empty_cache()
+    record["silu_mul"] = phase_dinov2_kernels(lops, sops, gpu)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches, db, cache, engine = phase_end_to_end(mods, gpu, Path(tmp))
         launches.update(phase_search_modes(mods, gpu, Path(tmp), db, cache))
@@ -4510,6 +4759,8 @@ def main():
         naflex = phase_naflex(mods, gpu, Path(tmp), resident)
         torch.cuda.empty_cache()
         so384 = phase_so400m_384(mods, gpu, Path(tmp), resident)
+        torch.cuda.empty_cache()
+        dino = phase_dinov2(gpu, Path(tmp))
         torch.cuda.empty_cache()
         ivf, ivf_ctx = phase_ivf(mods, gpu, Path(tmp), db)
         torch.cuda.empty_cache()
@@ -4534,6 +4785,7 @@ def main():
         "attention": ("tpuclip_torch/csrc/attention.cu", None),
         "attention_sm90": ("tpuclip_torch/csrc/attention_sm90.cu", None),
         "add_layer_norm": ("tpuclip_torch/csrc/add_layernorm.cu", None),
+        "silu_mul": ("tpuclip_torch/csrc/silu_mul.cu", None),
     }
     # Kernel 9's Hopper design: its launches (a share of "attention"'s) and
     # phase 3's record of the two designs in turns.
@@ -4549,7 +4801,8 @@ def main():
          "launches_train": train[name.removesuffix("_q16")],
          "launches_mesh": mesh[name.removesuffix("_q16")],
          "launches_shortlist": shortlist[name.removesuffix("_q16")],
-         "launches_tp": tp[name.removesuffix("_q16")], **record[name]}
+         "launches_tp": tp[name.removesuffix("_q16")],
+         "launches_dinov2": dino[name.removesuffix("_q16")], **record[name]}
         for name, (source, replaces) in sources.items()
     ]
     check("jax" not in sys.modules, "the port loaded jax")

@@ -243,10 +243,10 @@ def recorder(monkeypatch):
 
 
 def test_the_kernel_is_launched_with_the_tensors_as_they_are(recorder):
-    """x, delta and the LayerNorm's bf16 weight and bias are passed in
-    place, with new x_out and y, the row count, D, eps and the stream, one
-    launch counted; without delta both of its pointers are null and x
-    itself is returned; fp32 rows on CUDA are refused."""
+    """x, delta, a null scale and the LayerNorm's bf16 weight and bias are
+    passed in place, with new x_out and y, the row count, D, eps and the
+    stream, one launch counted; without delta both of its pointers are null
+    and x itself is returned; fp32 rows on CUDA are refused."""
     rng = np.random.default_rng(5)
     x, delta, w, b = (_fake(t) for t in _rows(rng, (4, 6, 64), torch.bfloat16))
     w, b = w.to(torch.bfloat16), b.to(torch.bfloat16)
@@ -254,11 +254,11 @@ def test_the_kernel_is_launched_with_the_tensors_as_they_are(recorder):
     x_out, y = lops.add_layer_norm(x, delta, w, b, EPS)
     assert lops.add_layer_norm.launches == before + 1 and len(recorder) == 1
     args = recorder[0]
-    assert args[:4] == (x.data_ptr(), delta.data_ptr(), w.data_ptr(), b.data_ptr())
-    assert args[4:] == (x_out.data_ptr(), y.data_ptr(), 24, 64, pytest.approx(EPS), 7)
+    assert args[:5] == (x.data_ptr(), delta.data_ptr(), 0, w.data_ptr(), b.data_ptr())
+    assert args[5:] == (x_out.data_ptr(), y.data_ptr(), 24, 64, pytest.approx(EPS), 7)
     assert x_out.shape == y.shape == x.shape and x_out.data_ptr() not in (x.data_ptr(), y.data_ptr())
     x_out, y = lops.add_layer_norm(x, None, w, b, EPS)
-    assert x_out is x and recorder[1][1] == recorder[1][4] == 0 and recorder[1][5] == y.data_ptr()
+    assert x_out is x and recorder[1][1] == recorder[1][2] == recorder[1][5] == 0 and recorder[1][6] == y.data_ptr()
     with pytest.raises(TypeError):
         lops.add_layer_norm(_fake(x.float()), _fake(delta.float()), w, b, EPS)
     assert lops.add_layer_norm.launches == before + 2 and len(recorder) == 2

@@ -557,16 +557,20 @@ def _run_search(args, paths) -> None:
     if args.negative:
         log(f"  Negative: {args.negative} ({'image' if args.negative_image else 'text'})")
 
-    results = db.search(
-        args.query, k=args.k, is_image_path=args.image,
-        query2=args.query2, is_image_path2=args.image2,
-        weights=tuple(args.weights),
-        negative_query=args.negative, negative_is_image=args.negative_image,
-        negative_weight=args.negative_weight,
-        filter_folders=args.folder if args.folder else None,
-        profile=args.profile,
-        show_duplicates=args.show_duplicates,
-    )
+    try:
+        results = db.search(
+            args.query, k=args.k, is_image_path=args.image,
+            query2=args.query2, is_image_path2=args.image2,
+            weights=tuple(args.weights),
+            negative_query=args.negative, negative_is_image=args.negative_image,
+            negative_weight=args.negative_weight,
+            filter_folders=args.folder if args.folder else None,
+            profile=args.profile,
+            show_duplicates=args.show_duplicates,
+        )
+    except ValueError as e:  # a text query to a model without a text tower
+        log(f"[X] Error: {e}")
+        sys.exit(2)
     if not results:
         log("No results found.")
         return

@@ -18,15 +18,20 @@
 //
 // What it computes, for rows of width D (bf16, contiguous):
 //   x_out = bf16(f32(x) + f32(delta))                    (delta null: x_out is x, not written)
+//   x_out = bf16(f32(x) + f32(scale) * f32(delta))       (scale not null: LayerScale's pending branch)
 //   y     = bf16((x_out - mean) * rsqrt(var + eps) * f32(weight) + f32(bias))
 // with the mean and the biased variance taken in fp32 from the rounded
 // x_out, so x_out is bit-equal to PyTorch's bf16 add and y differs from
 // F.layer_norm only by the order of the row's sums (one bf16 step at most).
+// With a scale (DINOv2's LayerScale, a (D,) bf16 vector) the product of two
+// bf16 values is exact in fp32, so the sum is rounded once to fp32 and once
+// to bf16, as fp32 arithmetic on the upcast operands rounds it. The scale is
+// a template flag: a null scale runs the kernel that ran before it existed.
 //
 // What bounds it on the H100: bytes. A fused row reads x and delta and
 // writes x_out and y, 4 * D * 2 bytes; a row without delta reads x and
-// writes y, 2 * D * 2 bytes. Weight and bias (2 * D * 2 bytes) are read
-// once a block. There are ~10 flops a byte, far below the ridge.
+// writes y, 2 * D * 2 bytes. Weight and bias (2 * D * 2 bytes), and the
+// scale, are read once a block. There are ~10 flops a byte, far below the ridge.
 //
 // Design, for the bytes: one row per warp (2,304 bytes at D 1152), each
 // lane holding up to 6 16-byte vectors of it (D up to 6 * 32 * 8 = 1536,
@@ -84,15 +89,19 @@ __device__ __forceinline__ float warp_sum(float s) {
 
 // kVecs: 16-byte vectors a lane (ceil(D / 256)); vecs = D / 8, the row's
 // vectors, lane l holding vectors l, l + 32, ... below vecs.
-template <int kVecs, bool kDelta>
+// kScale (with kDelta): delta is multiplied by scale, a (D,) vector, before the add.
+template <int kVecs, bool kDelta, bool kScale>
 __global__ void __launch_bounds__(kWarps * 32, kBlocksPerSm)
 add_layernorm_kernel(const uint4* __restrict__ x, const uint4* __restrict__ delta,
-                     const uint4* __restrict__ weight, const uint4* __restrict__ bias,
-                     uint4* __restrict__ x_out, uint4* __restrict__ y, int rows, int vecs, float eps) {
-  __shared__ uint4 w[kVecs * 32], b[kVecs * 32];
+                     const uint4* __restrict__ scale, const uint4* __restrict__ weight,
+                     const uint4* __restrict__ bias, uint4* __restrict__ x_out, uint4* __restrict__ y, int rows,
+                     int vecs, float eps) {
+  static_assert(kDelta || !kScale, "a scale multiplies the pending residual");
+  __shared__ uint4 w[kVecs * 32], b[kVecs * 32], g[kScale ? kVecs * 32 : 1];
   for (int c = threadIdx.x; c < vecs; c += kWarps * 32) {
     w[c] = __ldg(weight + c);
     b[c] = __ldg(bias + c);
+    if (kScale) g[c] = __ldg(scale + c);
   }
   __syncthreads();
   const int lane = threadIdx.x & 31;
@@ -119,6 +128,12 @@ add_layernorm_kernel(const uint4* __restrict__ x, const uint4* __restrict__ delt
         if (kDelta) {
           float d[8];
           widen(dv[i], d);
+          if (kScale) {
+            float gf[8];
+            widen(g[c], gf);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) d[j] *= gf[j];  // exact: a product of two bf16 values
+          }
 #pragma unroll
           for (int j = 0; j < 8; ++j) v[i][j] += d[j];
           const uint4 rounded = narrow(v[i]);
@@ -157,10 +172,10 @@ add_layernorm_kernel(const uint4* __restrict__ x, const uint4* __restrict__ delt
   }
 }
 
-template <int kVecs, bool kDelta>
-cudaError_t launch(const void* x, const void* delta, const void* weight, const void* bias, void* x_out, void* y,
-                   int rows, int vecs, float eps, cudaStream_t stream) {
-  auto kernel = add_layernorm_kernel<kVecs, kDelta>;
+template <int kVecs, bool kDelta, bool kScale>
+cudaError_t launch(const void* x, const void* delta, const void* scale, const void* weight, const void* bias,
+                   void* x_out, void* y, int rows, int vecs, float eps, cudaStream_t stream) {
+  auto kernel = add_layernorm_kernel<kVecs, kDelta, kScale>;
   static int blocks_per_sm = 0;  // the occupancy calculator's, once per instantiation
   if (blocks_per_sm == 0) {
     int n = 0;
@@ -173,40 +188,47 @@ cudaError_t launch(const void* x, const void* delta, const void* weight, const v
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   const int blocks = std::min((rows + kWarps - 1) / kWarps, std::max(sms, 1) * blocks_per_sm);
   kernel<<<blocks, kWarps * 32, 0, stream>>>(
-      static_cast<const uint4*>(x), static_cast<const uint4*>(delta), static_cast<const uint4*>(weight),
-      static_cast<const uint4*>(bias), static_cast<uint4*>(x_out), static_cast<uint4*>(y), rows, vecs, eps);
+      static_cast<const uint4*>(x), static_cast<const uint4*>(delta), static_cast<const uint4*>(scale),
+      static_cast<const uint4*>(weight), static_cast<const uint4*>(bias), static_cast<uint4*>(x_out),
+      static_cast<uint4*>(y), rows, vecs, eps);
   return cudaGetLastError();
 }
 
 template <int kVecs>
-cudaError_t launch_width(const void* x, const void* delta, const void* weight, const void* bias, void* x_out,
-                         void* y, int rows, int vecs, float eps, cudaStream_t stream) {
-  return delta != nullptr ? launch<kVecs, true>(x, delta, weight, bias, x_out, y, rows, vecs, eps, stream)
-                          : launch<kVecs, false>(x, delta, weight, bias, x_out, y, rows, vecs, eps, stream);
+cudaError_t launch_width(const void* x, const void* delta, const void* scale, const void* weight, const void* bias,
+                         void* x_out, void* y, int rows, int vecs, float eps, cudaStream_t stream) {
+  if (scale != nullptr) {
+    return launch<kVecs, true, true>(x, delta, scale, weight, bias, x_out, y, rows, vecs, eps, stream);
+  }
+  return delta != nullptr
+             ? launch<kVecs, true, false>(x, delta, nullptr, weight, bias, x_out, y, rows, vecs, eps, stream)
+             : launch<kVecs, false, false>(x, nullptr, nullptr, weight, bias, x_out, y, rows, vecs, eps, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x_out = x + delta and y = LayerNorm(x_out) * weight + bias for rows of
+// x_out = x + delta (scale not null: x + scale * delta, scale a (d,)
+// vector, LayerScale) and y = LayerNorm(x_out) * weight + bias for rows of
 // width d; every tensor bf16, contiguous and 16-byte aligned, weight and
-// bias (d,). delta and x_out both null: a plain LayerNorm of x into y.
-// d % 8 == 0 and 8 <= d <= 1536.
-int tpuclip_add_layernorm(const void* x, const void* delta, const void* weight, const void* bias, void* x_out,
-                          void* y, int rows, int d, float eps, void* stream) {
-  if (rows < 1 || d < 8 || d % 8 != 0 || d > kMaxVecs * 256 || (delta == nullptr) != (x_out == nullptr)) {
+// bias (d,). delta and x_out both null: a plain LayerNorm of x into y (and
+// scale null too). d % 8 == 0 and 8 <= d <= 1536.
+int tpuclip_add_layernorm(const void* x, const void* delta, const void* scale, const void* weight, const void* bias,
+                          void* x_out, void* y, int rows, int d, float eps, void* stream) {
+  if (rows < 1 || d < 8 || d % 8 != 0 || d > kMaxVecs * 256 || (delta == nullptr) != (x_out == nullptr) ||
+      (scale != nullptr && delta == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int vecs = d / 8;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((vecs + 31) / 32) {
-    case 1: return static_cast<int>(launch_width<1>(x, delta, weight, bias, x_out, y, rows, vecs, eps, s));
-    case 2: return static_cast<int>(launch_width<2>(x, delta, weight, bias, x_out, y, rows, vecs, eps, s));
-    case 3: return static_cast<int>(launch_width<3>(x, delta, weight, bias, x_out, y, rows, vecs, eps, s));
-    case 4: return static_cast<int>(launch_width<4>(x, delta, weight, bias, x_out, y, rows, vecs, eps, s));
-    case 5: return static_cast<int>(launch_width<5>(x, delta, weight, bias, x_out, y, rows, vecs, eps, s));
-    default: return static_cast<int>(launch_width<6>(x, delta, weight, bias, x_out, y, rows, vecs, eps, s));
+    case 1: return static_cast<int>(launch_width<1>(x, delta, scale, weight, bias, x_out, y, rows, vecs, eps, s));
+    case 2: return static_cast<int>(launch_width<2>(x, delta, scale, weight, bias, x_out, y, rows, vecs, eps, s));
+    case 3: return static_cast<int>(launch_width<3>(x, delta, scale, weight, bias, x_out, y, rows, vecs, eps, s));
+    case 4: return static_cast<int>(launch_width<4>(x, delta, scale, weight, bias, x_out, y, rows, vecs, eps, s));
+    case 5: return static_cast<int>(launch_width<5>(x, delta, scale, weight, bias, x_out, y, rows, vecs, eps, s));
+    default: return static_cast<int>(launch_width<6>(x, delta, scale, weight, bias, x_out, y, rows, vecs, eps, s));
   }
 }
 

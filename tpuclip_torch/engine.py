@@ -11,6 +11,9 @@ the fused tower + scan programs when the index allows them (int8, rerank
 rows resident, no IVF index, no folder filter, k <= 128): one CUDA graph
 per ladder bucket on the card (``tpuclip_torch.ops.graphs``), eager on the
 CPU; otherwise embed, then search (under ``--mode ivf``, the IVF probe).
+An image-only model (DINOv2, ``tpuclip_torch.models.dinov2``) loads no
+tokenizer: its scans, image searches and dedup run as any other model's,
+and every text entry raises a ``ValueError`` that says to search by image.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from tpuclip_torch.utils.profiling import span
 from tpuclip_torch.device import DeviceLike, default_dtype, resolve_device
 from tpuclip_torch.index.search import DeviceIndex
 from tpuclip_torch.models.configs import DEFAULT_MODEL
-from tpuclip_torch.models.loader import find_local_checkpoint, load_model
+from tpuclip_torch.models.loader import find_local_checkpoint, load_model, no_text_tower
 
 
 class ImageDatabase:
@@ -70,12 +73,14 @@ class ImageDatabase:
         self.inference_batch_size = int(inference_batch_size)
         log(f"  Embedding dimension: {self.embedding_dim}")
 
-        ckpt_dir = find_local_checkpoint(model_name, self.model_cache_dir)
-        self.tokenizer = load_tokenizer(
-            model_name,
-            str(ckpt_dir) if ckpt_dir else None,
-            vocab_size=self.config.text.vocab_size,
-        )
+        self.tokenizer = None
+        if self.has_text_tower:
+            ckpt_dir = find_local_checkpoint(model_name, self.model_cache_dir)
+            self.tokenizer = load_tokenizer(
+                model_name,
+                str(ckpt_dir) if ckpt_dir else None,
+                vocab_size=self.config.text.vocab_size,
+            )
         self._text_cache: dict = {}
 
         log("\nInitializing database...")
@@ -96,6 +101,15 @@ class ImageDatabase:
     @property
     def is_naflex(self) -> bool:
         return self.config.vision.naflex
+
+    @property
+    def has_text_tower(self) -> bool:
+        return self.config.text is not None
+
+    def _require_text_tower(self) -> None:
+        """Raises the named ``ValueError`` for a model without a text tower."""
+        if not self.has_text_tower:
+            raise ValueError(no_text_tower(self.model_name))
 
     # ------------------------------------------------------------- embeddings
 
@@ -134,6 +148,7 @@ class ImageDatabase:
     def _tokenize_bucketed(self, texts: List[str]):
         """Prompt + tokenize, padded to the ladder batch size; pad rows are
         all-zero (masked out) and sliced off by the caller."""
+        self._require_text_tower()
         b = len(texts)
         ids, mask = self.tokenizer.encode_batch_with_mask([build_prompt(t) for t in texts])
         bucket = batch_bucket(b)
@@ -157,6 +172,7 @@ class ImageDatabase:
     def embed_texts_cached(self, texts: List[str]) -> np.ndarray:
         """Batch text embedding through the session LRU (256 entries):
         hits skip the tower, misses embed in one pass."""
+        self._require_text_tower()
         out = np.empty((len(texts), self.embedding_dim), np.float32)
         misses = []
         for i, t in enumerate(texts):
@@ -181,6 +197,7 @@ class ImageDatabase:
         ``search_batch`` pass otherwise."""
         if not texts:
             return []
+        self._require_text_tower()
         if self.index.can_fuse_text_search(k, filter_folders):
             return self._search_texts_fused(texts, k)
         vecs = self.embed_texts_cached(texts)

@@ -92,18 +92,20 @@ class LayerNorm(nn.Module):
 
 
 def add_norm(
-    x: torch.Tensor, delta: Optional[torch.Tensor], ln: LayerNorm
+    x: torch.Tensor, delta: Optional[torch.Tensor], ln: LayerNorm, scale: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The pending residual ``delta`` added to ``x`` (``delta`` None: none)
-    and LayerNorm ``ln`` of the sum: ``(x + delta, ln(x + delta))``.
+    """The pending residual ``delta`` added to ``x`` (``delta`` None: none;
+    with ``scale``, a (D,) LayerScale, ``scale * delta``) and LayerNorm
+    ``ln`` of the sum: ``(x + delta, ln(x + delta))``.
 
     bf16 on CUDA with no gradient goes to
     :func:`~tpuclip_torch.ops.layernorm.add_layer_norm` (kernel 10, one
     pass); fp32, the CPU and anything autograd must differentiate to the add
     and ``F.layer_norm`` of
     :func:`~tpuclip_torch.ops.layernorm.add_layer_norm_plain`."""
-    args = (x, delta, ln.weight, ln.bias, ln.eps)
-    grad = torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args[:4])
+    args = (x, delta, ln.weight, ln.bias, ln.eps, scale)
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, delta, ln.weight, ln.bias, scale))
     if x.device.type != "cuda" or x.dtype != torch.bfloat16 or grad:
         return add_layer_norm_plain(*args)
     return add_layer_norm(*args)

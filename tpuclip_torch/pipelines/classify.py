@@ -39,6 +39,10 @@ def classify_image(
             f"{model_name} is a NaFlex model, which classify does not support yet; "
             "use a fixed-resolution preset"
         )
+    if cfg.text is None:  # an image-only model: no labels to score against
+        from tpuclip_torch.models.loader import no_text_tower
+
+        raise ValueError(no_text_tower(model_name))
     ckpt = find_local_checkpoint(model_name, model_cache_dir)
     tokenizer = load_tokenizer(model_name, str(ckpt) if ckpt else None, vocab_size=cfg.text.vocab_size)
 

@@ -163,6 +163,9 @@ def train(
         # do not take NaFlex's patchified inputs.
         log(f"[X] {model_name} is a NaFlex model; training does not support NaFlex yet")
         return None
+    if cfg.text is None:  # contrastive training needs both towers
+        log(f"[X] {model_name} embeds images only (no text tower); contrastive training needs both")
+        return None
     ckpt_dir = find_local_checkpoint(model_name, model_cache_dir)
     tokenizer = load_tokenizer(
         model_name, str(ckpt_dir) if ckpt_dir else None, vocab_size=cfg.text.vocab_size

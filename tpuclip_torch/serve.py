@@ -401,6 +401,16 @@ class MicroBatcher:
             }
 
 
+def _has_text_part(spec) -> bool:
+    """Whether a search needs the text tower: a text query, a text second
+    query, or a text negative."""
+    negatives = zip(spec.negative_queries or [], spec.negative_is_images or [False] * len(spec.negative_queries or []))
+    return (not spec.is_image
+            or (spec.query2 is not None and not spec.is_image2)
+            or (spec.negative_query is not None and not spec.negative_is_image)
+            or any(not is_image for _, is_image in negatives))
+
+
 def make_handler(engine, lock: threading.Lock, metrics: ServerMetrics, batcher: MicroBatcher = None):
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # route through our logger
@@ -537,6 +547,11 @@ def make_handler(engine, lock: threading.Lock, metrics: ServerMetrics, batcher: 
                 spec.negative_query = req["negative"]
             if req.get("query2") is not None:
                 spec.query2 = req["query2"]
+            if not engine.has_text_tower and _has_text_part(spec):
+                from tpuclip_torch.models.loader import no_text_tower
+
+                self._json(400, {"error": no_text_tower(engine.model_name)})
+                return
 
             import time as _time
 
@@ -879,7 +894,8 @@ def warm_programs(engine, k: int = 10) -> int:
     otherwise land inside a live request window. Run this at deployment
     startup (``serve --warm``). Returns the number of warm calls made: 24
     on a fused index, 3 otherwise (tpuclip returns 0 there, before its
-    batch shapes)."""
+    batch shapes); a model without a text tower warms the lone-image
+    program and the batch shapes, 4 on a fused index."""
     import numpy as np
     from PIL import Image
 
@@ -891,12 +907,12 @@ def warm_programs(engine, k: int = 10) -> int:
     if engine.index.can_fuse_text_search(k, None, assume_fresh=True):
         pil = Image.fromarray((rng.random((96, 96, 3)) * 255).astype(np.uint8))
         texts = [f"warmup bucket query {i}" for i in range(max(BATCH_BUCKETS))]
-        for b in BATCH_BUCKETS:
+        for b in BATCH_BUCKETS if engine.has_text_tower else ():
             engine._search_texts_fused(texts[:b], k)
             calls += 1
         engine._search_image_fused(pil, k)
         calls += 1
-        for tb in BATCH_BUCKETS:
+        for tb in BATCH_BUCKETS if engine.has_text_tower else ():
             for ib in BATCH_BUCKETS:
                 engine._search_mixed_fused(texts[:tb], [pil] * ib, k)
                 calls += 1
@@ -926,7 +942,12 @@ def run_serve(args, paths) -> None:
     # endpoint's default k: the first live request would otherwise pay it.
     # A failure here stops the server (tpuclip logs and serves on; an empty
     # database searches to no results without raising).
-    engine.search_texts(["warmup"], 10)
+    if engine.has_text_tower:
+        engine.search_texts(["warmup"], 10)
+    else:  # an image-only model: the lone-image program instead
+        from PIL import Image
+
+        engine.search_image_pil(Image.new("RGB", (96, 96), (128, 96, 64)), 10)
     if getattr(args, "warm", False):
         n = warm_programs(engine)
         log(f"Warmed the full serving program matrix ({n} programs).")
