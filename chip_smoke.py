@@ -60,9 +60,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    the plain version, timed beside the plain version and
    scaled_dot_product_attention, with the bound's share; then kernel 9's
    two designs alone (mma.sync and the Hopper one) in turns at every
-   caller's shape, each within P's rounding, with the design the shape
+   caller's shape (DINOv2's cell's launch among them: B = 32, S = 1,374,
+   24 heads of 64), each within P's rounding, with the design the shape
    rule takes, and the Hopper design's registers and spills by
-   ``nvcc -Xptxas -v``; and the residual add + LayerNorm (kernel 10) at D
+   ``nvcc -Xptxas -v`` (no spill and no serialized wgmma, or it fails);
+   and the residual add + LayerNorm (kernel 10) at D
    1152 and 65,536, 46,656 and 4,096 rows, with and without the pending
    residual: x_out bit-equal to PyTorch's add, y within one bf16 step of
    F.layer_norm, the kernel alone, the wrapper, the plain version and
@@ -1204,8 +1206,11 @@ def ptxas_report(gpu, source, pattern, label):
     """``nvcc -Xptxas -v`` on ``source`` (a file of ``csrc/``) with the
     build's flags: each instantiation whose mangled name matches ``pattern``
     (named by ``label`` formatted with its groups) with its registers and
-    spills, and any wgmma serialization the compiler reports (C7510-C7520).
-    Prints one line; returns {"kernels": ..., "remarks": ...}."""
+    spills, and the compiler's wgmma remarks (C7510-C7520): under
+    ``serialized`` those that say its products were serialized, under
+    ``remarks`` all of them (C7519, a warpgroup.arrive the compiler adds,
+    serializes nothing). Prints one line; returns {"kernels": ...,
+    "remarks": ..., "serialized": ...}."""
     import re
 
     from tpuclip_torch.ops import _build
@@ -1225,25 +1230,36 @@ def ptxas_report(gpu, source, pattern, label):
                              "spill_loads": int(re.search(r"(\d+) bytes spill loads", line).group(1))}
         elif name and "Used" in line and "registers" in line:
             kernels[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
-    remarks = sorted({f"{label.format(*m.groups())} {code}"
-                      for line in proc.stderr.splitlines() if "C75" in line
-                      for code in re.findall(r"\((C75\d\d)\)", line)
-                      for m in [re.search(pattern, line)] if m})
+    found = [(f"{label.format(*m.groups())} {code}", "serialized" in line)
+             for line in proc.stderr.splitlines() if "C75" in line
+             for code in re.findall(r"\((C75[12]\d)\)", line) if 7510 <= int(code[1:]) <= 7520
+             for m in [re.search(pattern, line)] if m]
+    remarks = sorted({name for name, _ in found})
+    serialized = sorted({name for name, ser in found if ser})
     print(f"[kernels] {source} -Xptxas -v: " + "; ".join(
         f"{k} {v['registers']} registers, {v['spill_stores']} / {v['spill_loads']} bytes spilled (stores / loads)"
-        for k, v in kernels.items()) + f"; compiler remarks: {', '.join(remarks) or 'none'}  ({gpu})", flush=True)
-    return {"kernels": kernels, "remarks": remarks}
+        for k, v in kernels.items()) + f"; compiler remarks: {', '.join(remarks) or 'none'}; serialized: "
+        f"{', '.join(serialized) or 'none'}  ({gpu})", flush=True)
+    return {"kernels": kernels, "remarks": remarks, "serialized": serialized}
 
 
 def attention_ptxas(gpu):
-    """The Hopper design's registers and spills (:func:`ptxas_report`)."""
-    return ptxas_report(gpu, "attention_sm90.cu", r"attention_sm90_kernelILi(\d+)ELb(\d)E", "<{}, bias={}>")
+    """The Hopper design's registers and spills (:func:`ptxas_report`):
+    fails on any spill and on any instantiation whose wgmma products the
+    compiler serialized."""
+    report = ptxas_report(gpu, "attention_sm90.cu", r"attention_sm90_kernelILi(\d+)ELb(\d)E", "<{}, bias={}>")
+    check(report["kernels"], "attention_sm90.cu -Xptxas -v: no instantiation found")
+    spilled = [k for k, v in report["kernels"].items() if v["spill_stores"] or v["spill_loads"]]
+    check(not spilled, f"attention_sm90.cu: spills in {spilled}")
+    check(not report["serialized"], f"attention_sm90.cu: wgmma serialized in {report['serialized']}")
+    return report
 
 
 # Kernel 9's launches in the benchmark's cells and the towers' other
 # callers: (label, batch, Sq, Sk, heads, head width, NaFlex-style key
 # masks). SO400M's 16 heads of 72, then the B/16 preset's 12 of 64 at 224
-# px, g's 16 of 96 at 384 px (576 tokens) and a head width of 128.
+# px, DINOv2-g's 24 of 64 over 1,374 tokens (its cell's launch), g's 16 of
+# 96 at 384 px (576 tokens) and a head width of 128.
 ATTENTION_SHAPES = [
     ("384 layer", 64, 729, 729, 16, 72, False),
     ("224 layer", 256, 256, 256, 16, 72, False),
@@ -1253,6 +1269,7 @@ ATTENTION_SHAPES = [
     ("384 MAP head", 64, 1, 729, 16, 72, False),
     ("NaFlex MAP head", 256, 1, 256, 16, 72, True),
     ("B/16 layer, hd 64", 256, 196, 196, 12, 64, False),
+    ("DINOv2 layer, hd 64", 32, 1374, 1374, 24, 64, False),
     ("g-384 layer, hd 96", 64, 576, 576, 16, 96, False),
     ("hd 128", 64, 512, 512, 8, 128, False),
 ]

@@ -265,9 +265,9 @@ def test_the_wrapper_refuses_mismatched_shapes_anywhere(bad):
 # design the shape rule gives). The SO400M towers at 384 px (27 layers at
 # S 729 and the MAP head's Sq 1), at 224 px and NaFlex (S 256, NaFlex with
 # its key bias), the text tower (S 64, padding masked), the B and L presets
-# (hd 64), g and giant-opt at 384 px (hd 96, S 576), hd 128, the tiny
-# presets (hd 16), a width the Hopper design is not built for, and a key
-# count past its shared memory.
+# (hd 64), DINOv2-g's layer (hd 64, S 1,374), g and giant-opt at 384 px
+# (hd 96, S 576), hd 128, the tiny presets (hd 16), a width the Hopper
+# design is not built for, and a key count past its shared memory.
 CALLERS = {
     "so400m_384_layer": (2, 729, 729, 16, 72, False, True),
     "so400m_384_map_head": (2, 1, 729, 16, 72, False, False),
@@ -276,6 +276,7 @@ CALLERS = {
     "naflex_map_head": (2, 1, 256, 16, 72, True, False),
     "text": (2, 64, 64, 16, 72, True, False),
     "hd64": (2, 196, 196, 12, 64, False, True),
+    "dinov2_layer": (2, 1374, 1374, 24, 64, False, True),
     "hd96_sk576": (2, 576, 576, 16, 96, False, True),
     "hd128": (1, 128, 300, 2, 128, True, True),
     "sq127": (1, 127, 300, 2, 72, True, False),
@@ -408,6 +409,8 @@ CASES = {
     "hd128": (8, 300, 300, 8, 128, 200, False),
     "s729_cell": (64, 729, 729, 16, 72, None, False),
     "s729_fused_bias": (16, 729, 729, 16, 72, 600, True),
+    "dinov2_cell": (2, 1374, 1374, 24, 64, None, False),
+    "hd64_fused_bias": (4, 700, 700, 8, 64, 600, True),
 }
 
 
@@ -421,9 +424,13 @@ def test_cuda_kernel_matches_plain(cuda_device, case):
     (several key tiles, a ragged last one), the tiny presets' head_dim 16,
     head_dim 128 (the Hopper design's output tile in its Q buffer), the 384
     cell's launch (B 64, S 729, separate q / k / v) and S 729 from a fused
-    qkv with a key bias. Each runs on the design ``takes_sm90``
-    gives, counted in ``attention_sm90.launches`` where that is the Hopper
-    one."""
+    qkv with a key bias; DINOv2's launch at head width 64 (24 heads, S
+    1,374, separate q / k / v: a ragged 94-row query tile and a ragged
+    94-key tile, the only one masked) and hd 64 with a key bias from a fused
+    qkv over six key tiles (600-700 real keys), the bias instantiation of
+    hd 64's FFMA softmax, which no cell runs. Each runs on the design
+    ``takes_sm90`` gives, counted in ``attention_sm90.launches`` where that
+    is the Hopper one."""
     b, sq, sk, h, hd, low, fused = CASES[case]
     rng = np.random.default_rng(len(case) * 7 + hd)
     gen = torch.Generator(device=cuda_device).manual_seed(int(rng.integers(2**31)))

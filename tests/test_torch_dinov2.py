@@ -38,6 +38,7 @@ from bench_port.reference import dinov2_ref, siglip_ref
 from tpuclip_torch.models import configs, dinov2, siglip
 from tpuclip_torch.models.loader import load_model
 from tpuclip_torch.ops import _build
+from tpuclip_torch.ops import attention as aops
 from tpuclip_torch.ops import layernorm as lops
 from tpuclip_torch.ops import swiglu
 
@@ -759,7 +760,8 @@ def test_cuda_one_giant_layer_through_the_kernels_is_the_plain_route(cuda_device
 def test_cuda_giant_tower_through_the_kernels_is_inside_the_cells_limits_and_fp8_is_not(cuda_device, monkeypatch):
     """The bf16 giant tower (40 layers) on the cell's seeded weights (γ ~
     N(0.1, 0.03²)) and 4 of its 518² images: 81 kernel-10 launches a call
-    (the first LN1 alone, 80 scaled) and 40 of kernel 11, unit-norm rows.
+    (the first LN1 alone, 80 scaled), 40 of kernel 11 and 40 of kernel 9,
+    all on its Hopper design (head width 64), unit-norm rows.
     Through the kernels and through the plain versions, each image's row
     lies inside the cell's limits of the fp32 reference (the worst row's and
     the median's, ``bench_port/limits``), and the fp8 control on the same
@@ -773,10 +775,12 @@ def test_cuda_giant_tower_through_the_kernels_is_inside_the_cells_limits_and_fp8
     model = dinov2.load_hf_state_dict(dinov2.build_model(dinov2.get_config(GIANT), cuda_device, torch.bfloat16), w)
     pixels = _pixels(n=4, seed=15, size=518)
     ln0, gate0 = lops.add_layer_norm.launches, swiglu.silu_mul.launches
+    attn0, sm90_0 = aops.attention.launches, aops.attention_sm90.launches
     with torch.no_grad():
         got = model.get_image_features(torch.from_numpy(pixels).to(cuda_device))
         torch.cuda.synchronize()
         assert (lops.add_layer_norm.launches - ln0, swiglu.silu_mul.launches - gate0) == (81, 40)
+        assert (aops.attention.launches - attn0, aops.attention_sm90.launches - sm90_0) == (40, 40)
         assert torch.allclose(torch.linalg.vector_norm(got, dim=-1), torch.ones(4, device=cuda_device), atol=1e-5)
         monkeypatch.setattr(siglip, "add_layer_norm", lops.add_layer_norm_plain)
         monkeypatch.setattr(dinov2, "silu_mul", swiglu.silu_mul_plain)

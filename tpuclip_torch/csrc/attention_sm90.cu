@@ -8,15 +8,17 @@
 // is reached through cudaGetDriverEntryPoint.
 //
 // Replaces no TPU kernel: tpuclip computes attention as two einsums and
-// leaves the fusion to XLA (tpuclip/models/siglip.py, mha). It computes
-// what attention.cu computes, with the same arithmetic (see that file's
-// note): bf16 q, k, v read in place from the projections' (B, S, H * hd)
-// outputs; fp32 logits from the tensor cores; scale, then the fp32 key
-// bias, each rounded in fp32; an fp32 online softmax whose unnormalised
-// exp(s - m) (ex2.approx.ftz of (s - m) * log2(e), s - m formed first) is
-// rounded once to bf16 for PV; PV accumulated in fp32; the row sum's
-// division in fp32 and the output rounded once to bf16, into the
-// (B, Sq, H * hd) tensor the output projection reads.
+// leaves the fusion to XLA (tpuclip/models/siglip.py, mha). At head widths
+// 72, 96 and 128 it computes what attention.cu computes, with the same
+// arithmetic (see that file's note): bf16 q, k, v read in place from the
+// projections' (B, S, H * hd) outputs; fp32 logits from the tensor cores;
+// scale, then the fp32 key bias, each rounded in fp32; an fp32 online
+// softmax whose unnormalised exp(s - m) (ex2.approx.ftz of (s - m) *
+// log2(e), s - m formed first) is rounded once to bf16 for PV; PV
+// accumulated in fp32; the row sum's division in fp32 and the output
+// rounded once to bf16, into the (B, Sq, H * hd) tensor the output
+// projection reads. At head width 64 the exponent is formed in one FFMA
+// instead (see below): rounded once where the others round it three times.
 //
 // What bounds it on the H100: at the 384-pixel tower's launch (B = 64,
 // S = 729, 16 heads of 72) the work is 156.7 GFLOP against 107 MB read and
@@ -66,10 +68,32 @@
 // encoded on the host at each launch and passed as __grid_constant__
 // parameters, so a launch can be captured in a CUDA graph. Each consumer
 // writes its output tile into shared memory and sends it with one TMA
-// store, which clips the rows past Sq. Head widths 64, 96 and 128 take the
+// store, which clips the rows past Sq. Head widths 96 and 128 take the
 // same form (96: columns 64-95 with the 64-byte swizzle for Q, K and V;
 // 128: two 128-byte-swizzled chunks, the output tile in the tile's own Q
 // buffer for want of room).
+//
+// Head width 64 (DINOv2-g: 24 heads over 1,374 keys, 40 launches a call).
+// A query-key pair costs 256 tensor-core FLOP, 16 pairs a clock an SM, and
+// the MUFU does 16 exponentials a clock: the exponentials are as long as
+// the products, so the softmax has to hide whole behind the other
+// warpgroup's products, and what it puts on the FMA pipe has to shrink.
+// The same tiles and ping-pong, with two differences (Layout's kFfmaExp and
+// kOneP). (1) The exponent in one FFMA: without a key bias the row max is
+// taken on the raw logits (scale > 0) and exp(s scale - m scale) is
+// 2^(s k - m k), k = scale log2(e) in fp32, so an element costs FMNMX,
+// FFMA, MUFU.EX2, FADD and half an F2FP (3.7 instructions on the FMA pipe
+// a key tile's element by the SASS, against 5.7 with the scale, subtract
+// and log2(e) product rounded one by one). With a key bias the producer
+// stores the bias row times log2(e), t = s k + bias log2(e) is one FFMA and
+// 2^(t - m) another. Row sums and O stay fp32 and P is still rounded once
+// to bf16 from the fp32 exponential. (2) One P: the form above packs the
+// next P into a second set of registers while PV still reads the first,
+// then copies it over; at hd 64 ptxas placed those copies inside the next
+// products' pipeline stage and serialized every wgmma of the kernel (C7513,
+// "non wgmma instructions defining input registers of a wgmma"). Here P is
+// packed straight into PV's registers once PV of the key tile before has
+// retired: no copy, no serialization.
 //
 // Which launches take it (tpuclip_torch/ops/attention.py, takes_sm90):
 // head widths 64, 72, 96 and 128, Sq of 128 rows or more, Sk up to 4096
@@ -81,7 +105,12 @@
 // bytes); B 128 x S 128 0.079 / 0.107; the text tower's B 64 x S 64 0.049 /
 // 0.046, where half of each 128-row tile is empty, so mma.sync keeps it.
 // The MAP head's Sq = 1 stays on mma.sync too (0.132 there, 0.107 here at
-// B 64 over 729 keys: a head launch is ~0.1 ms of a ~105 ms call).
+// B 64 over 729 keys: a head launch is ~0.1 ms of a ~105 ms call). Head
+// width 64, this form / the former one (serialized), in turns in one call:
+// DINOv2's layer, B 32 x S 1,374 x 24 heads, 0.880-0.887 / 1.275-1.287
+// (42.7% / 29.4% of the 0.3753 ms bound by operations); the B/16 preset's
+// B 256 x S 196 x 12, 0.207-0.221 / 0.239-0.247 (44.4% / 38.6% of 0.0920
+// by bytes); B 8 x S 1,374 with a key bias, 0.275-0.278 / 0.341-0.345.
 //
 // Tried and not kept (B 64, S 729): one 128-row tile a block, not
 // persistent: 0.564 ms, half of it a fixed cost a block (1,536 keys took
@@ -92,10 +121,24 @@
 // products of a turn: each within 2% of the kept form. With the softmax
 // taken out (P the raw logits) the kernel ran slower, 0.610 ms: at the
 // card's 700 W limit the clock follows the data the tensor cores move, so
-// a knock-out does not time its part. Not tried: a polynomial exp2 on the
-// FMA pipe for a share of the exponentials (the FMA pipe carries ~6 of the
-// softmax's ~7 instructions an element, so moving work onto it would not
-// shorten the softmax).
+// a knock-out does not time its part. Not tried at hd 72: a polynomial
+// exp2 on the FMA pipe for a share of the exponentials (the FMA pipe
+// carries ~6 of the softmax's ~7 instructions an element, so moving work
+// onto it would not shorten the softmax).
+//
+// Tried and not kept at hd 64 (DINOv2's launch, p50 ms, in turns): key
+// tiles of 176 keys, 8 tiles over 1,374 keys for 11 (the same 1,408
+// padded keys; 0.935-0.950 against 0.905-0.929, and 0.247 against 0.208
+// at S 196, which it pads to 352 keys) and of 208 (0.922 against 0.896);
+// a polynomial exp2 (degree 4, rint by 1.5 2^23, the exponent by an integer
+// add) for a quarter or a third of the exponentials (0.934 and 1.008
+// against 0.909, at 176 keys: the FMA pipe is no freer than the MUFU); a
+// second P in registers with the loop unrolled by two, so that P is packed
+// before PV's wait with no copy (0.908-0.926; at 176 keys ptxas serialized
+// again, C7512, 1.14-1.17). ptxas puts PV's wait before the exponentials,
+// since it packs P as they come out, so a warpgroup's softmax overlaps the
+// other warpgroup's products but not its own PV; an empty asm fence on the
+// softmax's registers before the wait left the SASS as it was.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -144,6 +187,11 @@ struct Layout {
   static constexpr int kO = kV + kStages * kVBytes;
   static constexpr int kBar = kO + (kOInQ ? 0 : kConsumers * kOBytes);
   static constexpr int kBias = kBar + 256;
+  // Head width 64 has its own softmax and P (see the note): the exponent
+  // in one FFMA from the raw logits, and P packed into the registers PV
+  // reads once PV of the key tile before has read them (one P, no copy).
+  static constexpr bool kFfmaExp = HD == 64;
+  static constexpr bool kOneP = HD == 64;
   static_assert(HD == 64 || HD == 72 || HD == 96 || HD == 128, "instantiated head widths");
   static_assert(kQBytes % 1024 == 0 && kKBytes % 1024 == 0 && kVBytes % 1024 == 0, "swizzle alignment");
   static_assert(kOBytes % 128 == 0 && kOBytes <= kQBytes, "TMA store alignment; room in a Q buffer");
@@ -436,7 +484,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (n >= 2) mbar_wait(b_empty(bb), ((n >> 1) + 1) & 1);
         const float* src = bias + static_cast<size_t>(tile / q_tiles / heads) * bias_sb;
         float* dst = bias_rows + bb * n_keys * kBN;
-        for (int i = lane; i < n_keys * kBN; i += 32) dst[i] = i < sk ? src[i] : 0.0f;
+        for (int i = lane; i < n_keys * kBN; i += 32) {
+          const float b = i < sk ? src[i] : 0.0f;
+          dst[i] = L::kFfmaExp ? __fmul_rn(b, kLog2e) : b;  // the FFMA softmax takes it in log2 units
+        }
         mbar_arrive_if(b_full(bb), true);  // release: the row is visible to the waiting consumers
       }
     }
@@ -486,6 +537,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float m_run[2];
   float l_run[2];
   float corr[2];  // the last softmax's correction of the running sums
+  const float scale_log2 = __fmul_rn(scale, kLog2e);
 
   // O += P V of the key tile at stage s.
   auto issue_pv = [&](int s) {
@@ -513,13 +565,58 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(p);
     wgmma_fence();
   };
-  // Scale, then bias, in fp32 (two roundings); with kMasked, keys past Sk
-  // are -inf. Then the online softmax: each row's max over its 4 lanes,
-  // the correction of the running sums (returned in corr), and
-  // p_new = bf16(exp(s - m)).
+  // Head widths 72, 96, 128 (64 below): scale, then bias, in fp32 (two
+  // roundings); with kMasked, keys past Sk are -inf. Then the online
+  // softmax: each row's max over its 4 lanes, the correction of the running
+  // sums (returned in corr), and exp(s - m) in s_acc.
   auto softmax = [&](auto masked, const float* bias_row, int key_tile, float(&corr)[2]) {
     constexpr bool kMasked = decltype(masked)::value;
     const int key0 = key_tile * kBN + 2 * t4;
+    if constexpr (L::kFfmaExp) {
+      // Head width 64: t = s (the max of the raw logits, scale > 0) and
+      // 2^(t k - m k), k = scale log2(e); with a bias, t = s k + bias
+      // log2(e) (the producer scaled the row) and 2^(t - m), k = 1.
+      const float k = kBias ? 1.0f : scale_log2;
+      if constexpr (kBias || kMasked) {
+#pragma unroll
+        for (int n = 0; n < kBN / 8; ++n) {
+          float2 kb = make_float2(0.0f, 0.0f);
+          if constexpr (kBias) kb = *reinterpret_cast<const float2*>(bias_row + key0 + 8 * n);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = s_acc[4 * n + e];
+            if constexpr (kBias) x = __fmaf_rn(x, scale_log2, (e & 1) ? kb.y : kb.x);
+            if constexpr (kMasked) x = key0 + 8 * n + (e & 1) < sk ? x : -INFINITY;
+            s_acc[4 * n + e] = x;
+          }
+        }
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < kBN / 8; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s_acc[4 * n], s_acc[4 * n + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s_acc[4 * n + 2], s_acc[4 * n + 3]));
+      }
+      float mk[2];  // m k, subtracted in the FFMA: 0 while a row has seen only -inf
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_run[r], mx[r]);
+        corr[r] = m_run[r] == -INFINITY ? 0.0f : exp2_approx(__fmul_rn(__fsub_rn(m_run[r], m_new), k));
+        m_run[r] = m_new;
+        mk[r] = m_new == -INFINITY ? 0.0f : __fmul_rn(m_new, k);
+        l_run[r] *= corr[r];
+      }
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) {
+        const int r = (i >> 1) & 1;  // s_acc[i] lies in row g + 8 r
+        const float e = exp2_approx(__fmaf_rn(s_acc[i], k, -mk[r]));
+        l_run[r] += e;
+        s_acc[i] = e;
+      }
+      return;
+    }
 #pragma unroll
     for (int n = 0; n < kBN / 8; ++n) {
       float2 kb = make_float2(0.0f, 0.0f);
@@ -613,15 +710,19 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_arrive_if(k_empty(s), t == 0);
       softmax(std::false_type{}, bias_row, n_keys - 1 - i, corr);
       uint32_t p_new[kBN / 4];
-      pack_p(p_new);
+      if constexpr (!L::kOneP) pack_p(p_new);
       wgmma_wait<0>();
       fence_regs(o);
       fence_regs(p);  // P of the key tile before stays in its registers until PV has read it
       mbar_arrive_if(v_empty(sp), t == 0);
 #pragma unroll
       for (int e = 0; e < HD / 2; ++e) o[e] *= corr[(e >> 1) & 1];
+      if constexpr (L::kOneP) {
+        pack_p(p);
+      } else {
 #pragma unroll
-      for (int e = 0; e < kBN / 4; ++e) p[e] = p_new[e];
+        for (int e = 0; e < kBN / 4; ++e) p[e] = p_new[e];
+      }
     }
     {
       const int s = (kv - 1) % kStages;
