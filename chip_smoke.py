@@ -301,7 +301,8 @@ phase 17's 384 px path (its graph and reference checks not counted), its ``launc
 references and timing loops are not counted), its ``launches_shortlist``
 phase 15's (its checks and timing loops not counted) and its
 ``launches_tp`` phase 16's (the one-device references not counted), its ``launches_dinov2``
-phase 18's DINOv2 path (its checks and timing not counted); each count is zeroed just
+phase 18's DINOv2 path (its checks and timing not counted), its ``launches_dinov3``
+phase 19's DINOv3 path (the same); each count is zeroed just
 before its path runs; kernels 9 (``attention``) and 10
 (``add_layer_norm``, 55 launches a tower call) run wherever a tower
 embeds with bf16 weights and no gradient, and training's phase 13 counts
@@ -1570,13 +1571,14 @@ def check_brute_force(results, q, rows_bf16, row_of, what):
 
 def phase_end_to_end(mods, gpu, work):
     """Phase 4: returns (launches of kernels 1, 2, 9 (its Hopper design
-    also under ``attention_sm90``), 10 and 11 (none: SigLIP has no SwiGLU
-    gate), database, model cache, engine)."""
+    also under ``attention_sm90``), 10, 11 and 12 (none: SigLIP has no
+    SwiGLU gate and no rotary positions), database, model cache, engine)."""
     ops = mods[0]
     from tpuclip_torch import cli
     from tpuclip_torch.engine import ImageDatabase
     from tpuclip_torch.ops.attention import attention, attention_sm90
     from tpuclip_torch.ops.layernorm import add_layer_norm
+    from tpuclip_torch.ops.rope import rope
     from tpuclip_torch.ops.swiglu import silu_mul
 
     os.environ["TPUCLIP_HOME"] = str(work / "home")
@@ -1639,8 +1641,8 @@ def phase_end_to_end(mods, gpu, work):
           f"init)  ({gpu})", flush=True)
     print(f"[e2e] kernel launches in this phase: {launches}", flush=True)
     check(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
-    launches["silu_mul"] = silu_mul.launches
-    check(launches["silu_mul"] == 0, f"kernel 11 ran on the SigLIP path: {launches}")
+    launches["silu_mul"], launches["rope"] = silu_mul.launches, rope.launches
+    check(launches["silu_mul"] == launches["rope"] == 0, f"kernel 11 or 12 ran on the SigLIP path: {launches}")
 
     # What the database holds, and the brute-force reference over it.
     ids, vectors = engine.index.cache.load()
@@ -3237,6 +3239,161 @@ def phase_dinov2(gpu, work):
     return launches
 
 
+MODEL_DINOV3 = "facebook/dinov3-vit7b16-pretrain-lvd1689m"
+CELL_DINOV3 = "embed.dinov3-7b-512.b16"
+N_DINOV3 = 32
+DINOV3_ROWS = 16 * 1029  # one b16 call's token rows
+
+
+def phase_dinov3_kernels(lops, gpu):
+    """Phase 19 (a): kernel 12 at one b16 call of the DINOv3 cell (16 x
+    1,029 tokens, 32 heads of 128) and kernel 10 with γ at width 4096 (its
+    wide design), each alone after an L2 flush, against their byte bounds;
+    returns kernel 12's record with kernel 10's under
+    ``add_layer_norm_d4096``."""
+    from tpuclip_torch.models import dinov3
+    from tpuclip_torch.ops import rope as rops
+    from tpuclip_torch.ops._build import library
+
+    dev = torch.device("cuda")
+    lib = library()
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev).zero_
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(19)
+    cfg = dinov3.get_config(MODEL_DINOV3).vision
+    b, s, d, heads, prefix = 16, cfg.num_tokens, cfg.hidden_size, cfg.num_heads, cfg.num_prefix_tokens
+    angles = dinov3.rope_angles(cfg, 32, 32)
+    cos, sin = torch.cos(angles).to(dev), torch.sin(angles).to(dev)
+    q, k = ((torch.randn((b, s, d), generator=gen, device=dev) * 2).to(torch.bfloat16) for _ in range(2))
+    want = rops.rope_plain(q, k, cos, sin, heads, prefix)
+    got = rops.rope(q.clone(), k.clone(), cos, sin, heads, prefix)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)), "rope: the kernel is not bit-equal to its plain version")
+
+    def kernel():
+        check(lib.tpuclip_rope2d(q.data_ptr(), k.data_ptr(), cos.data_ptr(), sin.data_ptr(), b, s, prefix, d,
+                                 d // heads, stream) == 0, "rope2d launch failed")
+
+    kernel_ms = cold_p50_ms(kernel, 20, flush)
+    plain = cold_p50_ms(lambda: rops.rope_plain(q, k, cos, sin, heads, prefix), 20, flush)
+    n_bytes = 2 * 2 * b * (s - prefix) * d * 2
+    record = {**entry(0.0, None, plain, n_bytes, 0, "bf16"), "kernel_ms": kernel_ms, "bit_equal_share": 1.0}
+    record["bound_share"] = record["bound_ms"] / kernel_ms
+    print(f"[dinov3] rope (kernel 12) B={b} S={s} {heads} x {d // heads}: bit-equal to the plain version; kernel "
+          f"alone p50 {kernel_ms:.4f} ms, {100 * record['bound_share']:.1f}% of the byte bound "
+          f"{record['bound_ms']:.4f} ms; plain {plain:.4f} ms (L2 flushed before each launch)  ({gpu})", flush=True)
+    del q, k, got, want
+    torch.cuda.empty_cache()
+
+    rows, eps = DINOV3_ROWS, cfg.layer_norm_eps
+    x = (torch.randn((rows, d), generator=gen, device=dev) * 3).to(torch.bfloat16)
+    delta = (torch.randn((rows, d), generator=gen, device=dev) * 4).to(torch.bfloat16)
+    gamma = (0.1 + 0.03 * torch.randn(d, generator=gen, device=dev)).to(torch.bfloat16)
+    w = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(torch.bfloat16)
+    bias = (0.1 * torch.randn(d, generator=gen, device=dev)).to(torch.bfloat16)
+    got_x, got_y = lops.add_layer_norm(x, delta, w, bias, eps, gamma)
+    want_x, want_y = lops.add_layer_norm_plain(x, delta, w, bias, eps, gamma)
+    check(torch.equal(got_x, want_x), f"add_layer_norm D={d}: x_out is not the plain sum")
+    ok, worst, equal = bf16_steps(got_y, want_y)
+    check(ok, f"add_layer_norm D={d}: y more than one bf16 step off (max diff {worst:.2e})")
+    x_out, y = torch.empty_like(x), torch.empty_like(x)
+    args = (x.data_ptr(), delta.data_ptr(), gamma.data_ptr(), w.data_ptr(), bias.data_ptr(), x_out.data_ptr(),
+            y.data_ptr(), rows, d, eps, stream)
+    k_ms = cold_p50_ms(lambda: check(lib.tpuclip_add_layernorm(*args) == 0, "add_layernorm launch failed"), 20, flush)
+    n_bytes = rows * d * 2 * 4 + 3 * d * 2
+    case = {**entry(worst, None, None, n_bytes, 0, "bf16"), "kernel_ms": k_ms, "bit_equal_share": equal}
+    case["bound_share"] = case["bound_ms"] / k_ms
+    print(f"[dinov3] add_layer_norm (kernel 10, wide design) rows={rows:,} D={d} x + gamma * delta: x_out bit-equal "
+          f"to the plain sum, y within one bf16 step (max diff {worst:.2e}); kernel alone p50 {k_ms:.4f} ms, "
+          f"{100 * case['bound_share']:.1f}% of the byte bound {case['bound_ms']:.4f} ms  ({gpu})", flush=True)
+    del x, delta, x_out, y, got_x, got_y, want_x, want_y
+    torch.cuda.empty_cache()
+    record["add_layer_norm_d4096"] = case
+    return record
+
+
+def phase_dinov3(gpu, work):
+    """Phase 19 (b): DINOv3-7B end to end, short: scan, search by image and
+    a refused text search at 512 px, a tower call's launches, and the
+    benchmark's seeded weights against ``bench_port/reference/dinov3_ref.py``;
+    returns every counted kernel's launches on the scan and search path."""
+    from bench_port.drivers import embed_dinov3
+    from bench_port.flops_dinov3 import dinov3_shape
+    from bench_port.reference import dinov3_ref, siglip_ref
+    from tpuclip_torch import cli
+    from tpuclip_torch.engine import ImageDatabase
+    from tpuclip_torch.io.decode import load_image
+    from tpuclip_torch.io.preprocess import preprocess_batch
+    from tpuclip_torch.ops._counters import COUNTED
+
+    from PIL import Image
+
+    root, db, cache = work / "images_dinov3", str(work / "dinov3.db"), str(work / "models")
+    rng = np.random.default_rng(19)
+    root.mkdir(parents=True, exist_ok=True)
+    for i in range(N_DINOV3):
+        h, w = ((480, 640), (512, 512))[i % 2]
+        arr = np.clip(rng.integers(0, 256, (1, 1, 3)) + rng.integers(-40, 40, (h, w, 3)), 0, 255).astype(np.uint8)
+        Image.fromarray(arr).save(root / f"img_{i:04d}.jpg", quality=90)
+    files = sorted(root.glob("*.jpg"))
+    model_args = ["--db", db, "--model", MODEL_DINOV3, "--model-cache", cache]
+    with environ(TPUCLIP_SEARCH_PRECISION="int8", TPUCLIP_SEARCH_MODE="exact", TPUCLIP_DEVICE_RERANK="1",
+                 TPUCLIP_INIT="random"):
+        for wrapper in COUNTED:
+            wrapper.launches = 0
+        t0 = time.perf_counter()
+        cli.main(["scan", str(root), *model_args, "--inference-batch-size", "16"])
+        scan_s = time.perf_counter() - t0
+        try:
+            cli.main(["search", "a red car", "-k", str(K), *model_args, "--no-session"])
+            refused = None
+        except SystemExit as e:
+            refused = e.code
+        engine = ImageDatabase(db, cache, model_name=MODEL_DINOV3, inference_batch_size=16)
+        query = load_image(str(files[5]))
+        found = engine.search_image_pil(query, K)
+        torch.cuda.synchronize()
+        launches = {wrapper.__name__: wrapper.launches for wrapper in COUNTED}
+    print(f"[dinov3] kernel launches in this phase: {launches}", flush=True)
+    check(refused == 2, f"a text search of the image-only model exited with {refused!r}, not 2")
+    check(found[0][0] == str(files[5]), "search by image does not rank its own image first")
+    ids, _ = engine.index.cache.load()
+    check(len(ids) == N_DINOV3, f"{len(ids)} rows indexed, expected {N_DINOV3}")
+    model = engine.model
+    pixels = preprocess_batch([load_image(str(f)) for f in files[:16]], engine.image_size)
+    dev_pixels = torch.from_numpy(pixels).cuda()
+    counts = {wrapper.__name__: wrapper.launches for wrapper in COUNTED}
+    model.get_image_features(dev_pixels)
+    per_call = {w.__name__: w.launches - counts[w.__name__] for w in COUNTED}
+    want = {"add_layer_norm": 81, "silu_mul": 40, "rope": 40, "attention": 40, "attention_sm90": 40}
+    check(all(per_call[n] == v for n, v in want.items()), f"a tower call launched {per_call}, expected {want}")
+    root_dir = Path(__file__).resolve().parent
+    config = json.loads((root_dir / "bench_port/configs/dinov3-vit7b16-pretrain-lvd1689m.json").read_text())
+    limits = json.loads((root_dir / f"bench_port/limits/{CELL_DINOV3}.json").read_text())
+    shape = dinov3_shape(config)
+    w = embed_dinov3.make_weights(shape, 2**31 + 512, dev_pixels.device, torch.bfloat16)
+    embed_dinov3.load_into_port(model, w)
+    rows_engine = engine.embed_images_uint8(pixels)
+    vision_ms = p50_ms(lambda: model.get_image_features(dev_pixels), 5)
+    del engine, model, dev_pixels
+    torch.cuda.empty_cache()
+    ref = dinov3_ref.reference_rows(siglip_ref.fp32_weights(w), pixels, np.arange(16), shape).cpu().numpy()
+    del w
+    dist = np.linalg.norm(rows_engine.astype(np.float64) - ref, axis=1)
+    check(dist.max() <= limits["max_row_dist"] and np.median(dist) <= limits["median_row_dist"],
+          f"embed_images_uint8: rows {dist.max()} (median {np.median(dist)}) from the fp32 reference, over {limits}")
+    print(f"[dinov3] scan of {N_DINOV3} JPEGs at 512 px in {scan_s:.1f} s (with model init), search by image "
+          f"ranks its image first, a text search refused (exit 2); a tower call launches kernel 10 81 times, kernels "
+          f"11, 12 and 9 (Hopper, hd 128) 40 times each; the benchmark's seeded weights: rows (batch 16) against "
+          f"the plain fp32 reference max {dist.max():.4f}, median {np.median(dist):.4f} (limits "
+          f"{limits['max_row_dist']}, {limits['median_row_dist']}); tower alone, batch 16 p50 {vision_ms:.1f} ms = "
+          f"{16e3 / vision_ms:.1f} images/s  ({gpu})", flush=True)
+    print("[phase19-json] " + json.dumps({
+        "gpu": gpu, "scan_s": scan_s, "engine_max_row_dist": float(dist.max()),
+        "engine_median_row_dist": float(np.median(dist)), "limits": limits, "vision_batch16_ms": vision_ms,
+        "per_call": per_call, "launches": launches}), flush=True)
+    return launches
+
+
 def fused_program(ops, model, n_texts, tail, method):
     """``query_topk_fused`` over the resident ``tail`` (m, scales, rows, k,
     n_valid) as a function of its host inputs: the texts' ids and mask
@@ -4081,7 +4238,7 @@ def phase_mesh(mods, gpu, work, db, cache, resident, binary_rows, ivf_ctx):
     torch.cuda.synchronize()
     launches = {wrapper.__name__: wrapper.launches for wrapper in COUNTED}
     print(f"[mesh] kernel launches on the mesh path: {launches}", flush=True)
-    idle = ("patch_embed_fused", "attention_sm90", "silu_mul")  # no kernel 8, Hopper shape or SwiGLU here
+    idle = ("patch_embed_fused", "attention_sm90", "silu_mul", "rope")  # no kernel 8, Hopper shape, SwiGLU or RoPE
     check(all(n > 0 for name, n in launches.items() if name not in idle),
           f"a kernel of the mesh path was not launched: {launches}")
     check(launches["patch_embed_fused"] == 0, f"kernel 8 ran on the mesh path: {launches}")
@@ -4779,6 +4936,10 @@ def main():
         torch.cuda.empty_cache()
         dino = phase_dinov2(gpu, Path(tmp))
         torch.cuda.empty_cache()
+        record["rope"] = phase_dinov3_kernels(lops, gpu)
+        torch.cuda.empty_cache()
+        dino3 = phase_dinov3(gpu, Path(tmp))
+        torch.cuda.empty_cache()
         ivf, ivf_ctx = phase_ivf(mods, gpu, Path(tmp), db)
         torch.cuda.empty_cache()
         train = phase_train(gpu, Path(tmp))
@@ -4803,6 +4964,7 @@ def main():
         "attention_sm90": ("tpuclip_torch/csrc/attention_sm90.cu", None),
         "add_layer_norm": ("tpuclip_torch/csrc/add_layernorm.cu", None),
         "silu_mul": ("tpuclip_torch/csrc/silu_mul.cu", None),
+        "rope": ("tpuclip_torch/csrc/rope2d.cu", None),
     }
     # Kernel 9's Hopper design: its launches (a share of "attention"'s) and
     # phase 3's record of the two designs in turns.
@@ -4819,7 +4981,8 @@ def main():
          "launches_mesh": mesh[name.removesuffix("_q16")],
          "launches_shortlist": shortlist[name.removesuffix("_q16")],
          "launches_tp": tp[name.removesuffix("_q16")],
-         "launches_dinov2": dino[name.removesuffix("_q16")], **record[name]}
+         "launches_dinov2": dino[name.removesuffix("_q16")],
+         "launches_dinov3": dino3[name.removesuffix("_q16")], **record[name]}
         for name, (source, replaces) in sources.items()
     ]
     check("jax" not in sys.modules, "the port loaded jax")

@@ -2,8 +2,9 @@
 kernel 10) and the towers that carry the pending residual into it.
 
 On the CPU: the plain version, and the wrapper on CPU tensors, are
-``x + delta`` then ``F.layer_norm`` bit for bit (fp32 and bf16; D 768, 1152
-and 1536; with and without delta); the towers' new order (the MLP's output
+``x + delta`` then ``F.layer_norm`` bit for bit (fp32 and bf16; D 768, 1152,
+1536, 2048 and 4096; with and without delta, and with a LayerScale at the
+wide design's 2048 and 4096); the towers' new order (the MLP's output
 pending into the next layer's first LayerNorm, the last one's folded into
 the post-LN or the final LN) gives the former add-then-LN loop's outputs
 bit for bit in the vision, NaFlex and text towers at the tiny presets, in
@@ -12,7 +13,8 @@ what its inputs show; the wrapper refuses what the kernel does not take,
 and its CUDA branch passes the tensors as they are (tensors that report a
 CUDA device, a recorder in place of the library).
 On a CUDA card (``cuda`` marker): the kernel against the plain version at
-the cells' row counts (x_out bit-equal, y within one bf16 step), the SO400M
+the cells' row counts (x_out bit-equal, y within one bf16 step), the wide
+design at D 2048 and 4096 at the DINOv3 cell's 16,464 rows, the SO400M
 towers through the kernel against the forced plain route with 55 launches a
 call, and a text-tower graph replay against eager."""
 
@@ -45,7 +47,7 @@ def _rows(rng, shape, dtype, delta=True):
 
 
 @pytest.mark.parametrize("with_delta", [True, False])
-@pytest.mark.parametrize("d", [768, 1152, 1536])
+@pytest.mark.parametrize("d", [768, 1152, 1536, 2048, 4096])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_plain_is_the_add_then_layer_norm(dtype, d, with_delta):
     """Both the plain version and the wrapper on CPU tensors return the add
@@ -62,6 +64,24 @@ def test_plain_is_the_add_then_layer_norm(dtype, d, with_delta):
         if not with_delta:
             assert x_out is x
     assert lops.add_layer_norm.launches == before
+
+
+@pytest.mark.parametrize("scaled", [True, False])
+@pytest.mark.parametrize("d", [2048, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_rows_plain_is_one_rounded_sum_then_layer_norm(dtype, d, scaled):
+    """At the wide design's widths, with and without a LayerScale: the
+    plain version and the wrapper on CPU tensors return ``x + scale *
+    delta`` in fp32 rounded once (``x + delta`` unscaled) and
+    ``F.layer_norm`` of it."""
+    rng = np.random.default_rng(d + scaled)
+    x, delta, w, b = _rows(rng, (2, 9, d), dtype)
+    scale = torch.from_numpy(0.1 + 0.03 * rng.standard_normal(d, dtype=np.float32)).to(dtype) if scaled else None
+    s = (x.float() + scale.float() * delta.float()).to(dtype) if scaled else x + delta
+    want = F.layer_norm(s, (d,), w.to(dtype), b.to(dtype), EPS)
+    for fn in (lops.add_layer_norm_plain, lops.add_layer_norm):
+        x_out, y = fn(x, delta, w, b, EPS, scale)
+        assert torch.equal(x_out, s) and torch.equal(y, want), fn.__name__
 
 
 # ------------------------------------------------------------------ towers
@@ -195,7 +215,8 @@ def _bad_inputs(rng):
     return {
         "dtype_mix": (x, delta.float(), w, b, TypeError),
         "width_not_multiple_of_8": (*_rows(rng, (2, 3, 12), torch.bfloat16), ValueError),
-        "wider_than_1536": (*_rows(rng, (2, 1544), torch.bfloat16), ValueError),
+        # the key keeps its first name; the row is past the widest the kernel takes
+        "wider_than_1536": (*_rows(rng, (2, lops.MAX_WIDTH + 8), torch.bfloat16), ValueError),
         "rows_out_of_order": (x.transpose(0, 1), delta.transpose(0, 1), w, b, ValueError),
         "strided_row": (wide[0][:, ::2], wide[1][:, ::2], w, b, ValueError),
         "delta_shape": (x, delta[:2], w, b, ValueError),
@@ -212,7 +233,7 @@ BAD = list(_bad_inputs(np.random.default_rng(0)))
 @pytest.mark.parametrize("bad", BAD)
 def test_the_wrapper_refuses_what_the_kernel_does_not_take(recorder, bad, device):
     """On CPU tensors and on tensors that report a CUDA device alike: a
-    dtype mix, D not a multiple of 8 or past 1536, rows out of order or not
+    dtype mix, D not a multiple of 8 or past 4096, rows out of order or not
     contiguous, a delta or weight of the wrong shape, and anything that
     needs a gradient raise before any launch."""
     x, delta, w, b, error = _bad_inputs(np.random.default_rng(0))[bad]
@@ -264,6 +285,18 @@ def test_the_kernel_is_launched_with_the_tensors_as_they_are(recorder):
     assert lops.add_layer_norm.launches == before + 2 and len(recorder) == 2
 
 
+@pytest.mark.parametrize("d", [2048, 4096])
+def test_wide_rows_are_launched_through_the_one_entry(recorder, d):
+    """Rows past 1536 go to the same C entry with their width, which picks
+    the wide design itself; the scale's pointer is passed as at 1536."""
+    x, delta, w, b = (_fake(t.to(torch.bfloat16)) for t in _rows(np.random.default_rng(d), (3, 5, d), torch.bfloat16))
+    scale = _fake(torch.full((d,), 0.1, dtype=torch.bfloat16))
+    x_out, y = lops.add_layer_norm(x, delta, w, b, EPS, scale)
+    (args,) = recorder
+    assert args[:3] == (x.data_ptr(), delta.data_ptr(), scale.data_ptr())
+    assert args[5:] == (x_out.data_ptr(), y.data_ptr(), 15, d, pytest.approx(EPS), 7)
+
+
 # ============================================================ on the card
 
 
@@ -309,6 +342,37 @@ def test_cuda_kernel_matches_plain(cuda_device, rows, with_delta):
     assert torch.equal(x_out, want_x) and (with_delta or x_out is x)
     ok, worst, equal = _within_one_bf16_step(y, want_y)
     print(f"[add_layernorm] rows {rows} delta {with_delta}: y max diff {worst:.2e}, bit-equal {equal:.6f}")
+    assert ok, worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["scaled", "delta", "alone"])
+@pytest.mark.parametrize("d", [2048, 4096])
+def test_cuda_wide_rows_match_plain(cuda_device, d, mode):
+    """The wide design (a row a block of 4 warps) at the DINOv3 cell's
+    16,464 rows (16 images of 1,029 tokens): with LayerScale's γ, with a
+    plain delta and alone. x_out bit-equal to the plain sum (with γ: the
+    exact product of two bf16 values, then one rounding, on both sides), y
+    within one bf16 step of ``F.layer_norm`` of it (the row's sums in
+    another order)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d + len(mode))
+    rows = 16 * 1029
+    x = (torch.randn((rows, d), generator=gen, device=cuda_device) * 3
+         + torch.randn((rows, 1), generator=gen, device=cuda_device)).to(torch.bfloat16)
+    delta = None if mode == "alone" else (torch.randn((rows, d), generator=gen, device=cuda_device) * 4).to(
+        torch.bfloat16)
+    scale = (0.1 + 0.03 * torch.randn(d, generator=gen, device=cuda_device)).to(torch.bfloat16) if mode == "scaled" \
+        else None
+    w = (1 + 0.1 * torch.randn(d, generator=gen, device=cuda_device)).to(torch.bfloat16)
+    b = (0.1 * torch.randn(d, generator=gen, device=cuda_device)).to(torch.bfloat16)
+    before = lops.add_layer_norm.launches
+    x_out, y = lops.add_layer_norm(x, delta, w, b, 1e-5, scale)
+    torch.cuda.synchronize()
+    assert lops.add_layer_norm.launches == before + 1
+    want_x, want_y = lops.add_layer_norm_plain(x, delta, w, b, 1e-5, scale)
+    assert torch.equal(x_out, want_x) and (delta is not None or x_out is x)
+    ok, worst, equal = _within_one_bf16_step(y, want_y)
+    print(f"[add_layernorm] D {d} {mode}: y max diff {worst:.2e}, bit-equal {equal:.6f}")
     assert ok, worst
 
 

@@ -873,6 +873,7 @@ def _fake(x):
 @pytest.mark.parametrize("wrapper", [
     "int8_scores", "int8_candidates_packed", "int8_candidates", "topk_tiles", "binary_scores",
     "binary_topk_q1", "binary_topk_batched", "patch_embed_fused", "attention", "attention_sm90", "add_layer_norm",
+    "rope",
 ])
 def test_wrappers_launch_on_their_inputs_device(monkeypatch, wrapper):
     """Every CUDA wrapper makes its input's device current and passes that
@@ -886,6 +887,7 @@ def test_wrappers_launch_on_their_inputs_device(monkeypatch, wrapper):
     import tpuclip_torch.ops.hamming as hops
     import tpuclip_torch.ops.layernorm as lops
     import tpuclip_torch.ops.patch_embed as pops
+    import tpuclip_torch.ops.rope as rops
     import tpuclip_torch.ops.topk as tops
     import tpuclip_torch.ops.topk_int8 as ops
 
@@ -941,6 +943,8 @@ def test_wrappers_launch_on_their_inputs_device(monkeypatch, wrapper):
             *(_fake(torch.randn(2, 128, 144).to(torch.bfloat16)) for _ in range(3)), 2, _fake(torch.zeros(2, 128))),
         "add_layer_norm": lambda: lops.add_layer_norm(
             *(_fake(torch.randn(shape).to(torch.bfloat16)) for shape in ((4, 64), (4, 64), 64, 64)), 1e-6),
+        "rope": lambda: rops.rope(*(_fake(torch.randn(2, 19, 128).to(torch.bfloat16)) for _ in range(2)),
+                                  *(_fake(torch.randn(16, 16)) for _ in range(2)), 4, 3),
     }
     runs[wrapper]()
     assert calls and all(dev == torch.device("cuda", 1) and s == 1001 for _, dev, s in calls), calls

@@ -37,14 +37,16 @@ taken per token. Inference only: no remat, no training route.
 
 Presets live in :data:`PRESETS` here, not in ``models/configs.py`` (a copy
 of the JAX package's SigLIP registry). HF's parameter names map onto this
-model in :func:`load_hf_state_dict`.
+model in :func:`load_hf_state_dict`. DINOv3 (``models/dinov3.py``) runs this
+module's layer, head (:func:`layers_and_head`), init and HF loader
+(:func:`copy_hf_state`) with its own embedding and rotary positions.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -163,27 +165,30 @@ class SwiGLU(nn.Module):
 
 class Dinov2Layer(nn.Module):
     """Pre-LN block with LayerScale on both branches
-    (``Dinov2WithRegistersLayer``); the MLP's scaled add is left pending."""
+    (``Dinov2WithRegistersLayer``); the MLP's scaled add is left pending.
+    ``key_bias`` False: a k projection without a bias (DINOv3's block)."""
 
-    def __init__(self, cfg: Dinov2VisionConfig):
+    def __init__(self, cfg: Dinov2VisionConfig, key_bias: bool = True):
         super().__init__()
         d = cfg.hidden_size
         self.ln1 = LayerNorm(d, cfg.layer_norm_eps)
-        self.attn = Attention(d, cfg.num_heads)
+        self.attn = Attention(d, cfg.num_heads, key_bias=key_bias)
         self.gamma1 = nn.Parameter(torch.ones(d))
         self.ln2 = LayerNorm(d, cfg.layer_norm_eps)
         self.mlp = SwiGLU(d, cfg.intermediate_size)
         self.gamma2 = nn.Parameter(torch.ones(d))
 
     def forward(
-        self, x: torch.Tensor, delta: Optional[torch.Tensor], scale: Optional[torch.Tensor]
+        self, x: torch.Tensor, delta: Optional[torch.Tensor], scale: Optional[torch.Tensor],
+        rope: Optional[Callable] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The stream ``x``, the previous layer's pending MLP output
         ``delta`` and its γ2 ``scale`` (both None for the first layer) → the
         stream after this layer's attention and its MLP output, still to be
-        added with ``self.gamma2``."""
+        added with ``self.gamma2``. ``rope``: the attention's rotation of
+        the projected q and k (:func:`~tpuclip_torch.models.siglip.attend`)."""
         x, h = add_norm(x, delta, self.ln1, scale)
-        x, h = add_norm(x, self.attn(h, h), self.ln2, self.gamma1)
+        x, h = add_norm(x, self.attn(h, h, rope=rope), self.ln2, self.gamma1)
         return x, self.mlp(h)
 
 
@@ -230,26 +235,35 @@ class Dinov2Tower(nn.Module):
             d = p.shape[-1]
             x = torch.cat([self.cls_token.to(dtype).expand(b, 1, d), p], dim=1) + self.pos_embed.to(dtype)
             x = torch.cat([x[:, :1], self.register_tokens.to(dtype).expand(b, -1, d), x[:, 1:]], dim=1)
-        delta = scale = None
-        for layer in self.layers:
-            x, delta = layer(x, delta, scale)
-            scale = layer.gamma2
-        with span("tower.head"):
-            return add_norm(x[:, 0].contiguous(), delta[:, 0].contiguous(), self.final_ln, scale)[1]
+        return layers_and_head(self, x)
+
+
+def layers_and_head(tower: nn.Module, x: torch.Tensor, rope: Optional[Callable] = None) -> torch.Tensor:
+    """The embedded sequence ``x`` (class token first) through ``tower``'s
+    layers, each branch's γ-scaled output left pending into the next
+    LayerNorm, then the class token's final add and LayerNorm (D,) per image."""
+    delta = scale = None
+    for layer in tower.layers:
+        x, delta = layer(x, delta, scale, rope)
+        scale = layer.gamma2
+    with span("tower.head"):
+        return add_norm(x[:, 0].contiguous(), delta[:, 0].contiguous(), tower.final_ln, scale)[1]
 
 
 class Dinov2Model(nn.Module):
     """The image tower of a DINOv2-with-registers model: the engine's model
     object for a model without a text tower."""
 
+    tower = Dinov2Tower
+
     def __init__(self, cfg: Dinov2Config):
         super().__init__()
         self.cfg = cfg
-        self.vision = Dinov2Tower(cfg.vision)
+        self.vision = self.tower(cfg.vision)
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.vision.pos_embed.dtype
+        return self.vision.cls_token.dtype
 
     @torch.inference_mode()
     def get_image_features(self, pixel_values: torch.Tensor) -> torch.Tensor:
@@ -284,22 +298,25 @@ def init_params_(model: Dinov2Model, generator: torch.Generator) -> Dinov2Model:
     for module in model.modules():
         if isinstance(module, nn.Linear):
             normal_(module.weight, 1.0 / math.sqrt(module.in_features))
-            module.bias.zero_()
+            if module.bias is not None:
+                module.bias.zero_()
         elif isinstance(module, LayerNorm):
             module.weight.fill_(1.0)
             module.bias.zero_()
         elif isinstance(module, Dinov2Layer):
             module.gamma1.fill_(model.cfg.vision.layerscale_value)
             module.gamma2.fill_(model.cfg.vision.layerscale_value)
-    for p in (model.vision.cls_token, model.vision.register_tokens, model.vision.pos_embed):
-        normal_(p, 0.02)
+    for name in ("cls_token", "register_tokens", "pos_embed"):  # DINOv3 has no position table
+        if hasattr(model.vision, name):
+            normal_(getattr(model.vision, name), 0.02)
     return model
 
 
-def build_model(cfg: Dinov2Config, device: torch.device, dtype: torch.dtype) -> Dinov2Model:
-    """Uninitialised model allocated directly on ``device`` in ``dtype``."""
+def build_model(cfg: Dinov2Config, device: torch.device, dtype: torch.dtype,
+                model_class: type = Dinov2Model) -> Dinov2Model:
+    """Uninitialised ``model_class`` allocated directly on ``device`` in ``dtype``."""
     with torch.device("meta"):
-        model = Dinov2Model(cfg)
+        model = model_class(cfg)
     return model.to(dtype=dtype).to_empty(device=device).eval().requires_grad_(False)
 
 
@@ -343,16 +360,25 @@ def load_hf_state_dict(model: Dinov2Model, state: Mapping[str, object]) -> Dinov
     becomes the (D, P*P*C) patch rows, HF's leading singleton axes go. Every
     parameter is written once; HF's ``mask_token`` (masked-image training)
     is not used; any other name, or a missing one, raises."""
+    return copy_hf_state(model, hf_names(model.cfg.vision), state)
+
+
+def copy_hf_state(model: nn.Module, names: Mapping[str, Union[str, Tuple[str, ...]]],
+                  state: Mapping[str, object]) -> nn.Module:
+    """Copy ``state`` into ``model.vision`` by ``names``, {port parameter:
+    HF name, or HF names whose tensors are stacked along their first axis},
+    as :func:`load_hf_state_dict` describes."""
     cfg = model.cfg.vision
-    names = hf_names(cfg)
-    unknown = sorted(set(state) - set(names.values()) - {"embeddings.mask_token"})
-    missing = sorted(set(names.values()) - set(state))
+    wanted = {hf for v in names.values() for hf in ((v,) if isinstance(v, str) else v)}
+    unknown = sorted(set(state) - wanted - {"embeddings.mask_token"})
+    missing = sorted(wanted - set(state))
     if unknown or missing:
         raise ValueError(f"not a {model.cfg.name} state dict: missing {missing[:5]}, unknown {unknown[:5]}")
     params = dict(model.vision.named_parameters())
     for port, hf in names.items():
-        src = state[hf]
-        t = src if isinstance(src, torch.Tensor) else torch.from_numpy(np.array(src))
+        parts = [state[n] if isinstance(state[n], torch.Tensor) else torch.from_numpy(np.array(state[n]))
+                 for n in ((hf,) if isinstance(hf, str) else hf)]
+        t = parts[0] if len(parts) == 1 else torch.cat([p.to(parts[0].dtype) for p in parts])
         if t.numel() != params[port].numel():
             raise ValueError(f"{hf}: {tuple(t.shape)}, the model's {port} is {tuple(params[port].shape)}")
         if port == "patch.weight":  # (D, C, P, P) → (D, P*P*C) in (ph, pw, c) order

@@ -7,9 +7,10 @@ builds a deterministic random init with the distributions of tpuclip's
 ``init_params``, drawn on the target device from a seeded
 ``torch.Generator``. Weights land on ``device`` in ``dtype`` either way.
 
-DINOv2-with-registers names (:data:`tpuclip_torch.models.dinov2.PRESETS`)
-build that image-only model instead: from an HF-layout directory's
-safetensors under ``Dinov2WithRegistersModel``'s names, or at random.
+DINOv2-with-registers and DINOv3 names (:data:`tpuclip_torch.models.dinov2.
+PRESETS`, :data:`tpuclip_torch.models.dinov3.PRESETS`) build that image-only
+model instead: from an HF-layout directory's safetensors under
+``Dinov2WithRegistersModel``'s or ``DINOv3ViTModel``'s names, or at random.
 
 Accepted layouts under ``model_cache_dir`` (same as tpuclip):
   1. ``<cache>/google--siglip2-so400m-patch14-224/``
@@ -28,7 +29,7 @@ import torch
 
 from tpuclip_torch.device import DeviceLike, resolve_device
 from tpuclip_torch.utils.logging import log
-from tpuclip_torch.models import convert, dinov2
+from tpuclip_torch.models import convert, dinov2, dinov3
 from tpuclip_torch.models.configs import (
     DEFAULT_MODEL,
     PRESETS,
@@ -85,8 +86,9 @@ def load_model(
     card unless the caller names the CPU) in ``dtype``: local cache first,
     then error (or random init)."""
     device = resolve_device(device)
-    if model_name in dinov2.PRESETS:
-        return _load_dinov2(model_name, model_cache_dir, device, dtype, allow_random, seed)
+    for image_only in (dinov2, dinov3):
+        if model_name in image_only.PRESETS:
+            return _load_image_only(image_only, model_name, model_cache_dir, device, dtype, allow_random, seed)
     local = find_local_checkpoint(model_name, model_cache_dir)
     if local is not None:
         log(f"  Loading from local cache: {local}")
@@ -118,22 +120,23 @@ def _allow_random(allow_random: Optional[bool]) -> bool:
     return os.environ.get("TPUCLIP_INIT", "") == "random" if allow_random is None else allow_random
 
 
-def _load_dinov2(model_name: str, model_cache_dir: Optional[str], device, dtype, allow_random, seed: int):
-    """A DINOv2-with-registers preset: the local HF checkpoint's weights, or
-    the random init."""
+def _load_image_only(module, model_name: str, model_cache_dir: Optional[str], device, dtype, allow_random,
+                     seed: int):
+    """A preset of an image-only model ``module`` (``dinov2`` or ``dinov3``):
+    the local HF checkpoint's weights, or the random init."""
     local = find_local_checkpoint(model_name, model_cache_dir)
-    cfg = dinov2.get_config(model_name)
-    model = dinov2.build_model(cfg, device, dtype)
+    cfg = module.get_config(model_name)
+    model = module.build_model(cfg, device, dtype)
     if local is not None:
         log(f"  Loading from local cache: {local}")
-        dinov2.load_hf_state_dict(model, convert.read_checkpoint_dir(str(local)))
+        module.load_hf_state_dict(model, convert.read_checkpoint_dir(str(local)))
         log("  [OK] Model weights loaded")
         return cfg, model
     if not _allow_random(allow_random):
         raise _no_checkpoint(model_name, model_cache_dir)
     log(f"  [WARNING] No local checkpoint for {model_name}; using deterministic random "
         "initialization (TPUCLIP_INIT=random). Embeddings will NOT match the pretrained model.")
-    return cfg, dinov2.init_params_(model, torch.Generator(device=device).manual_seed(seed))
+    return cfg, module.init_params_(model, torch.Generator(device=device).manual_seed(seed))
 
 
 def _no_checkpoint(model_name: str, model_cache_dir: Optional[str]) -> FileNotFoundError:

@@ -48,7 +48,7 @@ from __future__ import annotations
 
 import math
 from contextlib import contextmanager
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -71,8 +71,10 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: f
 
 
 def dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
-    """``x @ W.T + b`` in the input dtype, accumulated in fp32."""
-    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+    """``x @ W.T + b`` in the input dtype, accumulated in fp32; ``x @ W.T``
+    for a layer without a bias (DINOv3's k projection)."""
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.linear(x, layer.weight.to(x.dtype), bias)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -122,14 +124,16 @@ def _key_bias(mask: Optional[torch.Tensor], batch: int, sk: int) -> Optional[tor
 
 def attend(
     q_in: torch.Tensor, kv_in: torch.Tensor, wq: nn.Linear, wk: nn.Linear, wv: nn.Linear,
-    num_heads: int, mask: Optional[torch.Tensor] = None,
+    num_heads: int, mask: Optional[torch.Tensor] = None, rope: Optional[Callable] = None,
 ) -> torch.Tensor:
     """The heads of ``wq`` / ``wk`` / ``wv`` (``num_heads`` of them, contiguous
     in the projections' output, as ``view(b, s, h, hd)`` reads it) attending
     from ``q_in`` (B, Sq, D) over ``kv_in`` (B, Sk, D): the heads' outputs
     (B, Sq, num_heads * hd), before the output projection. Scale
     1/sqrt(head_dim), fp32 logits and softmax; ``mask`` additive,
-    broadcastable to (B, num_heads, Sq, Sk).
+    broadcastable to (B, num_heads, Sq, Sk). ``rope``, where given, maps the
+    projected ``(q, k)`` to their rotated pair before the attention (DINOv3's
+    rotary positions, inside the ``tower.attn.rope`` span).
 
     bf16 projections that need no gradient go to
     :func:`~tpuclip_torch.ops.attention.attention` (on the card, kernel 9,
@@ -137,6 +141,9 @@ def attend(
     must differentiate, to the explicit matmuls of
     :func:`~tpuclip_torch.ops.attention.attention_plain`."""
     q, k, v = dense(q_in, wq), dense(kv_in, wk), dense(kv_in, wv)
+    if rope is not None:
+        with span("tower.attn.rope"):
+            q, k = rope(q, k)
     with span("tower.attn.core"):
         grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
         if q.dtype != torch.bfloat16 or grad:
@@ -146,21 +153,23 @@ def attend(
 
 class Attention(nn.Module):
     """Multi-head attention, HF SiglipAttention eager semantics
-    (:func:`attend`, then the output projection)."""
+    (:func:`attend`, then the output projection); ``key_bias`` False leaves
+    the k projection without a bias (DINOv3)."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, key_bias: bool = True):
         super().__init__()
         self.num_heads = num_heads
         self.q = nn.Linear(dim, dim)
-        self.k = nn.Linear(dim, dim)
+        self.k = nn.Linear(dim, dim, bias=key_bias)
         self.v = nn.Linear(dim, dim)
         self.o = nn.Linear(dim, dim)
 
     def forward(
-        self, q_in: torch.Tensor, kv_in: torch.Tensor, mask: Optional[torch.Tensor] = None
+        self, q_in: torch.Tensor, kv_in: torch.Tensor, mask: Optional[torch.Tensor] = None,
+        rope: Optional[Callable] = None,
     ) -> torch.Tensor:
         with span("tower.attn"):
-            return dense(attend(q_in, kv_in, self.q, self.k, self.v, self.num_heads, mask), self.o)
+            return dense(attend(q_in, kv_in, self.q, self.k, self.v, self.num_heads, mask, rope), self.o)
 
 
 class MLP(nn.Module):

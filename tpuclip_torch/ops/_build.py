@@ -47,6 +47,7 @@ SIGNATURES = {
     "tpuclip_attention_sm90": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "tpuclip_add_layernorm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     "tpuclip_silu_mul": [_P, _P, _I, _I, _P],
+    "tpuclip_rope2d": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from tpuclip_torch.ops._counters import counted
 
-MAX_WIDTH = 1536  # the kernel's widest row: 6 16-byte vectors a lane (giant-opt's width)
+MAX_WIDTH = 4096  # the kernel's widest row (DINOv3-7B's width): up to 1536 a row a warp, wider a row a block
 
 
 def add_layer_norm_plain(
